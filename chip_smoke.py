@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py          (from the repository root)
+
+It needs one CUDA device and the CUDA toolkit (nvcc); without a device
+it exits non-zero and prints no result. Phases, each ending in
+``torch.cuda.synchronize()``:
+
+1. the card's name and power limit (nvidia-smi) and the kernel build
+   from ``stateright_tpu_torch/csrc/`` (seconds);
+2. each CUDA kernel against its plain PyTorch version on the card, on
+   tensors at the main path's shapes (visited A ~10M keys, queries Q
+   ~16M, winners B ~1.5M) and on edge cases (a tie pool with hi limbs
+   at and above 2**31, sentinel tails, empty inputs, sizes that are not
+   multiples of the tile). Results must be exactly equal. It times the
+   kernel, the plain version and one PyTorch call computing the same
+   function (``torch.searchsorted`` for membership, a stable
+   ``torch.sort`` of the concatenation for the merge; the port calls
+   neither), and computes each kernel's bound;
+3. ``2pc`` rm=5 on the card with paths: 8,832 unique states, both
+   SOMETIMES discoveries with paths that replay through the host model,
+   no counterexample to "consistent", and the same discoveries and
+   paths as the same run on the CPU;
+4. the main path, ``2pc`` rm=9 through the library entry point the CLI
+   uses: 10,340,352 unique states, with every kernel launched (launch
+   counts are zeroed just before this run and read just after).
+
+It prints one JSON line of kernel records, then the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Any failed
+phase makes it exit 1 without that last line.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+#: device-memory rate and scalar peak of an H100 SXM (NVIDIA data
+#: sheet): the bound of a kernel is the larger of bytes / rate and
+#: operations / peak.
+HBM_BYTES_PER_SEC = 3.35e12
+SCALAR_OPS_PER_SEC = 67e12
+SOURCE = "stateright_tpu_torch/csrc/merge_path.cu"
+FAILED: list = []
+
+
+def phase(name):
+    def wrap(fn):
+        def run(*args, **kw):
+            import torch
+
+            t0 = time.monotonic()
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            except Exception:  # report the phase, keep the others going
+                FAILED.append(name)
+                print(f"[{name}] FAILED", flush=True)
+                traceback.print_exc()
+                return None
+            print(f"[{name}] ok in {time.monotonic() - t0:.3f}s", flush=True)
+            return out
+        return run
+    return wrap
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+@phase("build")
+def build():
+    from stateright_tpu_torch.ops import cuda_build, merge
+
+    t0 = time.monotonic()
+    # one nvcc per source, all started together
+    names = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
+    pending = {name: cuda_build.start_build(name) for name in names}
+    for name, job in pending.items():
+        cuda_build.finish_build(name, job)
+    merge._lib()
+    print(f"kernel build: {time.monotonic() - t0:.3f}s "
+          f"(nvcc {cuda_build.BUILD_SECONDS})", flush=True)
+
+
+def _rand_keys(n, gen, device, pool=None):
+    """n sorted packed keys: uniform 64-bit, or drawn from ``pool``."""
+    import torch
+
+    from stateright_tpu_torch.ops.fingerprint import clamp_keys, pack_keys
+
+    if pool is not None:
+        idx = torch.randint(0, pool.numel(), (n,), generator=gen,
+                            device=device)
+        return torch.sort(pool[idx]).values
+    lo = torch.randint(0, 1 << 32, (n,), generator=gen, device=device)
+    hi = torch.randint(0, 1 << 32, (n,), generator=gen, device=device)
+    return torch.sort(clamp_keys(pack_keys(lo, hi))).values
+
+
+def _with_tail(keys, tail):
+    import torch
+
+    from stateright_tpu_torch.ops.fingerprint import SENTINEL_KEY
+
+    return torch.cat([keys, torch.full((tail,), SENTINEL_KEY,
+                                       dtype=torch.int64,
+                                       device=keys.device)])
+
+
+def _tie_pool(gen, device):
+    import torch
+
+    from stateright_tpu_torch.ops.fingerprint import pack_keys
+
+    hi = torch.tensor([0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE,
+                       0xFFFFFFFF], device=device)
+    lo = torch.tensor([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                      device=device)
+    pool = pack_keys(lo.repeat_interleave(5), hi.repeat(5))
+    # drop the sentinel itself: tails add it explicitly
+    return pool[pool != torch.iinfo(torch.int64).max]
+
+
+def _err(a, b) -> float:
+    """max |a - b| over the elements, as unsigned fingerprints for
+    packed keys (0 when equal)."""
+    import torch
+
+    from stateright_tpu_torch.ops.fingerprint import key_to_fp
+
+    if a.shape != b.shape:
+        return math.inf
+    diff = (a != b).nonzero().flatten()
+    if diff.numel() == 0:
+        return 0
+    if a.dtype == torch.bool:
+        return 1
+    pairs = zip(a[diff].tolist(), b[diff].tolist())
+    return float(max(abs(key_to_fp(x) - key_to_fp(y)) for x, y in pairs))
+
+
+def _time_ms(fn, reps=10) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound_ms(bytes_moved: float, ops: float) -> tuple:
+    b_ms = bytes_moved / HBM_BYTES_PER_SEC * 1e3
+    o_ms = ops / SCALAR_OPS_PER_SEC * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+@phase("kernels")
+def kernels():
+    import torch
+
+    from stateright_tpu_torch.ops import merge
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+    pool = _tie_pool(gen, dev)
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+
+    # -- equality cases: (label, A, Q or B, block) ----------------------
+    big_a = _with_tail(_rand_keys(10_000_003, gen, dev), 517)
+    hits = big_a[torch.randint(0, big_a.numel(), (8_000_000,),
+                               generator=gen, device=dev)]
+    big_q = torch.sort(torch.cat([hits, _rand_keys(8_000_001, gen,
+                                                   dev)])).values
+    big_b = _rand_keys(1_500_007, gen, dev)
+    cases = [("main", big_a, big_q, big_b, merge.DEFAULT_BLOCK)]
+    for block in (32, 512, 1024):
+        cases.append((
+            f"ties/block={block}",
+            _with_tail(_rand_keys(100_003, gen, dev, pool), 33),
+            _with_tail(_rand_keys(70_001, gen, dev, pool), 7),
+            _with_tail(_rand_keys(30_011, gen, dev, pool), 5),
+            block,
+        ))
+    small = _rand_keys(1_001, gen, dev)
+    cases += [("empty A", empty, small, small, 512),
+              ("empty Q/B", small, empty, empty, 512),
+              ("sentinels only", _with_tail(empty, 700),
+               _with_tail(empty, 300), _with_tail(empty, 300), 512)]
+    err = {"member": 0, "merge": 0}
+    for label, a, q, b, block in cases:
+        m_k = merge.member_cuda(a, q, block)
+        m_p = merge.member_sorted_plain(a, q)
+        g_k = merge.merge_cuda(a, b, block)
+        g_p = merge.merge_sorted_plain(a, b)
+        torch.cuda.synchronize()
+        e_m, e_g = _err(m_k, m_p), _err(g_k, g_p)
+        print(f"  {label}: Na={a.numel()} Nq={q.numel()} Nb={b.numel()} "
+              f"member_err={e_m} merge_err={e_g} "
+              f"members={int(m_k.sum())}", flush=True)
+        err["member"] = max(err["member"], e_m)
+        err["merge"] = max(err["merge"], e_g)
+    if err["member"] or err["merge"]:
+        raise AssertionError(f"kernel != plain version: {err}")
+
+    # -- timing at the main path's shapes --------------------------------
+    na, nq, nb = big_a.numel(), big_q.numel(), big_b.numel()
+    cat = torch.cat([big_a, big_b])
+    blk = merge.DEFAULT_BLOCK
+    tiles_q = -(-(na + nq) // blk)
+    tiles_b = -(-(na + nb) // blk)
+    search = math.ceil(math.log2(blk + 1))
+    part = math.ceil(math.log2(na + 1))
+    m_bound = _bound_ms(8 * na + 8 * nq + nq,
+                        nq * search + (tiles_q + 1) * part)
+    g_bound = _bound_ms(16 * (na + nb),
+                        (na + nb) * search + (tiles_b + 1) * part)
+    rec = {
+        "member_sorted": dict(
+            replaces="stateright_tpu/ops/merge.py:282",
+            max_abs_err=err["member"],
+            ms=_time_ms(lambda: merge.member_cuda(big_a, big_q)),
+            plain_ms=_time_ms(
+                lambda: merge.member_sorted_plain(big_a, big_q), reps=3),
+            library_ms=_time_ms(
+                lambda: torch.searchsorted(big_a, big_q)),
+            bound_ms=m_bound[0], bound_by=m_bound[1],
+            shapes=dict(Na=na, Nq=nq),
+        ),
+        "merge_sorted": dict(
+            replaces="stateright_tpu/ops/merge.py:232",
+            max_abs_err=err["merge"],
+            ms=_time_ms(lambda: merge.merge_cuda(big_a, big_b)),
+            plain_ms=_time_ms(
+                lambda: merge.merge_sorted_plain(big_a, big_b), reps=3),
+            library_ms=_time_ms(lambda: torch.sort(cat, stable=True)),
+            bound_ms=g_bound[0], bound_by=g_bound[1],
+            shapes=dict(Na=na, Nb=nb),
+        ),
+    }
+    for name, r in rec.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
+              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at "
+              f"{r['shapes']}", flush=True)
+    return rec
+
+
+def _replays(model, path, prop) -> bool:
+    from stateright_tpu_torch.path import Path
+
+    replayed = Path.from_fingerprints(model, path.fingerprints())
+    return (replayed.fingerprints() == path.fingerprints()
+            and prop.condition(model, replayed.last_state()))
+
+
+@phase("2pc rm=5")
+def rm5():
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        c = model.checker().spawn_sortmerge(
+            capacity=1 << 15, frontier_capacity=1 << 13, device=device
+        ).join()
+        runs[device] = c
+        print(f"  {device}: states={c.state_count()} "
+              f"unique={c.unique_state_count()} depth={c.max_depth()} "
+              f"discovered={sorted(c.discovered_property_names())}",
+              flush=True)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu.unique_state_count() == 8832, gpu.unique_state_count()
+    want = {"abort agreement", "commit agreement"}
+    assert gpu.discovered_property_names() == want
+    for name, path in gpu.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+    assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
+    assert (gpu.state_count(), gpu.max_depth()) == (
+        cpu.state_count(), cpu.max_depth())
+
+
+@phase("2pc rm=9 (main path)")
+def rm9():
+    import torch
+
+    from stateright_tpu_torch import WriteReporter
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops import merge
+
+    model = TwoPhaseSys(rm_count=9)
+    # the engine and sizes `2pc check-gpu 9` runs
+    checker = model.checker().spawn_sortmerge(**twopc_sizes(9))
+    torch.cuda.reset_peak_memory_stats()
+    merge.member_cuda.launches = 0
+    merge.merge_cuda.launches = 0
+    t0 = time.monotonic()
+    out = io.StringIO()
+    checker.report(WriteReporter(out))
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = {"member_sorted": merge.member_cuda.launches,
+                "merge_sorted": merge.merge_cuda.launches}
+    unique = checker.unique_state_count()
+    print(f"  {out.getvalue().splitlines()[0]}", flush=True)
+    print(f"  {checker.metrics} sec={sec:.3f} "
+          f"states/s={checker.state_count() / sec:.0f} "
+          f"unique/s={unique / sec:.0f} launches={launches} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated()}",
+          flush=True)
+    assert unique == 10_340_352, unique
+    assert checker.discovered_property_names() == {
+        "abort agreement", "commit agreement"}
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import stateright_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    build()
+    rec = kernels() if not FAILED else None
+    rm5()
+    launches = rm9()
+    if FAILED or rec is None or launches is None:
+        print(f"chip_smoke: failed phases: {FAILED}", file=sys.stderr)
+        return 1
+    records = []
+    for name, r in rec.items():
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": r["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": records}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,284 @@
+"""The sort-merge wave engine, eager on a device.
+
+The port of ``stateright_tpu.checkers.tpu_sortmerge`` (its sparse,
+single-device, untiered path). The visited set is a SORTED array of
+packed int64 fingerprint keys (ops/fingerprint.py ``pack_keys``), kept
+sorted by merging each wave's winners into it; the parent forest is an
+append-only log of (parent, child) keys that stays on the device and is
+searched there, one lookup per step, when a path is reconstructed.
+
+One wave, on the ``[W, n]`` lane-major frontier:
+
+1. frontier fingerprints, property bits and discoveries
+   (checkers/tpu.py ``frontier_props_t``, ``wave_hits``);
+2. the packed enabled-slot words of every row
+   (:func:`frontier_enabled_bits`) and the enabled (row, slot) pairs in
+   (row, ascending slot) order (:func:`sparse_pair_candidates`);
+3. the pair step, the boundary, and the fingerprint fold of every
+   successor, clamped off the sentinel (:func:`eval_pairs`);
+4. one STABLE sort of the candidate keys (buffer position breaks ties,
+   so the lowest-position duplicate wins) and an adjacent-equal check;
+5. membership against the sorted visited set — ``ops.merge.member_keys``,
+   the CUDA member kernel on the card;
+6. order-preserving winner compaction (``compact_winners_keys``); the
+   winners, in KEY order, become the next frontier, their parents' keys
+   go to the parent log;
+7. the visited append — ``ops.merge.merge_keys``, the CUDA merge kernel
+   on the card.
+
+The JAX engine compiles static shapes, so it carries class ladders,
+``lax.switch`` variants, pair-width and candidate budgets, and a budget
+store. PyTorch runs eagerly, so this engine sizes every wave exactly:
+one host sync per wave reads the winner count. What the ladders
+guaranteed stays: overflow of the configured visited or frontier
+capacity RAISES, and nothing is truncated silently.
+
+The orders that decide the output match the JAX engine's, so the
+discovery fingerprints and the paths built from them are the same:
+candidates in (frontier row, ascending slot) order, a stable key sort,
+the frontier in winner key order and the init rows in ``init_vecs``
+order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..encoding import has_trivial_boundary, pair_step
+from ..model import Expectation
+from ..ops.bitmask import popcount_words, words_to_mask
+from ..ops.fingerprint import (
+    SENTINEL_KEY,
+    clamp_keys,
+    fingerprint_u32v_t,
+    pack_keys,
+)
+from ..ops.merge import compact_winners_keys, member_keys, merge_keys
+from ..report import ReportData
+from .tpu import TpuBfsChecker, discovery_update, frontier_props_t, wave_hits
+
+
+@dataclass
+class WaveState:
+    """The engine's resident state between waves (all on one device)."""
+
+    #: int64[U] sorted packed keys of every visited state
+    vkeys: torch.Tensor
+    #: int64[W, n] the frontier's uint32 lanes, lane-major
+    frontier: torch.Tensor
+    #: int64[n] eventually-bits per frontier row
+    ebits: torch.Tensor
+    depth: int = 1
+    #: the ``states=`` counter: init rows plus every generated candidate
+    generated: int = 0
+    #: parent-log blocks: (parent keys, child keys), int64 each
+    plog: list = field(default_factory=list)
+
+
+#: waves between two progress reports (the JAX engine's chunk length)
+REPORT_EVERY_WAVES = 64
+
+
+def frontier_enabled_bits(enc, frontier_t):
+    """Per-row packed enabled words ``int64[n, L]`` and per-row enabled
+    counts over the ``[W, n]`` frontier."""
+    bits = enc.enabled_bits_cols(frontier_t)
+    return bits, popcount_words(bits)
+
+
+def sparse_pair_candidates(bits, k: int):
+    """The enabled (row, slot) pairs as ``(rows, slots)`` int64 tensors,
+    in (row, ascending slot) order — the order the JAX engine's peel and
+    packed-append compaction produce. Unpacking the words and one
+    prefix-sum compaction (``nonzero``) replace the peel and the tiled
+    sorts."""
+    return words_to_mask(bits, k).nonzero(as_tuple=True)
+
+
+def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool):
+    """Successors ``[W, P]``, their clamped keys (the sentinel where the
+    successor leaves the boundary) and the in-boundary mask for a block
+    of pairs."""
+    succ_t = pair_step(enc, frontier_t, rows, slots)
+    keys = clamp_keys(pack_keys(*fingerprint_u32v_t(succ_t)))
+    if trivial_boundary:
+        return succ_t, keys, None
+    ok = enc.within_boundary_cols(succ_t)
+    return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok
+
+
+class SortMergeTpuBfsChecker(TpuBfsChecker):
+    """``CheckerBuilder.spawn_sortmerge()``.
+
+    ``capacity`` bounds the visited set and ``frontier_capacity`` the
+    states one wave may add (the JAX engine's buffer sizes); crossing
+    either raises. ``device`` defaults to the CUDA device; pass
+    ``"cpu"`` for the plain-PyTorch path.
+    """
+
+    def __init__(self, builder, encoded=None, capacity: int = 1 << 16,
+                 frontier_capacity: Optional[int] = None,
+                 track_paths: bool = True, device=None):
+        super().__init__(builder, encoded, capacity, frontier_capacity,
+                         track_paths, device)
+        self.metrics: dict = {}
+        self._start: Optional[WaveState] = None
+
+    def start_from(self, state: WaveState) -> "SortMergeTpuBfsChecker":
+        """Run from ``state`` (e.g. ``convert.carry_from_numpy`` of a
+        JAX engine's carry) instead of the init states."""
+        self._start = state
+        return self
+
+    # -- the wave loop ------------------------------------------------------
+
+    def seed_state(self) -> WaveState:
+        enc = self.encoded
+        W = enc.width
+        init = np.asarray(enc.init_vecs(), dtype=np.uint32).reshape(-1, W)
+        seen, rows = set(), []
+        for row in init:  # dedup the (few) init states host-side
+            fp = self._vec_fp(row)
+            if fp not in seen:
+                seen.add(fp)
+                rows.append(row)
+        n0 = len(rows)
+        if n0 > self.frontier_capacity:
+            raise ValueError(
+                f"frontier capacity {self.frontier_capacity} < {n0} init "
+                "states"
+            )
+        front = torch.from_numpy(
+            np.stack(rows).astype(np.int64).T.copy() if rows
+            else np.zeros((W, 0), np.int64)
+        ).to(self.device)
+        keys = clamp_keys(pack_keys(*fingerprint_u32v_t(front)))
+        ebits = torch.full((n0,), self._eventually_bits_init(),
+                           dtype=torch.int64, device=self.device)
+        return WaveState(vkeys=torch.sort(keys).values, frontier=front,
+                         ebits=ebits, generated=n0)
+
+    def _check_device(self) -> None:
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the wave engine runs on the GPU unless "
+                "device='cpu' is passed"
+            )
+
+    def _run(self, reporter=None) -> None:
+        self._check_device()
+        st = self._start if self._start is not None else self.seed_state()
+        self._start = None
+        enc = self.encoded
+        props = list(self.model.properties())
+        evt_idx = [i for i, p in enumerate(props)
+                   if p.expectation == Expectation.EVENTUALLY]
+        if evt_idx and max(evt_idx) >= 32:
+            raise ValueError(
+                "the wave engine supports eventually properties only at "
+                "property indices < 32; reorder properties() so eventually "
+                f"properties come first (got index {max(evt_idx)})"
+            )
+        K = enc.max_actions
+        trivial = has_trivial_boundary(enc)
+        waves = max_cand = max_new = 0
+        done = st.frontier.shape[1] == 0
+        if st.vkeys.numel() > self.capacity:
+            raise RuntimeError(self._overflow_message("visited"))
+        self._unique_states = st.vkeys.numel()
+        self._total_states = st.generated
+        self._max_depth = st.depth
+        while not done:
+            front = st.frontier
+            cond, eb, f_lo, f_hi = frontier_props_t(
+                enc, props, evt_idx, front, st.ebits
+            )
+            bits, cnt = frontier_enabled_bits(enc, front)
+            rows, slots = sparse_pair_candidates(bits, K)
+            succ_t, keys, ok = eval_pairs(enc, front, rows, slots, trivial)
+            if ok is None:
+                has_succ = cnt > 0
+                n_cand = rows.numel()
+            else:
+                has_succ = torch.zeros(front.shape[1], dtype=torch.bool,
+                                       device=front.device)
+                has_succ[rows[ok]] = True
+                n_cand = int(ok.sum())
+            if props:
+                hits = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
+                                 f_lo, f_hi)
+                discovery_update(props, *hits, self._discovered_fps)
+
+            # -- merge stage: stable candidate sort, membership, winners
+            s_key, s_pos = torch.sort(keys, stable=True)
+            prev_same = torch.zeros_like(s_key, dtype=torch.bool)
+            prev_same[1:] = s_key[1:] == s_key[:-1]
+            fresh = (s_key != SENTINEL_KEY) & ~prev_same
+            is_new = fresh & ~member_keys(st.vkeys, s_key)
+            new_count = int(is_new.sum())
+            unique = st.vkeys.numel() + new_count
+            if unique > self.capacity:
+                raise RuntimeError(self._overflow_message("visited"))
+            if new_count > self.frontier_capacity:
+                raise RuntimeError(self._overflow_message("frontier"))
+            nf_pos, w_key = compact_winners_keys(is_new, s_pos, s_key,
+                                                 new_count)
+            par_row = rows[nf_pos]
+            if self.track_paths and new_count:
+                st.plog.append((pack_keys(f_lo, f_hi)[par_row], w_key))
+            if new_count:
+                st.vkeys = merge_keys(st.vkeys, w_key)
+            st.frontier = succ_t[:, nf_pos]
+            st.ebits = eb[par_row]
+            st.generated += n_cand
+            waves += 1
+            max_cand = max(max_cand, keys.numel())
+            max_new = max(max_new, new_count)
+
+            all_disc = bool(props) and len(self._discovered_fps) == len(props)
+            done = new_count == 0 or all_disc
+            if not done:
+                st.depth += 1
+            self._unique_states = unique
+            self._total_states = st.generated
+            self._max_depth = st.depth
+            if (reporter is not None and not done
+                    and waves % REPORT_EVERY_WAVES == 0):
+                reporter.report_checking(ReportData(
+                    total_states=self._total_states,
+                    unique_states=self._unique_states,
+                    max_depth=self._max_depth,
+                    duration_sec=self.duration_sec(),
+                    done=False,
+                ))
+        # the widest wave: the member kernel's query count and the merge
+        # kernel's winner count at their largest
+        self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
+                            max_wave_new=max_new)
+        self._final = st
+        if self.track_paths:
+            # the log stays on the device: each path step is one
+            # device-side lookup, and nothing of it is downloaded
+            empty = st.vkeys.new_zeros(0)
+            self._plog = (
+                torch.cat([c for _, c in st.plog]) if st.plog else empty,
+                torch.cat([p for p, _ in st.plog]) if st.plog else empty,
+            )
+            for name, fp in self._discovered_fps.items():
+                self._discoveries[name] = self._reconstruct(fp)
+
+    def _overflow_message(self, kind: str) -> str:
+        if kind == "visited":
+            return (
+                f"visited table overflow (capacity={self.capacity}); "
+                "re-run with a larger capacity"
+            )
+        return (
+            f"frontier overflow: a wave produced more than "
+            f"{self.frontier_capacity} new states; re-run with a "
+            "larger frontier_capacity"
+        )

@@ -1,0 +1,88 @@
+"""Fixed-width state encodings: the bridge from models to the device.
+
+The PyTorch counterpart of ``stateright_tpu.encoding``, cut to the
+sparse-dispatch contract the sort-merge engine runs. An encoding pairs
+a host :class:`~stateright_tpu_torch.model.Model` (the semantic ground
+truth and replay oracle) with
+
+* a fixed-width state layout of ``width`` uint32 lanes,
+* batched device functions over LANE-MAJOR blocks: a block of N states
+  is an int64 tensor ``[W, N]`` whose row ``i`` is lane ``i`` of every
+  state (the JAX engines' transposed resident layout; the JAX package
+  writes per-state functions and ``vmap``s them over axis 1, the port
+  writes the batch out), and
+* property / boundary predicates aligned index-for-index with the host
+  model's ``properties()``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from .model import Model
+
+
+@runtime_checkable
+class SparseEncodedModel(Protocol):
+    """The contract the sparse sort-merge engine consumes.
+
+    * ``enabled_bits_cols(states_t)`` — ``[W, N] -> int64[N, L]`` packed
+      enabled-slot words (ops/bitmask.py layout, L = ceil(K/32));
+    * ``step_slot_cols(states_t, slots)`` — ``([W, N], int64[N]) ->
+      [W, N]``: the successor of each (state, enabled slot) pair. (The
+      JAX contract's optional truncation flags are not ported: no
+      encoding of the port has an internal bound yet.)
+    * ``property_conditions_cols(states_t)`` — ``[W, N] -> bool[N, P]``
+      in ``host_model.properties()`` order. EVENTUALLY properties must
+      sit at indices < 32 (the engine keeps their bits in one word);
+    * ``within_boundary_cols(states_t)`` — ``[W, N] -> bool[N]``;
+    * ``encode(state)`` / ``init_vecs()`` — host numpy ``uint32``
+      vectors; encoding must be canonical (equal states encode equal).
+    """
+
+    #: uint32 lanes per state
+    width: int
+    #: action slots per state (static K)
+    max_actions: int
+    #: the semantic ground truth; also supplies properties() and replay
+    host_model: Model
+
+    def init_vecs(self) -> np.ndarray: ...
+
+    def encode(self, state: Any) -> np.ndarray: ...
+
+    def enabled_bits_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
+
+    def step_slot_cols(self, states_t: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor: ...
+
+    def property_conditions_cols(self,
+                                 states_t: torch.Tensor) -> torch.Tensor: ...
+
+    def within_boundary_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
+
+
+class EncodedModelBase:
+    """Convenience defaults: no boundary."""
+
+    def within_boundary_cols(self, states_t: torch.Tensor) -> torch.Tensor:
+        return torch.ones(states_t.shape[1], dtype=torch.bool,
+                          device=states_t.device)
+
+
+def has_trivial_boundary(enc) -> bool:
+    """True when ``enc`` has no real boundary predicate (it inherits the
+    :class:`EncodedModelBase` default), so the engine skips the boundary
+    pass."""
+    wb = getattr(type(enc), "within_boundary_cols", None)
+    return wb is EncodedModelBase.within_boundary_cols
+
+
+def pair_step(enc, frontier_t: torch.Tensor, rows: torch.Tensor,
+              slots: torch.Tensor) -> torch.Tensor:
+    """The pair step: gather each pair's state column off the ``[W, F]``
+    frontier and step it by its slot; returns ``succ_t [W, N]``."""
+    return enc.step_slot_cols(frontier_t[:, rows], slots)

@@ -1,0 +1,90 @@
+"""Build the hand-written CUDA sources under ``csrc/`` and load them.
+
+Each source compiles with ``nvcc`` into a shared library with a plain C
+interface, bound with :mod:`ctypes` (no PyTorch headers, so a build
+takes seconds). Libraries land in ``build/kernels/`` at the repository
+root (listed in ``.gitignore``), named by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads. The
+build runs on first use, never at import: machines without ``nvcc``
+(CPU-only test runs) import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOADED: dict = {}
+#: seconds spent in nvcc per source name, for the smoke report.
+BUILD_SECONDS: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build with the CUDA toolkit "
+        "(put nvcc on PATH)"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / name).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(name).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def start_build(name: str):
+    """Start ``nvcc`` on ``csrc/<name>`` unless its library exists, and
+    return the pending build for :func:`finish_build` (None when there is
+    nothing to build). Lets a caller build several sources in parallel."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out, time.monotonic()
+
+
+def finish_build(name: str, pending) -> None:
+    """Wait for a build from :func:`start_build` and install its library
+    (atomically, so a concurrent loader never sees half a file)."""
+    if pending is None:
+        return
+    proc, tmp, out, t0 = pending
+    log, _ = proc.communicate()
+    BUILD_SECONDS[name] = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}:\n{log}")
+    os.replace(tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library built from ``csrc/<name>``, built on first
+    use and cached for the process."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        finish_build(name, start_build(name))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib

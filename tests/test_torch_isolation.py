@@ -1,0 +1,54 @@
+"""The PyTorch port stands alone: importing it and running its CLI
+loads neither jax nor anything of the JAX package, and no source file
+of the port (nor chip_smoke.py) imports either."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "stateright_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_and_cli_load_no_jax():
+    code = (
+        "import sys\n"
+        "import stateright_tpu_torch\n"
+        "from stateright_tpu_torch.cli import main\n"
+        "main(['2pc', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
+        " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
+        " 'stateright_tpu.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Done. states=" in out.stdout and "unique=" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
+def test_no_jax_imports_in_port_sources():
+    files = sorted((ROOT / "stateright_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} {bad}"
