@@ -13,11 +13,15 @@ it exits non-zero and prints no result. Phases, each ending in
    tensors at the main path's shapes (visited A ~10M keys, queries Q
    ~16M, winners B ~1.5M) and on edge cases (a tie pool with hi limbs
    at and above 2**31, sentinel tails, empty inputs, sizes that are not
-   multiples of the tile). Results must be exactly equal. It times the
-   kernel, the plain version and one PyTorch call computing the same
-   function (``torch.searchsorted`` for membership, a stable
+   multiples of the tile, every tile shape, windows at odd offsets,
+   tiles that are all A and then all B or Q, a run of equal keys across
+   tile boundaries, inputs below one tile, one key). Results must be
+   exactly equal. It times every tile shape, then at the default tile
+   the kernel, the plain version and one PyTorch call computing the
+   same function (``torch.searchsorted`` for membership, a stable
    ``torch.sort`` of the concatenation for the merge; the port calls
-   neither), and computes each kernel's bound;
+   neither), counts the device operations of one call with
+   ``torch.profiler``, and computes each kernel's bound and its share;
 3. ``2pc`` rm=5 on the card with paths: 8,832 unique states, both
    SOMETIMES discoveries with paths that replay through the host model,
    no counterexample to "consistent", and the same discoveries and
@@ -185,15 +189,17 @@ def kernels():
     pool = _tie_pool(gen, dev)
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
 
-    # -- equality cases: (label, A, Q or B, block) ----------------------
+    # -- equality cases: (label, A, Q or B, block); block None: each
+    # kernel's default tile ---------------------------------------------
     big_a = _with_tail(_rand_keys(10_000_003, gen, dev), 517)
     hits = big_a[torch.randint(0, big_a.numel(), (8_000_000,),
                                generator=gen, device=dev)]
     big_q = torch.sort(torch.cat([hits, _rand_keys(8_000_001, gen,
                                                    dev)])).values
     big_b = _rand_keys(1_500_007, gen, dev)
-    cases = [("main", big_a, big_q, big_b, merge.DEFAULT_BLOCK)]
-    for block in (32, 512, 1024):
+    tiny, big = min(merge.TILES), max(merge.TILES)
+    cases = [("main", big_a, big_q, big_b, None)]
+    for block in sorted(merge.TILES):
         cases.append((
             f"ties/block={block}",
             _with_tail(_rand_keys(100_003, gen, dev, pool), 33),
@@ -202,15 +208,42 @@ def kernels():
             block,
         ))
     small = _rand_keys(1_001, gen, dev)
-    cases += [("empty A", empty, small, small, 512),
-              ("empty Q/B", small, empty, empty, 512),
+    cases += [("empty A", empty, small, small, None),
+              ("empty Q/B", small, empty, empty, None),
               ("sentinels only", _with_tail(empty, 700),
-               _with_tail(empty, 300), _with_tail(empty, 300), 512)]
+               _with_tail(empty, 300), _with_tail(empty, 300), None)]
+    # the kernels' own edges: windows at odd offsets (a view from row 1
+    # starts 8 bytes past a 16-byte boundary), tiles that are all A and
+    # then all B or Q, a run of equal keys across tile boundaries (the
+    # member halo), inputs smaller than one tile, one key
+    mid_a, mid_q = big_a[:400_001], big_q[:600_003]
+    split = _rand_keys(60_001, gen, dev)
+    lower, upper = split[:30_000], split[30_000:]
+    run_a = _rand_keys(10_001, gen, dev)
+    same = run_a[5_000].repeat(5 * big + 3)
+    run_q = torch.sort(torch.cat([_rand_keys(3, gen, dev), same,
+                                  run_a[7_000:]])).values
+    one, other = run_a[:1], run_a[1:2]
+    for block in (tiny, None):
+        cases += [
+            (f"odd offsets A/block={block}", mid_a[1:], mid_q, big_b[1:],
+             block),
+            (f"odd offsets Q,B/block={block}", mid_a, mid_q[1:],
+             big_b[3:200_000], block),
+            (f"all A then all B/block={block}", lower, upper, upper, block),
+            (f"all B then all A/block={block}", upper, lower, lower, block),
+            (f"equal-key run/block={block}", run_a, run_q, same, block),
+            (f"below one tile/block={block}", run_a[:100], run_q[:57],
+             split[:31], block),
+            (f"one key, equal/block={block}", one, one, one, block),
+            (f"one key, other/block={block}", one, other, other, block),
+        ]
     err = {"member": 0, "merge": 0}
     for label, a, q, b, block in cases:
-        m_k = merge.member_cuda(a, q, block)
+        tiles = {} if block is None else {"block": block}
+        m_k = merge.member_cuda(a, q, **tiles)
         m_p = merge.member_sorted_plain(a, q)
-        g_k = merge.merge_cuda(a, b, block)
+        g_k = merge.merge_cuda(a, b, **tiles)
         g_p = merge.merge_sorted_plain(a, b)
         torch.cuda.synchronize()
         e_m, e_g = _err(m_k, m_p), _err(g_k, g_p)
@@ -225,15 +258,23 @@ def kernels():
     # -- timing at the main path's shapes --------------------------------
     na, nq, nb = big_a.numel(), big_q.numel(), big_b.numel()
     cat = torch.cat([big_a, big_b])
-    blk = merge.DEFAULT_BLOCK
-    tiles_q = -(-(na + nq) // blk)
-    tiles_b = -(-(na + nb) // blk)
-    search = math.ceil(math.log2(blk + 1))
-    part = math.ceil(math.log2(na + 1))
+    for block in sorted(merge.TILES):  # every tile shape, same inputs
+        print(f"  tile {block} rows {merge.TILES[block]}: member "
+              f"{_time_ms(lambda: merge.member_cuda(big_a, big_q, block)):.4f}"
+              f" ms, merge "
+              f"{_time_ms(lambda: merge.merge_cuda(big_a, big_b, block)):.4f}"
+              " ms", flush=True)
+
+    def per_row(tile):
+        # compares: one a merged row, plus each thread's diagonal search
+        # (log2 T probes for R rows); the two run diagonals a CTA
+        # searches (~6 ballot steps) are a few hundred thousand more
+        return 1 + math.ceil(math.log2(tile + 1)) / merge.TILES[tile][1]
+
     m_bound = _bound_ms(8 * na + 8 * nq + nq,
-                        nq * search + (tiles_q + 1) * part)
+                        (na + nq) * per_row(merge.MEMBER_BLOCK))
     g_bound = _bound_ms(16 * (na + nb),
-                        (na + nb) * search + (tiles_b + 1) * part)
+                        (na + nb) * per_row(merge.MERGE_BLOCK))
     rec = {
         "member_sorted": dict(
             replaces="stateright_tpu/ops/merge.py:282",
@@ -244,7 +285,9 @@ def kernels():
             library_ms=_time_ms(
                 lambda: torch.searchsorted(big_a, big_q)),
             bound_ms=m_bound[0], bound_by=m_bound[1],
-            shapes=dict(Na=na, Nq=nq),
+            launches_per_call=_device_ops(
+                lambda: merge.member_cuda(big_a, big_q)),
+            shapes=dict(Na=na, Nq=nq, tile=merge.MEMBER_BLOCK),
         ),
         "merge_sorted": dict(
             replaces="stateright_tpu/ops/merge.py:232",
@@ -254,15 +297,38 @@ def kernels():
                 lambda: merge.merge_sorted_plain(big_a, big_b), reps=3),
             library_ms=_time_ms(lambda: torch.sort(cat, stable=True)),
             bound_ms=g_bound[0], bound_by=g_bound[1],
-            shapes=dict(Na=na, Nb=nb),
+            launches_per_call=_device_ops(
+                lambda: merge.merge_cuda(big_a, big_b)),
+            shapes=dict(Na=na, Nb=nb, tile=merge.MERGE_BLOCK),
         ),
     }
     for name, r in rec.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
-              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at "
-              f"{r['shapes']}", flush=True)
+        r["pct_of_bound"] = 100 * r["bound_ms"] / r["ms"]
+        print(f"  {name}: kernel {r['ms']:.4f} ms "
+              f"({r['pct_of_bound']:.1f}% of bound), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+              f"(kernel/library {r['ms'] / r['library_ms']:.3f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device ops a "
+              f"call {r['launches_per_call']} at {r['shapes']}",
+              flush=True)
     return rec
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, memsets, copies) of one call, from
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {ev.key: ev.count for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA}
+    print(f"  device ops of one call: {ops}", flush=True)
+    return sum(ops.values())
 
 
 def _replays(model, path, prop) -> bool:
@@ -369,6 +435,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "pct_of_bound": r["pct_of_bound"],
+            "launches_per_call": r["launches_per_call"],
         })
     print(json.dumps({"kernels": records}))
     print(card)

@@ -6,186 +6,482 @@
 // sentinel is INT64_MAX. Both inputs of every kernel are sorted
 // ascending; ties order A first.
 //
-// Shared partition (merge_path_partition_kernel): the merged sequence
-// of A and B (or Q) is cut into `block`-row output tiles; for each cut
-// d = g * block one thread binary-searches the Merge Path diagonal for
-// starts[g], the number of A rows among the first d merged rows (A
-// first on ties). Tile g then merges A[starts[g], starts[g+1]) with
-// the B rows [g*block - starts[g], (g+1)*block - starts[g+1]). This is
-// `merge_path_starts` (stateright_tpu/ops/merge.py:202), which the JAX
-// package ran as plain XLA ahead of both Pallas kernels.
+// One templated body, merge_path_tiles<THREADS, R, MEMBER>, serves both
+// ops, each as its own kernel:
 //
-// merge_tile_kernel replaces the Pallas `_merge_kernel`
-// (stateright_tpu/ops/merge.py:232, pallas_call at :343). The Pallas
-// tile ranks every window row by a [block, block] broadcast compare and
-// places it by a one-hot reduce: work shaped for the TPU vector unit.
-// Here one CTA owns one output tile: it stages the tile's A and B
-// windows (at most `block` keys each, 8 KB at block 512) in shared
-// memory, and thread t takes A row t and B row t. Each finds its rank
-// in the other window by binary search (strict < for an A row against
-// B, <= for a B row against A, which puts A first on ties) and writes
-// its key straight to out[d0 + t + rank]. Every tile writes only its
-// own output rows, so CTAs need no order.
+// * merge_tile_kernel (MEMBER = false) replaces the Pallas `_merge_kernel`
+//   (stateright_tpu/ops/merge.py:232, pallas_call at :343): the stable
+//   merge of A and B, A first on ties, into out[Na + Nb];
+// * member_tile_kernel (MEMBER = true) replaces the Pallas `_member_kernel`
+//   (stateright_tpu/ops/merge.py:282, pallas_call at :373): for each
+//   query q of Q, whether q occurs in A. Walking the merge of A and Q
+//   (A first on ties), q is in A iff the last A key merged before q -
+//   the largest A key <= q - equals q. Each query's flag is written by
+//   the thread that merges it, so the kernel writes every row of out[Nq].
 //
-// member_tile_kernel replaces the Pallas `_member_kernel`
-// (stateright_tpu/ops/merge.py:282, pallas_call at :373). A query q is
-// in A iff the last A key merged before q (A first on ties: the largest
-// A key <= q) equals q. Merge Path puts that key in the tile's A window
-// or, when no window key is <= q, at A[a_s - 1]: the halo. One CTA
-// stages the window with its halo and each query binary-searches it.
-// The Pallas store wrote `block` rows from the tile's first query and
-// relied on later grid steps overwriting the overrun: correct only
-// under the TPU's sequential grid. Here each tile writes ONLY its own
-// query range [q_s, q_e), so CTAs run in any order.
+// Bound: both are bound by device-memory bytes. Merge reads each key
+// once and writes it once (16 bytes a merged row); member reads A and Q
+// once and writes one byte a query. The design keeps the card's memory
+// busy and everything else on chip:
 //
-// Bound: both kernels are bound by device-memory bytes. Merge reads
-// each input key once and writes each output key once, 16 bytes per
-// merged row; member reads A and Q once (8 bytes a key) and writes one
-// byte a query. The windows are read from device memory once per tile
-// (the halo and the partition's log2(Na) probes per tile are
-// negligible), and the searches run in shared memory. Staging is
-// plain coalesced loads; TMA or cp.async staging, persistent CTAs and
-// larger tiles are later work.
+// 1. One launch per call, a persistent grid. The merged sequence is cut
+//    into tiles of T = THREADS * R rows and each CTA owns one contiguous
+//    run of `tiles_per_cta` tiles (the grid is at most the CTAs the card
+//    holds at once, and never more CTAs than tiles). Warps 0 and 1 find
+//    the run's two Merge Path diagonals in device memory with a
+//    warp-cooperative search (32 probes and one ballot a step, about 6
+//    steps over 10M keys), so the CTA merges A[a0, a1) with B[b0, b1) on
+//    its own: no partition launch and no scratch.
+// 2. Two shared-memory rings, one for A, one for B (or Q), of D = 2
+//    tiles and two keys each, hold each stream's next keys: the current
+//    tile's window (at most T keys a side) and one tile of read-ahead. Thread 0 fills them with TMA bulk copies
+//    (cp.async.bulk, completion counted in bytes on an mbarrier per
+//    fill generation). Ring slot of key i is (i + phase) mod S, where
+//    phase is bit 3 of the stream's base address, so 16-byte-aligned
+//    keys in device memory land on 16-byte-aligned slots; each copy is
+//    widened by at most one key a side to 16-byte boundaries (the two
+//    spare slots keep that from touching a live key), and a key past
+//    an end of A or B goes alone by an 8-byte cp.async. Nothing is read
+//    past the CTA's run but those widened keys. After each tile thread
+//    0 refills exactly the slots the tile consumed; tile k waits only
+//    for the generation issued two tiles earlier. (Deeper rings cost
+//    CTAs an SM and were slower.)
+// 3. Per thread, one diagonal search in the rings (log2 T probes), then
+//    a serial merge of its R rows in registers: one compare a row. R is
+//    odd so that the staging writes of a warp (stride R keys) hit every
+//    bank pair once.
+// 4. Stores go through shared memory: merged keys as 16-byte stores
+//    (8 bytes at an unaligned edge), member flags as 4-byte words (bytes
+//    only at a ragged edge). Each tile writes exactly its own output
+//    rows, so CTAs need no order.
+//
+// Member's halo: a query whose thread starts with no A key in the
+// window still needs A[a_s - 1], the last A key before the window. The
+// CTA reads it from device memory once (absent when a_s == 0) and then
+// carries it from tile to tile in shared memory.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 typedef long long i64;
 
-__global__ void merge_path_partition_kernel(const i64* __restrict__ a,
-                                            i64 na,
-                                            const i64* __restrict__ b,
-                                            i64 nb, i64 block, i64 g_last,
-                                            i64* __restrict__ starts) {
-  i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g > g_last) return;
-  i64 m = na + nb;
-  i64 d = g * block < m ? g * block : m;
-  i64 lo = d - nb > 0 ? d - nb : 0;
-  i64 hi = d < na ? d : na;
+namespace {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 8-byte cp.async (a ragged key at an end of A or B), tracked by groups
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers and TMA bulk copies (global -> shared, completion counted
+// in bytes on an mbarrier)
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ i64 imin(i64 x, i64 y) { return x < y ? x : y; }
+__device__ __forceinline__ i64 imax(i64 x, i64 y) { return x > y ? x : y; }
+
+// The Merge Path split of diagonal d (the number of A rows among the
+// first d merged rows, A first on ties), found by one warp: each step
+// probes 32 points of [lo, hi) at once and keeps the gap where the
+// predicate "b[d - i - 1] < a[i]" (monotone in i) turns true.
+__device__ i64 warp_split(const i64* __restrict__ a, i64 na,
+                          const i64* __restrict__ b, i64 nb, i64 d,
+                          int lane) {
+  i64 lo = imax(0, d - nb), hi = imin(d, na);
   while (lo < hi) {
-    i64 mid = (lo + hi) >> 1;
-    // the split is <= mid iff b[d - mid - 1] merges before a[mid]
-    if (b[d - mid - 1] < a[mid]) {
-      hi = mid;
+    const i64 n = hi - lo;
+    const i64 i = lo + (((i64)lane * n) >> 5);
+    const bool p = b[d - i - 1] < a[i];
+    const int f = 32 - __popc(__ballot_sync(0xffffffffu, p));
+    if (f == 0) {
+      hi = lo;  // true at lo already
     } else {
-      lo = mid + 1;
+      const i64 base = lo;
+      lo = base + (((i64)(f - 1) * n) >> 5) + 1;
+      if (f < 32) hi = base + (((i64)f * n) >> 5);
     }
   }
-  starts[g] = lo;
+  return lo;
 }
 
-__global__ void merge_tile_kernel(const i64* __restrict__ a, i64 na,
-                                  const i64* __restrict__ b, i64 nb,
-                                  const i64* __restrict__ starts,
-                                  i64* __restrict__ out) {
-  extern __shared__ i64 smem[];
-  const int block = blockDim.x;
-  i64* aw = smem;
-  i64* bw = smem + block;
-  const i64 g = blockIdx.x;
-  const i64 d0 = g * block;
+// A stream's ring: S keys of shared memory; key i at slot
+// (i + phase) mod S. `head` is the slot of key `start`. S is two keys
+// more than the span the kernel keeps (window and read-ahead), so that
+// a copy widened by one key at each end to 16-byte boundaries writes
+// no slot that holds another live key.
+template <int S>
+struct Ring {
+  i64* slots;
+  int head;
+  i64 start;
+
+  static __device__ __forceinline__ int wrap(int s) {  // 0 <= s < 2S
+    return s >= S ? s - S : s;
+  }
+  __device__ __forceinline__ int slot(i64 i) const {  // |i - start| < S
+    const int s = head + (int)(i - start);
+    return s < 0 ? s + S : wrap(s);
+  }
+  __device__ __forceinline__ i64 at(int j) const {  // window row j
+    return slots[wrap(head + j)];
+  }
+  __device__ __forceinline__ void advance(int n) {
+    start += n;
+    head = wrap(head + n);
+  }
+  // Thread 0: the 16-byte-aligned key range [c0, c1) to bulk-copy for
+  // keys [lo, hi) of src (n keys): lo rounded down and hi rounded up
+  // to even (i + phase). A key past either end of src is not read:
+  // key 0 or key n - 1 then goes alone by an 8-byte cp.async.
+  __device__ void widen(const i64* __restrict__ src, i64 n, int phase,
+                        i64 lo, i64 hi, i64& c0, i64& c1) const {
+    c0 = c1 = 0;
+    if (lo >= hi) return;
+    c0 = lo - ((lo + phase) & 1);
+    c1 = hi + ((hi + phase) & 1);
+    if (c0 < 0) {
+      cp_async8(&slots[slot(0)], src);
+      c0 = 1;
+    }
+    if (c1 > n) {
+      cp_async8(&slots[slot(n - 1)], src + n - 1);
+      c1 = n - 1;
+    }
+    if (c1 < c0) c1 = c0;
+  }
+  // Thread 0: bulk-copy keys [c0, c1) into their slots (two copies
+  // where the range wraps), completing on `bar`.
+  __device__ void copy(const i64* __restrict__ src, i64 c0, i64 c1,
+                       uint64_t* bar) const {
+    if (c0 >= c1) return;
+    const int s0 = slot(c0);
+    const int len = (int)(c1 - c0);
+    const int first = min(len, S - s0);
+    bulk_copy(&slots[s0], src + c0, 8u * first, bar);
+    if (len > first) {
+      bulk_copy(&slots[0], src + c0 + first, 8u * (len - first), bar);
+    }
+  }
+};
+
+// Thread 0: one fill generation - the keys [fa, fa2) of A and [fb, fb2)
+// of B, bulk copies on `bar` (armed with their byte count first) and
+// ragged ends as one cp.async group.
+template <int S>
+__device__ void fill(const Ring<S>& ra, const i64* __restrict__ a, i64 na,
+                     int pa, i64 fa, i64 fa2, const Ring<S>& rb,
+                     const i64* __restrict__ b, i64 nb, int pb, i64 fb,
+                     i64 fb2, uint64_t* bar) {
+  i64 a0, a1, b0, b1;
+  ra.widen(a, na, pa, fa, fa2, a0, a1);
+  rb.widen(b, nb, pb, fb, fb2, b0, b1);
+  bar_expect(bar, (unsigned)(8 * ((a1 - a0) + (b1 - b0))));
+  ra.copy(a, a0, a1, bar);
+  rb.copy(b, b0, b1, bar);
+  cp_async_commit();
+}
+
+template <int T>
+constexpr int stage_bytes(bool member) {
+  return member ? (T + 8 + 15) / 16 * 16 : (T + 2) * 8;
+}
+
+template <int THREADS, int R, bool MEMBER>
+__device__ __forceinline__ void merge_path_tiles(
+    const i64* __restrict__ a, i64 na, const i64* __restrict__ b, i64 nb,
+    void* out, i64 tiles_per_cta, i64* smem) {
+  constexpr int T = THREADS * R;
+  constexpr int D = 2;  // ring depth in tiles: the window, one read-ahead
+  constexpr int S = D * T + 2;
+  static_assert(THREADS % 32 == 0 && (R & 1), "warps of threads, odd R");
+  __shared__ i64 s_split[2];
+  __shared__ i64 s_halo[2];
+  __shared__ int s_has[2];
+  __shared__ int s_aused;
+  __shared__ __align__(8) uint64_t s_bar[D];  // generation g: s_bar[g % D]
+
   const i64 m = na + nb;
-  const int rows = (int)(m - d0 < block ? m - d0 : block);
-  const i64 a_s = starts[g];
-  const int a_cnt = (int)(starts[g + 1] - a_s);
-  const int b_cnt = rows - a_cnt;
-  const i64 b_s = d0 - a_s;
+  const i64 d_beg = (i64)blockIdx.x * tiles_per_cta * T;
+  if (d_beg >= m) return;
+  const i64 d_end = imin(d_beg + tiles_per_cta * T, m);
   const int t = threadIdx.x;
-  if (t < a_cnt) aw[t] = a[a_s + t];
-  if (t < b_cnt) bw[t] = b[b_s + t];
+  if (t == 0) {
+    for (int k = 0; k < D; ++k) bar_init(&s_bar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int w = t >> 5; w < 2; w += THREADS / 32) {
+    const i64 s = warp_split(a, na, b, nb, w ? d_end : d_beg, t & 31);
+    if ((t & 31) == 0) s_split[w] = s;
+  }
   __syncthreads();
-  if (t < a_cnt) {
-    const i64 v = aw[t];
-    int lo = 0, hi = b_cnt;  // B keys strictly below v
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (bw[mid] < v) lo = mid + 1; else hi = mid;
+  const i64 a1 = s_split[1], b1 = d_end - a1;
+  const int pa = (int)(((uintptr_t)a >> 3) & 1);
+  const int pb = (int)(((uintptr_t)b >> 3) & 1);
+  Ring<S> ra{smem, 0, s_split[0]};
+  Ring<S> rb{smem + S, 0, d_beg - s_split[0]};
+  ra.head = (int)((ra.start + pa) % S);
+  rb.head = (int)((rb.start + pb) % S);
+  // generations 0 and 1: the first window, then the read-ahead. Tile k
+  // waits for generation k; the refill after tile k is generation k + D.
+  i64 fa = imin(ra.start + D * T, a1), fb = imin(rb.start + D * T, b1);
+  if (t == 0) {
+    if (MEMBER) {
+      s_has[0] = ra.start > 0;
+      s_halo[0] = ra.start > 0 ? a[ra.start - 1] : 0;
     }
-    out[d0 + t + lo] = v;
+    const i64 wa = imin(ra.start + T, a1), wb = imin(rb.start + T, b1);
+    fill(ra, a, na, pa, ra.start, wa, rb, b, nb, pb, rb.start, wb,
+         &s_bar[0]);
+    fill(ra, a, na, pa, wa, fa, rb, b, nb, pb, wb, fb, &s_bar[1]);
   }
-  if (t < b_cnt) {
-    const i64 v = bw[t];
-    int lo = 0, hi = a_cnt;  // A keys at or below v
+
+  i64* stage = smem + 2 * S;  // merge: out row r at slot r + sh
+  unsigned char* flags = (unsigned char*)(smem + 2 * S);
+  const uintptr_t out_addr = (uintptr_t)out;
+  int par = 0, tile = 0;
+  for (i64 d0 = d_beg; d0 < d_end; d0 += T, par ^= 1, ++tile) {
+    if (t == 0) cp_async_wait<D - 1>();
+    bar_wait(&s_bar[tile % D], (tile / D) & 1);
+    __syncthreads();
+    const int na_w = (int)imin(T, a1 - ra.start);
+    const int nb_w = (int)imin(T, b1 - rb.start);
+    const int rows = (int)imin(T, d_end - d0);
+    // this thread's diagonal, searched in the windows
+    const int d = min(t * R, rows);
+    int lo = max(0, d - nb_w), hi = min(d, na_w);
     while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (aw[mid] <= v) lo = mid + 1; else hi = mid;
+      const int mid = (lo + hi) >> 1;
+      if (rb.at(d - mid - 1) < ra.at(mid)) hi = mid; else lo = mid + 1;
     }
-    out[d0 + t + lo] = v;
+    int ia = lo, ib = d - lo;
+    const int e = min(d + R, rows);
+    // the next key of each side (past a window's end: never taken)
+    i64 va = ra.at(ia), vb = rb.at(ib);
+    const int sh = MEMBER ? (int)((out_addr + rb.start) & 3)
+                          : (int)(((out_addr >> 3) + d0) & 1);
+    i64 last = 0;
+    bool has = false;
+    if (MEMBER) {
+      has = ia > 0 || s_has[par];
+      last = ia > 0 ? ra.at(ia - 1) : s_halo[par];
+    }
+    // the serial merge, without branches: one compare, one store and
+    // one shared-memory load (the taken side's next key) a row
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (d + k < e) {
+        const bool take_a = ia < na_w && (ib >= nb_w || va <= vb);
+        if (MEMBER) {
+          if (!take_a) flags[ib + sh] = has && last == vb;
+          last = take_a ? va : last;
+          has = has || take_a;
+        } else {
+          stage[d + k + sh] = take_a ? va : vb;
+        }
+        ia += take_a;
+        ib += !take_a;
+        const int j = take_a ? ra.head + ia : S + rb.head + ib;
+        const int jw = j >= (take_a ? S : 2 * S) ? j - S : j;
+        const i64 next = smem[jw];
+        va = take_a ? next : va;
+        vb = take_a ? vb : next;
+      }
+    }
+    if (d < rows && e == rows) {  // the thread that merges the last row
+      s_aused = ia;
+      if (MEMBER) {
+        s_halo[par ^ 1] = last;
+        s_has[par ^ 1] = has;
+      }
+    }
+    __syncthreads();
+    const int a_used = s_aused, b_used = rows - a_used;
+    const i64 q0 = rb.start;
+    ra.advance(a_used);
+    rb.advance(b_used);
+    // refill the consumed slots; they land while the next tiles merge
+    {
+      const i64 fa2 = imin(ra.start + D * T, a1);
+      const i64 fb2 = imin(rb.start + D * T, b1);
+      if (t == 0) {
+        fill(ra, a, na, pa, fa, fa2, rb, b, nb, pb, fb, fb2,
+             &s_bar[tile % D]);
+      }
+      fa = fa2;
+      fb = fb2;
+    }
+    if (MEMBER) {
+      // query q0 + j's flag at flags[j + sh]; words where out is 4-aligned
+      unsigned char* g = (unsigned char*)out + q0;
+      const int h = min((4 - sh) & 3, b_used);
+      const int words = (b_used - h) >> 2;
+      const int tail = h + 4 * words;
+      if (t < h) g[t] = flags[t + sh];
+      if (t < b_used - tail) g[tail + t] = flags[tail + t + sh];
+      for (int k = t; k < words; k += THREADS) {
+        const int j = h + 4 * k;
+        *(unsigned*)(g + j) = *(const unsigned*)(flags + j + sh);
+      }
+    } else {
+      // row r at stage[r + sh]; pairs where out + d0 + r is 16-aligned
+      i64* g = (i64*)out + d0;
+      const int p0 = sh;
+      const int pairs = (rows - p0) >> 1;
+      const int p1 = p0 + 2 * pairs;
+      if (p0 && t == 0) g[0] = stage[sh];
+      if (p1 < rows && t == THREADS - 1) g[p1] = stage[p1 + sh];
+      for (int k = t; k < pairs; k += THREADS) {
+        const int r = p0 + 2 * k;
+        *(longlong2*)(g + r) = *(const longlong2*)(stage + r + sh);
+      }
+    }
   }
+  // no copy may land after the CTA exits
+  for (int g = tile; g < tile + D; ++g) {
+    bar_wait(&s_bar[g % D], (g / D) & 1);
+  }
+  if (t == 0) cp_async_wait<0>();
 }
 
-__global__ void member_tile_kernel(const i64* __restrict__ a, i64 na,
-                                   const i64* __restrict__ q, i64 nq,
-                                   const i64* __restrict__ starts,
-                                   unsigned char* __restrict__ out) {
-  extern __shared__ i64 smem[];  // smem[0] = halo, smem[1 + i] = window
-  const int block = blockDim.x;
-  const i64 g = blockIdx.x;
-  const i64 d0 = g * block;
-  const i64 m = na + nq;
-  const int rows = (int)(m - d0 < block ? m - d0 : block);
-  const i64 a_s = starts[g];
-  const int a_cnt = (int)(starts[g + 1] - a_s);
-  const int q_cnt = rows - a_cnt;
-  const i64 q_s = d0 - a_s;
-  const int t = threadIdx.x;
-  if (t < a_cnt) smem[1 + t] = a[a_s + t];
-  if (t == 0) smem[0] = a_s > 0 ? a[a_s - 1] : 0;
-  __syncthreads();
-  if (t < q_cnt) {
-    const i64 v = q[q_s + t];
-    int lo = 0, hi = a_cnt;  // window keys at or below v
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (smem[1 + mid] <= v) lo = mid + 1; else hi = mid;
-    }
-    // smem[lo] is the largest A key <= v: window row lo - 1, or the
-    // halo when lo == 0 (absent when the window starts A)
-    out[q_s + t] = (lo > 0 || a_s > 0) && smem[lo] == v;
-  }
+template <int THREADS, int R>
+__global__ void __launch_bounds__(THREADS)
+    merge_tile_kernel(const i64* __restrict__ a, i64 na,
+                      const i64* __restrict__ b, i64 nb, i64* out,
+                      i64 tiles_per_cta) {
+  extern __shared__ __align__(16) i64 smem[];
+  merge_path_tiles<THREADS, R, false>(a, na, b, nb, out, tiles_per_cta,
+                                      smem);
 }
 
-static cudaError_t launch_partition(const i64* a, i64 na, const i64* b,
-                                    i64 nb, i64 block, i64 tiles,
-                                    i64* starts, cudaStream_t stream) {
-  const int threads = 256;
-  const i64 grid = (tiles + 1 + threads - 1) / threads;
-  merge_path_partition_kernel<<<(unsigned)grid, threads, 0, stream>>>(
-      a, na, b, nb, block, tiles, starts);
+template <int THREADS, int R>
+__global__ void __launch_bounds__(THREADS)
+    member_tile_kernel(const i64* __restrict__ a, i64 na,
+                       const i64* __restrict__ q, i64 nq,
+                       unsigned char* out, i64 tiles_per_cta) {
+  extern __shared__ __align__(16) i64 smem[];
+  merge_path_tiles<THREADS, R, true>(a, na, q, nq, out, tiles_per_cta,
+                                     smem);
+}
+
+template <int THREADS, int R, bool MEMBER>
+cudaError_t launch(const i64* a, i64 na, const i64* b, i64 nb, void* out,
+                   cudaStream_t stream) {
+  constexpr int T = THREADS * R;
+  constexpr int smem =
+      2 * (2 * T + 2) * (int)sizeof(i64) + stage_bytes<T>(MEMBER);
+  const void* kernel = MEMBER ? (const void*)member_tile_kernel<THREADS, R>
+                              : (const void*)merge_tile_kernel<THREADS, R>;
+  // per device: how many CTAs the card holds at once (0 = not asked yet)
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+    if (err != cudaSuccess) return err;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  const i64 tiles = (na + nb + T - 1) / T;
+  const i64 slots = resident[dev];
+  const i64 per_cta = (tiles + slots - 1) / slots;
+  const i64 grid = (tiles + per_cta - 1) / per_cta;
+  if (MEMBER) {
+    member_tile_kernel<THREADS, R><<<(unsigned)grid, THREADS, smem, stream>>>(
+        a, na, b, nb, (unsigned char*)out, per_cta);
+  } else {
+    merge_tile_kernel<THREADS, R><<<(unsigned)grid, THREADS, smem, stream>>>(
+        a, na, b, nb, (i64*)out, per_cta);
+  }
   return cudaGetLastError();
 }
 
+// Tile shapes (rows = THREADS * R); ops/merge.py TILES lists the same.
+template <bool MEMBER>
+int dispatch(const void* a, i64 na, const void* b, i64 nb, void* out,
+             i64 tile, void* stream) {
+  const i64* pa = (const i64*)a;
+  const i64* pb = (const i64*)b;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (tile) {
+    case 32: return (int)launch<32, 1, MEMBER>(pa, na, pb, nb, out, s);
+    case 1664: return (int)launch<128, 13, MEMBER>(pa, na, pb, nb, out, s);
+    case 2304: return (int)launch<256, 9, MEMBER>(pa, na, pb, nb, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // C entry points (bound with ctypes). Every pointer is device memory on
-// the caller's stream; `starts` is scratch of tiles + 1 int64 rows, with
-// tiles = ceil((na + nb) / block). Both return cudaGetLastError() after
-// their launches; the caller checks na > 0 and nb > 0 and
-// 1 <= block <= 1024.
+// the caller's stream; keys are 8-byte aligned. One kernel launch each;
+// both return cudaGetLastError() after it (cudaErrorInvalidValue for a
+// tile size not listed in `dispatch`). The caller checks na > 0 and
+// nb > 0.
 
 extern "C" int stpu_merge_sorted(const void* a, i64 na, const void* b,
-                                 i64 nb, void* starts, void* out, i64 block,
-                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const i64 tiles = (na + nb + block - 1) / block;
-  cudaError_t err = launch_partition((const i64*)a, na, (const i64*)b, nb,
-                                     block, tiles, (i64*)starts, s);
-  if (err != cudaSuccess) return (int)err;
-  merge_tile_kernel<<<(unsigned)tiles, (unsigned)block,
-                      2 * block * sizeof(i64), s>>>(
-      (const i64*)a, na, (const i64*)b, nb, (const i64*)starts, (i64*)out);
-  return (int)cudaGetLastError();
+                                 i64 nb, void* out, i64 tile, void* stream) {
+  return dispatch<false>(a, na, b, nb, out, tile, stream);
 }
 
 extern "C" int stpu_member_sorted(const void* a, i64 na, const void* q,
-                                  i64 nq, void* starts, void* out,
-                                  i64 block, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const i64 tiles = (na + nq + block - 1) / block;
-  cudaError_t err = launch_partition((const i64*)a, na, (const i64*)q, nq,
-                                     block, tiles, (i64*)starts, s);
-  if (err != cudaSuccess) return (int)err;
-  member_tile_kernel<<<(unsigned)tiles, (unsigned)block,
-                       (block + 1) * sizeof(i64), s>>>(
-      (const i64*)a, na, (const i64*)q, nq, (const i64*)starts,
-      (unsigned char*)out);
-  return (int)cudaGetLastError();
+                                  i64 nq, void* out, i64 tile,
+                                  void* stream) {
+  return dispatch<true>(a, na, q, nq, out, tile, stream);
 }

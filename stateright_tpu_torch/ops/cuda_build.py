@@ -7,6 +7,11 @@ root (listed in ``.gitignore``), named by a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads. The
 build runs on first use, never at import: machines without ``nvcc``
 (CPU-only test runs) import every module of the package.
+
+    python -m stateright_tpu_torch.ops.cuda_build [merge_path.cu ...]
+
+compiles the sources once more with ``-Xptxas -v`` and prints each
+kernel's registers, shared memory and spills.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -88,3 +94,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's ``-Xptxas -v`` report for ``csrc/<name>`` (a separate
+    build; the cached library is left alone)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{Path(name).stem}-ptxas.{os.getpid()}.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+           str(CSRC / name)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+if __name__ == "__main__":
+    for src in sys.argv[1:] or sorted(p.name for p in CSRC.glob("*.cu")):
+        print(f"== csrc/{src}")
+        print(ptxas_report(src), flush=True)

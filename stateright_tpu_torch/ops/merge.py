@@ -23,9 +23,10 @@ Each op has two versions, chosen by the device of its inputs:
 * a plain PyTorch version (``*_plain``): a vectorized binary search
   (log2 Na gather steps) for membership, and destinations by binary
   search plus one scatter for the merge — the JAX ``xla`` forms;
-* a hand-written CUDA kernel (``csrc/merge_path.cu``, Merge Path tiles,
-  ``member_cuda``/``merge_cuda``), which replaces the Pallas kernels
-  ``_member_kernel`` and ``_merge_kernel``.
+* a hand-written CUDA kernel (``csrc/merge_path.cu``, Merge Path tiles
+  streamed through shared-memory rings by a persistent grid, one launch
+  a call; ``member_cuda``/``merge_cuda``), which replaces the Pallas
+  kernels ``_member_kernel`` and ``_merge_kernel``.
 
 A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel, and the kernel either runs or raises — there is
@@ -44,8 +45,16 @@ from .fingerprint import SENTINEL_KEY, pack_keys, unpack_keys
 
 _SENT = 0xFFFFFFFF
 
-#: merged rows per Merge Path tile (one CTA, one thread per row).
-DEFAULT_BLOCK = 512
+#: the CUDA kernels' tile shapes: merged rows per tile -> (threads per
+#: CTA, rows per thread); csrc/merge_path.cu instantiates each. The
+#: 32-row tile puts small inputs across many tiles for chip_smoke.py.
+TILES = {32: (32, 1), 1664: (128, 13), 2304: (256, 9)}
+
+#: merged rows per Merge Path tile (``block``) of each CUDA kernel: the
+#: fastest shape at the main path's sizes on an H100 (chip_smoke.py
+#: times every shape, PERF.md §6).
+MEMBER_BLOCK = 1664
+MERGE_BLOCK = 2304
 
 #: ``impl`` values: "auto" picks by device, "cuda" demands the kernel.
 IMPLS = ("auto", "cuda")
@@ -106,8 +115,9 @@ def merge_sorted_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def merge_path_starts(a_lo, a_hi, b_lo, b_hi, block: int) -> torch.Tensor:
     """``int64[G + 1]`` A-side splits of the merged sequence at every
     ``block``-row output boundary (G = ceil((Na+Nb)/block)), A first on
-    ties — the partition the CUDA kernels compute on the card, in plain
-    PyTorch (tests hold it against the JAX partition)."""
+    ties, in plain PyTorch (tests hold it against the JAX partition). The
+    CUDA kernels search these diagonals on the card, each CTA those at
+    the two ends of its run of tiles."""
     return merge_path_starts_keys(
         pack_keys(a_lo, a_hi), pack_keys(b_lo, b_hi), block
     )
@@ -146,8 +156,8 @@ def _lib() -> ctypes.CDLL:
     lib = load(_SOURCE)
     if not getattr(lib, "stpu_bound", False):
         args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p]
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p]
         for fn in (lib.stpu_merge_sorted, lib.stpu_member_sorted):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -168,17 +178,18 @@ def _check_cuda(block: int, *keys: torch.Tensor) -> None:
                 "CUDA merge kernels take contiguous 1-D int64 packed "
                 f"keys, got {k.dtype} shape {tuple(k.shape)}"
             )
-    if not 1 <= block <= 1024:
-        raise ValueError(f"block must be in 1..1024 threads, got {block}")
+    if block not in TILES:
+        raise ValueError(
+            f"block must be a tile size of {sorted(TILES)}, got {block}"
+        )
 
 
 def _launch(fn, a, b, out, block: int) -> None:
-    tiles = -(-(a.numel() + b.numel()) // block)
-    starts = torch.empty(tiles + 1, dtype=torch.int64, device=a.device)
+    """One kernel launch on the current stream (no scratch, no sync)."""
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), a.numel(), b.data_ptr(), b.numel(),
-                 starts.data_ptr(), out.data_ptr(), block, stream)
+                 out.data_ptr(), block, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn.__name__} launch failed: CUDA error {err}"
@@ -186,12 +197,13 @@ def _launch(fn, a, b, out, block: int) -> None:
 
 
 def member_cuda(a: torch.Tensor, q: torch.Tensor,
-                block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                block: int = MEMBER_BLOCK) -> torch.Tensor:
     """The member kernel on packed keys (see :func:`member_sorted`)."""
     _check_cuda(block, a, q)
-    out = torch.zeros(q.numel(), dtype=torch.bool, device=q.device)
     if a.numel() == 0 or q.numel() == 0:
-        return out
+        return torch.zeros(q.numel(), dtype=torch.bool, device=q.device)
+    # the kernel writes every query's flag
+    out = torch.empty(q.numel(), dtype=torch.bool, device=q.device)
     _launch(_lib().stpu_member_sorted, a, q, out, block)
     member_cuda.launches += 1
     return out
@@ -201,7 +213,7 @@ member_cuda.launches = 0
 
 
 def merge_cuda(a: torch.Tensor, b: torch.Tensor,
-               block: int = DEFAULT_BLOCK) -> torch.Tensor:
+               block: int = MERGE_BLOCK) -> torch.Tensor:
     """The merge kernel on packed keys (see :func:`merge_sorted`)."""
     _check_cuda(block, a, b)
     if b.numel() == 0:
@@ -230,7 +242,7 @@ def _on_cuda(impl: str, t: torch.Tensor) -> bool:
 
 
 def member_keys(a: torch.Tensor, q: torch.Tensor, *, impl: str = "auto",
-                block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                block: int = MEMBER_BLOCK) -> torch.Tensor:
     """Membership on packed int64 keys: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if _on_cuda(impl, q):
@@ -239,7 +251,7 @@ def member_keys(a: torch.Tensor, q: torch.Tensor, *, impl: str = "auto",
 
 
 def merge_keys(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
-               block: int = DEFAULT_BLOCK) -> torch.Tensor:
+               block: int = MERGE_BLOCK) -> torch.Tensor:
     """Stable merge on packed int64 keys: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     if _on_cuda(impl, a):
@@ -248,7 +260,7 @@ def merge_keys(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
 
 
 def member_sorted(a_lo, a_hi, q_lo, q_hi, *, impl: str = "auto",
-                  block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                  block: int = MEMBER_BLOCK) -> torch.Tensor:
     """``bool[Nq]``: for each sorted query key, whether it occurs in the
     sorted array A. Exact multiset semantics (sentinel queries match A's
     sentinel tail; callers mask)."""
@@ -259,7 +271,7 @@ def member_sorted(a_lo, a_hi, q_lo, q_hi, *, impl: str = "auto",
 
 
 def merge_sorted(a_lo, a_hi, b_lo, b_hi, *, impl: str = "auto",
-                 block: int = DEFAULT_BLOCK):
+                 block: int = MERGE_BLOCK):
     """``(lo[Na+Nb], hi[Na+Nb])``: the sorted merge of two sorted 2-limb
     key arrays, A first on ties; sentinel tails merge to the tail."""
     return unpack_keys(merge_keys(

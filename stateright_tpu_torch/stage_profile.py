@@ -26,7 +26,6 @@ import torch
 STAGES = (
     ("member kernel", r"member_tile_kernel"),
     ("merge kernel", r"merge_tile_kernel"),
-    ("merge path partition", r"merge_path_partition_kernel"),
     ("sort", r"[Ss]ort|[Rr]adix"),
     ("compaction (nonzero, scan)", r"nonzero|[Ss]can|[Ss]elect|flag|write_indices"),
     ("gather / scatter / index", r"index|[Gg]ather|[Ss]catter|take"),
