@@ -20,19 +20,31 @@ it exits non-zero and prints no result. Phases, each ending in
    the kernel, the plain version and one PyTorch call computing the
    same function (``torch.searchsorted`` for membership, a stable
    ``torch.sort`` of the concatenation for the merge; the port calls
-   neither), counts the device operations of one call with
-   ``torch.profiler``, and computes each kernel's bound and its share;
+   neither), and computes each kernel's bound and its share;
 3. ``2pc`` rm=5 on the card with paths: 8,832 unique states, both
    SOMETIMES discoveries with paths that replay through the host model,
    no counterexample to "consistent", and the same discoveries and
    paths as the same run on the CPU;
 4. the main path, ``2pc`` rm=9 through the library entry point the CLI
    uses: 10,340,352 unique states, with every kernel launched (launch
-   counts are zeroed just before this run and read just after).
+   counts are zeroed just before this run and read just after);
+5. ``paxos 2c`` on the card and on the CPU with paths: 16,668 unique
+   states, "value chosen" discovered with the same discovery
+   fingerprints and paths on both, the path replayed through the host
+   model, no counterexample to "linearizable";
+6. the Paxos main path, ``paxos check 4`` and ``paxos check 5`` through
+   the library entry point and sizes ``paxos check-gpu N`` uses (paths
+   off, as the CLI): 2,372,188 and 4,711,569 unique states, "value
+   chosen" discovered, both kernels launched on each path (counts
+   zeroed just before each run and read just after); then each kernel
+   against its plain version and timed at the widest 4-client wave's
+   shapes, each launch with L2 cold as the engine's calls find it;
+7. the device operations of one call of each kernel, counted in one
+   ``torch.profiler`` session after every timing.
 
-It prints one JSON line of kernel records, then the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Any failed
-phase makes it exit 1 without that last line.
+It prints one JSON line of kernel records (``launches`` per path), then
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failed phase makes it exit 1 without that last line.
 """
 
 from __future__ import annotations
@@ -155,6 +167,13 @@ def _err(a, b) -> float:
     return float(max(abs(key_to_fp(x) - key_to_fp(y)) for x, y in pairs))
 
 
+#: GPU cycles the stream sleeps before a timed run (~10 ms), so the
+#: host has queued every launch before the first one starts: a call
+#: shorter than its host-side launch cost is then timed on the device,
+#: not at the rate the host issues it
+QUEUE_AHEAD_CYCLES = 20_000_000
+
+
 def _time_ms(fn, reps=10) -> float:
     import torch
 
@@ -163,6 +182,7 @@ def _time_ms(fn, reps=10) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -171,10 +191,62 @@ def _time_ms(fn, reps=10) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: bytes written between two cold-L2 launches: twice the H100's 50 MB
+#: L2, so a launch finds none of its inputs there
+L2_FLUSH_BYTES = 100 << 20
+
+
+def _time_cold_ms(fn, reps=10) -> float:
+    """Mean device time of one call that finds the L2 cache cold: each
+    launch follows a write of ``L2_FLUSH_BYTES`` (as the rest of a wave
+    evicts the visited keys between two calls of the engine) and sits
+    between its own pair of events, all queued ahead."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.int64,
+                        device="cuda")
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
 def _bound_ms(bytes_moved: float, ops: float) -> tuple:
     b_ms = bytes_moved / HBM_BYTES_PER_SEC * 1e3
     o_ms = ops / SCALAR_OPS_PER_SEC * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def _per_row(tile) -> float:
+    """Compares a row: one a merged row, plus each thread's diagonal
+    search (log2 T probes for R rows); the two run diagonals a CTA
+    searches (~6 ballot steps) are a few hundred thousand more."""
+    from stateright_tpu_torch.ops import merge
+
+    return 1 + math.ceil(math.log2(tile + 1)) / merge.TILES[tile][1]
+
+
+def _member_bound(na, nq) -> tuple:
+    """Read A and Q once (int64 keys), write one bool a query."""
+    from stateright_tpu_torch.ops import merge
+
+    return _bound_ms(8 * na + 8 * nq + nq,
+                     (na + nq) * _per_row(merge.MEMBER_BLOCK))
+
+
+def _merge_bound(na, nb) -> tuple:
+    """Read A and B once, write A + B keys."""
+    from stateright_tpu_torch.ops import merge
+
+    return _bound_ms(16 * (na + nb), (na + nb) * _per_row(merge.MERGE_BLOCK))
 
 
 @phase("kernels")
@@ -265,16 +337,8 @@ def kernels():
               f"{_time_ms(lambda: merge.merge_cuda(big_a, big_b, block)):.4f}"
               " ms", flush=True)
 
-    def per_row(tile):
-        # compares: one a merged row, plus each thread's diagonal search
-        # (log2 T probes for R rows); the two run diagonals a CTA
-        # searches (~6 ballot steps) are a few hundred thousand more
-        return 1 + math.ceil(math.log2(tile + 1)) / merge.TILES[tile][1]
-
-    m_bound = _bound_ms(8 * na + 8 * nq + nq,
-                        (na + nq) * per_row(merge.MEMBER_BLOCK))
-    g_bound = _bound_ms(16 * (na + nb),
-                        (na + nb) * per_row(merge.MERGE_BLOCK))
+    m_bound = _member_bound(na, nq)
+    g_bound = _merge_bound(na, nb)
     rec = {
         "member_sorted": dict(
             replaces="stateright_tpu/ops/merge.py:282",
@@ -285,8 +349,6 @@ def kernels():
             library_ms=_time_ms(
                 lambda: torch.searchsorted(big_a, big_q)),
             bound_ms=m_bound[0], bound_by=m_bound[1],
-            launches_per_call=_device_ops(
-                lambda: merge.member_cuda(big_a, big_q)),
             shapes=dict(Na=na, Nq=nq, tile=merge.MEMBER_BLOCK),
         ),
         "merge_sorted": dict(
@@ -297,8 +359,6 @@ def kernels():
                 lambda: merge.merge_sorted_plain(big_a, big_b), reps=3),
             library_ms=_time_ms(lambda: torch.sort(cat, stable=True)),
             bound_ms=g_bound[0], bound_by=g_bound[1],
-            launches_per_call=_device_ops(
-                lambda: merge.merge_cuda(big_a, big_b)),
             shapes=dict(Na=na, Nb=nb, tile=merge.MERGE_BLOCK),
         ),
     }
@@ -308,27 +368,45 @@ def kernels():
               f"({r['pct_of_bound']:.1f}% of bound), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
               f"(kernel/library {r['ms'] / r['library_ms']:.3f}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device ops a "
-              f"call {r['launches_per_call']} at {r['shapes']}",
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shapes']}",
               flush=True)
-    return rec
+    # one call of each, for the device-op count the last phase takes
+    calls = {"member_sorted": lambda: merge.member_cuda(big_a, big_q),
+             "merge_sorted": lambda: merge.merge_cuda(big_a, big_b)}
+    return rec, calls
 
 
-def _device_ops(fn) -> int:
-    """Device operations (kernels, memsets, copies) of one call, from
-    ``torch.profiler``."""
+#: kernel-name part of each wrapper's kernel
+KERNEL_NAMES = {"member_sorted": "member_tile_kernel",
+                "merge_sorted": "merge_tile_kernel"}
+
+
+@phase("device ops a call")
+def device_ops(calls) -> dict:
+    """Device operations of one call of each wrapper, from ONE
+    ``torch.profiler`` session taken after every timing of the script
+    (a second session in one process can come back empty, and a
+    session can slow the kernels timed after it). The kernels are told
+    apart by name; any other device operation (a memset, a copy) is
+    printed and counted against both calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
     ops = {ev.key: ev.count for ev in prof.key_averages()
            if ev.device_type == DeviceType.CUDA}
-    print(f"  device ops of one call: {ops}", flush=True)
-    return sum(ops.values())
+    print(f"  device ops of one call each: {ops}", flush=True)
+    other = sum(n for key, n in ops.items()
+                if not any(k in key for k in KERNEL_NAMES.values()))
+    out = {name: other + sum(n for key, n in ops.items() if part in key)
+           for name, part in KERNEL_NAMES.items()}
+    assert all(n >= 1 for n in out.values()), out
+    return out
 
 
 def _replays(model, path, prop) -> bool:
@@ -373,27 +451,24 @@ def rm9():
     from stateright_tpu_torch import WriteReporter
     from stateright_tpu_torch.cli import twopc_sizes
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
-    from stateright_tpu_torch.ops import merge
 
     model = TwoPhaseSys(rm_count=9)
     # the engine and sizes `2pc check-gpu 9` runs
     checker = model.checker().spawn_sortmerge(**twopc_sizes(9))
-    torch.cuda.reset_peak_memory_stats()
-    merge.member_cuda.launches = 0
-    merge.merge_cuda.launches = 0
+    base = _mem_base()
+    _zero_launches()
     t0 = time.monotonic()
     out = io.StringIO()
     checker.report(WriteReporter(out))
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = {"member_sorted": merge.member_cuda.launches,
-                "merge_sorted": merge.merge_cuda.launches}
+    launches = _read_launches()
     unique = checker.unique_state_count()
     print(f"  {out.getvalue().splitlines()[0]}", flush=True)
     print(f"  {checker.metrics} sec={sec:.3f} "
           f"states/s={checker.state_count() / sec:.0f} "
           f"unique/s={unique / sec:.0f} launches={launches} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated()}",
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
           flush=True)
     assert unique == 10_340_352, unique
     assert checker.discovered_property_names() == {
@@ -402,6 +477,154 @@ def rm9():
         assert _replays(model, path, model.property_by_name(name)), name
     assert all(n > 0 for n in launches.values()), launches
     return launches
+
+
+def _mem_base() -> int:
+    """Reset the peak-memory count; return the bytes allocated now
+    (tensors an earlier phase still holds), which a run's peak is read
+    above."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _zero_launches():
+    from stateright_tpu_torch.ops import merge
+
+    merge.member_cuda.launches = 0
+    merge.merge_cuda.launches = 0
+
+
+def _read_launches() -> dict:
+    from stateright_tpu_torch.ops import merge
+
+    return {"member_sorted": merge.member_cuda.launches,
+            "merge_sorted": merge.merge_cuda.launches}
+
+
+@phase("paxos 2c")
+def paxos2():
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.paxos_tpu import STRUCTURAL_SIZES
+
+    model = paxos_model(PaxosModelCfg(client_count=2, server_count=3))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        c = model.checker().spawn_sortmerge(
+            **STRUCTURAL_SIZES[2], device=device).join()
+        runs[device] = c
+        print(f"  {device}: states={c.state_count()} "
+              f"unique={c.unique_state_count()} depth={c.max_depth()} "
+              f"discovered={sorted(c.discovered_property_names())}",
+              flush=True)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu.unique_state_count() == 16668, gpu.unique_state_count()
+    assert gpu.discovered_property_names() == {"value chosen"}
+    assert "linearizable" not in gpu.discovered_property_names()
+    assert (gpu.state_count(), gpu.max_depth()) == (
+        cpu.state_count(), cpu.max_depth())
+    assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
+    for name, path in gpu.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+
+
+def paxos_main(clients: int, unique_want: int):
+    """``paxos check N`` through the library entry point and the sizes
+    ``paxos check-gpu N`` uses, paths off as the CLI runs it."""
+    import torch
+
+    from stateright_tpu_torch import WriteReporter
+    from stateright_tpu_torch.cli import paxos_checker
+
+    checker = paxos_checker(clients)
+    base = _mem_base()
+    _zero_launches()
+    t0 = time.monotonic()
+    out = io.StringIO()
+    checker.report(WriteReporter(out))
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = _read_launches()
+    unique = checker.unique_state_count()
+    for line in out.getvalue().splitlines():
+        print(f"  {line}", flush=True)
+    print(f"  {checker.metrics} sec={sec:.3f} "
+          f"states/s={checker.state_count() / sec:.0f} "
+          f"unique/s={unique / sec:.0f} launches={launches} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
+          flush=True)
+    assert unique == unique_want, unique
+    assert checker.discovered_property_names() == {"value chosen"}
+    assert all(n > 0 for n in launches.values()), launches
+    return dict(launches=launches, metrics=checker.metrics)
+
+
+@phase("paxos check 4 (main path)")
+def paxos4():
+    return paxos_main(4, 2_372_188)
+
+
+@phase("paxos check 5")
+def paxos5():
+    return paxos_main(5, 4_711_569)
+
+
+@phase("kernels at paxos 4c shapes")
+def kernels_paxos(metrics):
+    """Each kernel against its plain version and timed at the widest
+    4-client wave's shapes: member at the wave with the most candidate
+    keys (Na visited, Nq queries), merge at the wave with the most
+    winners (Na, Nb). The keys are uniform 64-bit draws, the queries
+    one part visited keys and one part fresh, as in a wave. These
+    inputs fit in L2, where the engine's calls find them evicted by
+    the rest of the wave, so each launch is timed with L2 cold."""
+    import torch
+
+    from stateright_tpu_torch.ops import merge
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261017)
+    out = {}
+    (na_m, nq), (na_g, nb) = metrics["member_shape"], metrics["merge_shape"]
+    a_m = _rand_keys(na_m, gen, dev)
+    fresh = _rand_keys(nq // 2, gen, dev)
+    hits = a_m[torch.randint(0, na_m, (nq - fresh.numel(),), generator=gen,
+                             device=dev)]
+    q = torch.sort(torch.cat([hits, fresh])).values
+    a_g, b = _rand_keys(na_g, gen, dev), _rand_keys(nb, gen, dev)
+    cat = torch.cat([a_g, b])
+    e_m = _err(merge.member_cuda(a_m, q), merge.member_sorted_plain(a_m, q))
+    e_g = _err(merge.merge_cuda(a_g, b), merge.merge_sorted_plain(a_g, b))
+    m_bound = _member_bound(na_m, nq)
+    g_bound = _merge_bound(na_g, nb)
+    out["member_sorted"] = dict(
+        shapes=dict(Na=na_m, Nq=nq), max_abs_err=e_m,
+        ms=_time_cold_ms(lambda: merge.member_cuda(a_m, q)),
+        plain_ms=_time_cold_ms(
+            lambda: merge.member_sorted_plain(a_m, q), 3),
+        library_ms=_time_cold_ms(lambda: torch.searchsorted(a_m, q)),
+        bound_ms=m_bound[0], bound_by=m_bound[1])
+    out["merge_sorted"] = dict(
+        shapes=dict(Na=na_g, Nb=nb), max_abs_err=e_g,
+        ms=_time_cold_ms(lambda: merge.merge_cuda(a_g, b)),
+        plain_ms=_time_cold_ms(
+            lambda: merge.merge_sorted_plain(a_g, b), 3),
+        library_ms=_time_cold_ms(lambda: torch.sort(cat, stable=True)),
+        bound_ms=g_bound[0], bound_by=g_bound[1])
+    for name, r in out.items():
+        r["pct_of_bound"] = 100 * r["bound_ms"] / r["ms"]
+        print(f"  {name} at {r['shapes']}: kernel {r['ms']:.4f} ms "
+              f"({r['pct_of_bound']:.1f}% of bound), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"err {r['max_abs_err']}", flush=True)
+    if e_m or e_g:
+        raise AssertionError(f"kernel != plain version: {e_m}, {e_g}")
+    return out
 
 
 def main() -> int:
@@ -421,22 +644,34 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     build()
-    rec = kernels() if not FAILED else None
+    rec, calls = (kernels() if not FAILED else None) or (None, None)
     rm5()
-    launches = rm9()
-    if FAILED or rec is None or launches is None:
+    launches = {"2pc rm=9": rm9()}
+    paxos2()
+    runs = {"paxos 4c": paxos4(), "paxos 5c": paxos5()}
+    at_paxos = (kernels_paxos(runs["paxos 4c"]["metrics"])
+                if runs["paxos 4c"] else None)
+    for path, run in runs.items():
+        launches[path] = run and run["launches"]
+    per_call = device_ops(calls) if calls else None
+    if (FAILED or rec is None or at_paxos is None or per_call is None
+            or not all(launches.values())):
         print(f"chip_smoke: failed phases: {FAILED}", file=sys.stderr)
         return 1
     records = []
     for name, r in rec.items():
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": r["replaces"], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "replaces": r["replaces"],
+            "launches": {path: n[name] for path, n in launches.items()},
+            "max_abs_err": max(r["max_abs_err"],
+                               at_paxos[name]["max_abs_err"]),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "pct_of_bound": r["pct_of_bound"],
-            "launches_per_call": r["launches_per_call"],
+            "launches_per_call": per_call[name],
+            "at_paxos_4c": at_paxos[name],
         })
     print(json.dumps({"kernels": records}))
     print(card)

@@ -8,10 +8,11 @@ device unless the caller asks for the CPU, where every kernel takes its
 plain-PyTorch version.
 
 Ported so far: the sparse sort-merge wave engine
-(``CheckerBuilder.spawn_sortmerge``) on the packed 2pc encoding, with
-the visited-set membership and merge as CUDA kernels
-(``csrc/merge_path.cu``). ``python -m stateright_tpu_torch 2pc
-check-gpu N`` runs it.
+(``CheckerBuilder.spawn_sortmerge``) on the packed 2pc encoding and the
+Paxos hand encoding (with the actor framework and the linearizability
+tester it runs on), with the visited-set membership and merge as CUDA
+kernels (``csrc/merge_path.cu``). ``python -m stateright_tpu_torch 2pc
+check-gpu N`` and ``paxos check-gpu N`` run it.
 """
 
 from .checker import Checker, CheckerBuilder, DiscoveryClassification

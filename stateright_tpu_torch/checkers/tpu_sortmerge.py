@@ -186,6 +186,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         K = enc.max_actions
         trivial = has_trivial_boundary(enc)
         waves = max_cand = max_new = 0
+        member_shape = merge_shape = (0, 0)
         done = st.frontier.shape[1] == 0
         if st.vkeys.numel() > self.capacity:
             raise RuntimeError(self._overflow_message("visited"))
@@ -236,8 +237,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             st.ebits = eb[par_row]
             st.generated += n_cand
             waves += 1
-            max_cand = max(max_cand, keys.numel())
-            max_new = max(max_new, new_count)
+            if keys.numel() > max_cand:
+                max_cand = keys.numel()
+                member_shape = (unique - new_count, max_cand)
+            if new_count > max_new:
+                max_new = new_count
+                merge_shape = (unique - new_count, new_count)
 
             all_disc = bool(props) and len(self._discovered_fps) == len(props)
             done = new_count == 0 or all_disc
@@ -255,10 +260,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                     duration_sec=self.duration_sec(),
                     done=False,
                 ))
-        # the widest wave: the member kernel's query count and the merge
-        # kernel's winner count at their largest
+        # the widest waves: the member kernel's query count and the
+        # merge kernel's winner count at their largest, each with the
+        # visited-set size it met there: (Na, Nq) and (Na, Nb)
         self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
-                            max_wave_new=max_new)
+                            max_wave_new=max_new, member_shape=member_shape,
+                            merge_shape=merge_shape)
         self._final = st
         if self.track_paths:
             # the log stays on the device: each path step is one

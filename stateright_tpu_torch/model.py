@@ -78,6 +78,19 @@ class Model:
     def format_action(self, action: Action) -> str:
         return str(action)
 
+    def next_steps(self, state: State) -> list[tuple[Action, State]]:
+        """(action, successor) pairs of ``state`` (src/lib.rs
+        next_steps)."""
+        steps = []
+        for action in self.actions(state):
+            next_state = self.next_state(state, action)
+            if next_state is not None:
+                steps.append((action, next_state))
+        return steps
+
+    def next_states(self, state: State) -> list[State]:
+        return [s for _, s in self.next_steps(state)]
+
     def property_by_name(self, name: str) -> Property:
         for prop in self.properties():
             if prop.name == name:

@@ -1,6 +1,8 @@
-"""Where the time of one ``2pc check-gpu N`` run goes on the card.
+"""Where the time of one ``2pc check-gpu N`` or ``paxos check-gpu N``
+run goes on the card.
 
     python -m stateright_tpu_torch.stage_profile 9
+    python -m stateright_tpu_torch.stage_profile paxos 4
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -8,8 +10,9 @@ in ``torch.cuda.synchronize()``, then repeats the run under
 ``torch.profiler`` and sums the device time of every kernel, grouped
 into stages by kernel name. It prints one JSON object: the card's name
 and power limit, the untraced and traced walls, the device busy time
-and the idle share of the traced wall, and the per-stage and top
-per-kernel device times.
+and the idle share of the traced wall, the per-stage and top
+per-kernel device times, and the Merge Path kernels' share of the
+device time.
 """
 
 from __future__ import annotations
@@ -42,13 +45,16 @@ def _stage(name: str) -> str:
     return "other"
 
 
-def _check(rm: int):
-    from .cli import twopc_sizes
+def _check(model: str, n: int):
+    """One ``<model> check-gpu n`` run, timed to the device's end."""
+    from .cli import paxos_checker, twopc_sizes
     from .models.two_phase_commit import TwoPhaseSys
 
-    c = TwoPhaseSys(rm_count=rm).checker().spawn_sortmerge(
-        **twopc_sizes(rm), device="cuda"
-    )
+    if model == "paxos":
+        c = paxos_checker(n)
+    else:
+        c = TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
+            **twopc_sizes(n), device="cuda")
     t0 = time.monotonic()
     c.join()
     torch.cuda.synchronize()
@@ -57,7 +63,8 @@ def _check(rm: int):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    rm = int(argv[0]) if argv else 9
+    model = argv.pop(0) if argv and argv[0] in ("2pc", "paxos") else "2pc"
+    n = int(argv[0]) if argv else (4 if model == "paxos" else 9)
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -66,14 +73,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    _check(min(rm, 5))
-    checker, wall = _check(rm)
+    _check(model, min(n, 2 if model == "paxos" else 5))
+    checker, wall = _check(model, n)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced, traced_wall = _check(rm)
+        traced, traced_wall = _check(model, n)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -86,10 +93,13 @@ def main(argv=None) -> int:
         stage = _stage(name)
         stages[stage] = stages.get(stage, 0.0) + ms
     busy_ms = sum(kernels.values())
+    merge_path_ms = stages.get("member kernel", 0.0) + stages.get(
+        "merge kernel", 0.0)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "card": card,
-        "rm": rm,
+        "model": model,
+        "n": n,
         "unique": checker.unique_state_count(),
         "states": checker.state_count(),
         "waves": checker.metrics["waves"],
@@ -97,6 +107,9 @@ def main(argv=None) -> int:
         "traced_wall_s": traced_wall,
         "device_busy_ms": busy_ms,
         "idle_share_of_traced_wall": 1 - busy_ms / (traced_wall * 1e3),
+        "merge_path_kernels_ms": merge_path_ms,
+        "merge_path_share_of_device_time": merge_path_ms / busy_ms,
+        "metrics": traced.metrics,
         "stages_ms": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(top),
     }, indent=1))

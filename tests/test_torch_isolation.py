@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it and running its CLI
-loads neither jax nor anything of the JAX package, and no source file
-of the port (nor chip_smoke.py) imports either."""
+(the 2pc and Paxos lanes) loads neither jax nor anything of the JAX
+package, and no source file of the port (nor chip_smoke.py) imports
+either."""
 
 import ast
 import os
@@ -22,6 +23,7 @@ def test_import_and_cli_load_no_jax():
         "import stateright_tpu_torch\n"
         "from stateright_tpu_torch.cli import main\n"
         "main(['2pc', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "main(['paxos', 'check-gpu', '1', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -34,6 +36,7 @@ def test_import_and_cli_load_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "Done. states=" in out.stdout and "unique=" in out.stdout
+    assert "Done. states=482, unique=265, depth=14" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
