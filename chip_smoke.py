@@ -36,13 +36,34 @@ it exits non-zero and prints no result. Phases, each ending in
    the library entry point and sizes ``paxos check-gpu N`` uses (paths
    off, as the CLI): 2,372,188 and 4,711,569 unique states, "value
    chosen" discovered, both kernels launched on each path (counts
-   zeroed just before each run and read just after); then each kernel
-   against its plain version and timed at the widest 4-client wave's
-   shapes, each launch with L2 cold as the engine's calls find it;
-7. the device operations of one call of each kernel, counted in one
+   zeroed just before each run and read just after);
+7. the compiled main path, ``abd 2c/3s ordered``: ABD over FIFO
+   channels with 2 clients and 3 servers, its encoding made by the
+   actor→encoding compiler (host compile time printed apart), paths
+   off as the bench runs it: 1,212,979 unique states, "value chosen"
+   discovered, both kernels launched;
+8. ``2pc-actors rm=9 (compiled)``, through the library entry point and
+   sizes ``2pc-actors check-gpu 9`` uses: 10,340,352 unique states,
+   equal to the hand ``2pc`` rm=9 count of phase 4, with the same
+   discovered names;
+9. ``paxos-compiled 2c`` on the card with paths, as the CLI lane runs
+   it (the reachable-mode host compile printed apart): 16,668 unique
+   states, equal to phase 5, and a "value chosen" path that replays;
+10. compiled encodings on the card and on the CPU with paths (ABD 2c/2s
+   ordered, 620; ``paxos-compiled`` 1c/3s, 265): the same counts,
+   discovery fingerprints and paths, each path replayed;
+11. for every run of phases 4 and 6-9, each kernel against its plain
+   version (exactly) and timed at that run's widest wave's shapes, each
+   launch with L2 cold as the engine's calls find it;
+12. the device operations of one call of each kernel, counted in one
    ``torch.profiler`` session after every timing.
 
-It prints one JSON line of kernel records (``launches`` per path), then
+Every run of a main path (phases 4, 6, 7, 8, 9) prints its ``sec=``,
+states/s, waves, peak device memory above its start, the engine's
+``metrics`` and the launch count of each kernel in that run.
+
+It prints one JSON line of kernel records (``launches`` and the
+comparison at each path's shapes, ``at_path_shapes``, per path), then
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed phase makes it exit 1 without that last line.
 """
@@ -64,6 +85,9 @@ HBM_BYTES_PER_SEC = 3.35e12
 SCALAR_OPS_PER_SEC = 67e12
 SOURCE = "stateright_tpu_torch/csrc/merge_path.cu"
 FAILED: list = []
+#: unique count and discovered names of the hand-encoded runs, which the
+#: compiled runs of the same spaces are held to
+HAND: dict = {}
 
 
 def phase(name):
@@ -446,37 +470,19 @@ def rm5():
 
 @phase("2pc rm=9 (main path)")
 def rm9():
-    import torch
-
-    from stateright_tpu_torch import WriteReporter
     from stateright_tpu_torch.cli import twopc_sizes
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
     model = TwoPhaseSys(rm_count=9)
     # the engine and sizes `2pc check-gpu 9` runs
     checker = model.checker().spawn_sortmerge(**twopc_sizes(9))
-    base = _mem_base()
-    _zero_launches()
-    t0 = time.monotonic()
-    out = io.StringIO()
-    checker.report(WriteReporter(out))
-    torch.cuda.synchronize()
-    sec = time.monotonic() - t0
-    launches = _read_launches()
-    unique = checker.unique_state_count()
-    print(f"  {out.getvalue().splitlines()[0]}", flush=True)
-    print(f"  {checker.metrics} sec={sec:.3f} "
-          f"states/s={checker.state_count() / sec:.0f} "
-          f"unique/s={unique / sec:.0f} launches={launches} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
-          flush=True)
-    assert unique == 10_340_352, unique
-    assert checker.discovered_property_names() == {
-        "abort agreement", "commit agreement"}
+    run = run_main(checker, print_lines=1)
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert run["names"] == {"abort agreement", "commit agreement"}
+    HAND["2pc rm=9"] = (run["unique"], run["names"])
     for name, path in checker.discoveries().items():
         assert _replays(model, path, model.property_by_name(name)), name
-    assert all(n > 0 for n in launches.values()), launches
-    return launches
+    return run
 
 
 def _mem_base() -> int:
@@ -523,6 +529,8 @@ def paxos2():
     assert gpu.unique_state_count() == 16668, gpu.unique_state_count()
     assert gpu.discovered_property_names() == {"value chosen"}
     assert "linearizable" not in gpu.discovered_property_names()
+    HAND["paxos 2c"] = (gpu.unique_state_count(),
+                        gpu.discovered_property_names())
     assert (gpu.state_count(), gpu.max_depth()) == (
         cpu.state_count(), cpu.max_depth())
     assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
@@ -531,15 +539,16 @@ def paxos2():
         assert path.encode() == cpu.discovery(name).encode(), name
 
 
-def paxos_main(clients: int, unique_want: int):
-    """``paxos check N`` through the library entry point and the sizes
-    ``paxos check-gpu N`` uses, paths off as the CLI runs it."""
+def run_main(checker, print_lines: int | None = None) -> dict:
+    """Run ``checker`` once with the report a user sees, the launch
+    counts zeroed just before and read just after; print the report
+    (its first ``print_lines`` lines), ``sec=``, rates, waves, the peak
+    device memory above the run's start, the engine's ``metrics`` and
+    the launches."""
     import torch
 
     from stateright_tpu_torch import WriteReporter
-    from stateright_tpu_torch.cli import paxos_checker
 
-    checker = paxos_checker(clients)
     base = _mem_base()
     _zero_launches()
     t0 = time.monotonic()
@@ -549,17 +558,28 @@ def paxos_main(clients: int, unique_want: int):
     sec = time.monotonic() - t0
     launches = _read_launches()
     unique = checker.unique_state_count()
-    for line in out.getvalue().splitlines():
-        print(f"  {line}", flush=True)
+    for line in out.getvalue().splitlines()[:print_lines]:
+        print(f"  {line[:400]}", flush=True)
     print(f"  {checker.metrics} sec={sec:.3f} "
           f"states/s={checker.state_count() / sec:.0f} "
-          f"unique/s={unique / sec:.0f} launches={launches} "
+          f"unique/s={unique / sec:.0f} waves={checker.metrics['waves']} "
+          f"launches={launches} "
           f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
           flush=True)
-    assert unique == unique_want, unique
-    assert checker.discovered_property_names() == {"value chosen"}
     assert all(n > 0 for n in launches.values()), launches
-    return dict(launches=launches, metrics=checker.metrics)
+    return dict(launches=launches, metrics=checker.metrics, unique=unique,
+                names=checker.discovered_property_names())
+
+
+def paxos_main(clients: int, unique_want: int):
+    """``paxos check N`` through the library entry point and the sizes
+    ``paxos check-gpu N`` uses, paths off as the CLI runs it."""
+    from stateright_tpu_torch.cli import paxos_checker
+
+    run = run_main(paxos_checker(clients))
+    assert run["unique"] == unique_want, run["unique"]
+    assert run["names"] == {"value chosen"}
+    return run
 
 
 @phase("paxos check 4 (main path)")
@@ -572,15 +592,20 @@ def paxos5():
     return paxos_main(5, 4_711_569)
 
 
-@phase("kernels at paxos 4c shapes")
-def kernels_paxos(metrics):
-    """Each kernel against its plain version and timed at the widest
-    4-client wave's shapes: member at the wave with the most candidate
-    keys (Na visited, Nq queries), merge at the wave with the most
-    winners (Na, Nb). The keys are uniform 64-bit draws, the queries
-    one part visited keys and one part fresh, as in a wave. These
-    inputs fit in L2, where the engine's calls find them evicted by
-    the rest of the wave, so each launch is timed with L2 cold."""
+def kernels_at(label: str, metrics: dict):
+    """The phase ``kernels at <label> shapes``: each kernel against its
+    plain version (exactly) and timed at the widest wave's shapes of
+    the run ``label``, from its engine ``metrics``."""
+    return phase(f"kernels at {label} shapes")(_kernels_at)(metrics)
+
+
+def _kernels_at(metrics):
+    """Member at the wave with the most candidate keys (Na visited, Nq
+    queries), merge at the wave with the most winners (Na, Nb). The
+    keys are uniform 64-bit draws, the queries one part visited keys
+    and one part fresh, as in a wave. Inputs that fit in L2 find it
+    evicted by the rest of the wave in the engine, so each launch is
+    timed with L2 cold."""
     import torch
 
     from stateright_tpu_torch.ops import merge
@@ -627,6 +652,138 @@ def kernels_paxos(metrics):
     return out
 
 
+def _compiled(build):
+    """Build a compiled encoding, printing the host compile time apart
+    from any run's ``sec=``; the compiler's queue-bound caps are
+    expected warnings."""
+    import warnings
+
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        enc = build()
+    print(f"  host compile {time.monotonic() - t0:.3f}s: W={enc.width} "
+          f"K={enc.max_actions} {enc.codegen_opt}", flush=True)
+    return enc
+
+
+@phase("abd 2c/3s ordered (compiled, main path)")
+def abd_main():
+    """ABD over FIFO channels, 2 clients and 3 servers, as the bench
+    runs it: the compiled encoding, paths off."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.linearizable_register import (
+        AbdModelCfg,
+        abd_model,
+    )
+
+    model = abd_model(AbdModelCfg(client_count=2, server_count=3),
+                      Network.new_ordered())
+    enc = _compiled(model.to_encoded)
+    run = run_main(model.checker().spawn_sortmerge(
+        encoded=enc, capacity=1 << 21, frontier_capacity=1 << 18,
+        track_paths=False))
+    assert run["unique"] == 1_212_979, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    return run
+
+
+@phase("2pc-actors rm=9 (compiled)")
+def twopc_actors9():
+    """The compiled 2pc at rm=9, through the library entry point and
+    sizes ``2pc-actors check-gpu 9`` uses; held to the hand rm=9 run of
+    this call."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.model import Expectation
+    from stateright_tpu_torch.models.two_phase_commit_actors import (
+        two_phase_sys_actor_model,
+        two_phase_sys_compiled_encoded,
+    )
+
+    model = two_phase_sys_actor_model(9)
+    enc = _compiled(lambda: two_phase_sys_compiled_encoded(9))
+    run = run_main(model.checker().spawn_sortmerge(
+        encoded=enc, **twopc_sizes(9)), print_lines=1)
+    assert run["unique"] == 10_340_352, run["unique"]
+    hand = HAND.get("2pc rm=9")
+    assert hand is not None, "the hand 2pc rm=9 phase did not pass"
+    assert run["unique"] == hand[0], (run["unique"], hand[0])
+    sometimes = {p.name for p in model.properties()
+                 if p.expectation == Expectation.SOMETIMES}
+    assert run["names"] == hand[1] == sometimes, (run["names"], hand[1])
+    return run
+
+
+@phase("paxos-compiled 2c")
+def paxos_compiled2():
+    """The compiled paxos at 2 clients on the card with paths, as
+    ``paxos-compiled check-gpu 2`` runs it; held to the hand paxos 2c
+    run of this call."""
+    from stateright_tpu_torch.models.paxos import (
+        PaxosModelCfg,
+        paxos_compiled_encoded,
+        paxos_model,
+    )
+
+    cfg = PaxosModelCfg(client_count=2, server_count=3)
+    model = paxos_model(cfg)
+    enc = _compiled(lambda: paxos_compiled_encoded(cfg))
+    checker = model.checker().spawn_sortmerge(
+        encoded=enc, track_paths=True, capacity=1 << 15,
+        frontier_capacity=1 << 13)
+    run = run_main(checker, print_lines=3)
+    hand = HAND.get("paxos 2c")
+    assert hand is not None, "the hand paxos 2c phase did not pass"
+    assert run["unique"] == hand[0] == 16668, (run["unique"], hand)
+    assert run["names"] == hand[1] == {"value chosen"}, run["names"]
+    path = checker.discovery("value chosen")
+    assert _replays(model, path, model.property_by_name("value chosen"))
+    return run
+
+
+@phase("compiled, card vs CPU")
+def compiled_card_vs_cpu():
+    """Compiled encodings on the card and on the CPU, with paths: the
+    same counts, discovery fingerprints and paths, each path replayed
+    through the host model."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.models.linearizable_register import (
+        AbdModelCfg,
+        abd_model,
+    )
+    from stateright_tpu_torch.models.paxos import (
+        PaxosModelCfg,
+        paxos_compiled_encoded,
+        paxos_model,
+    )
+
+    abd = abd_model(AbdModelCfg(2, 2), Network.new_ordered())
+    pcfg = PaxosModelCfg(client_count=1, server_count=3)
+    cases = [("abd 2c/2s ordered", abd, _compiled(abd.to_encoded), 620),
+             ("paxos-compiled 1c/3s", paxos_model(pcfg),
+              _compiled(lambda: paxos_compiled_encoded(pcfg)), 265)]
+    for label, model, enc, want in cases:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            c = model.checker().spawn_sortmerge(
+                encoded=enc, capacity=1 << 13, frontier_capacity=1 << 11,
+                device=device).join()
+            runs[device] = c
+            print(f"  {label} {device}: states={c.state_count()} "
+                  f"unique={c.unique_state_count()} depth={c.max_depth()} "
+                  f"discovered={sorted(c.discovered_property_names())}",
+                  flush=True)
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        assert gpu.unique_state_count() == want, gpu.unique_state_count()
+        assert (gpu.state_count(), gpu.max_depth()) == (
+            cpu.state_count(), cpu.max_depth())
+        assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
+        assert gpu.discovered_property_names() == {"value chosen"}
+        for name, path in gpu.discoveries().items():
+            assert _replays(model, path, model.property_by_name(name)), name
+            assert path.encode() == cpu.discovery(name).encode(), name
+
+
 def main() -> int:
     import torch
 
@@ -646,15 +803,20 @@ def main() -> int:
     build()
     rec, calls = (kernels() if not FAILED else None) or (None, None)
     rm5()
-    launches = {"2pc rm=9": rm9()}
+    runs = {"2pc rm=9": rm9()}
     paxos2()
-    runs = {"paxos 4c": paxos4(), "paxos 5c": paxos5()}
-    at_paxos = (kernels_paxos(runs["paxos 4c"]["metrics"])
-                if runs["paxos 4c"] else None)
-    for path, run in runs.items():
-        launches[path] = run and run["launches"]
+    runs["paxos 4c"] = paxos4()
+    runs["paxos 5c"] = paxos5()
+    runs["abd 2c/3s ordered"] = abd_main()
+    runs["2pc-actors rm=9"] = twopc_actors9()
+    runs["paxos-compiled 2c"] = paxos_compiled2()
+    compiled_card_vs_cpu()
+    # each kernel held to its plain version at every path's own shapes
+    at = {path: run and kernels_at(path, run["metrics"])
+          for path, run in runs.items()}
+    launches = {path: run and run["launches"] for path, run in runs.items()}
     per_call = device_ops(calls) if calls else None
-    if (FAILED or rec is None or at_paxos is None or per_call is None
+    if (FAILED or rec is None or not all(at.values()) or per_call is None
             or not all(launches.values())):
         print(f"chip_smoke: failed phases: {FAILED}", file=sys.stderr)
         return 1
@@ -664,14 +826,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": r["replaces"],
             "launches": {path: n[name] for path, n in launches.items()},
-            "max_abs_err": max(r["max_abs_err"],
-                               at_paxos[name]["max_abs_err"]),
+            "max_abs_err": max([r["max_abs_err"]]
+                               + [a[name]["max_abs_err"]
+                                  for a in at.values()]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "pct_of_bound": r["pct_of_bound"],
             "launches_per_call": per_call[name],
-            "at_paxos_4c": at_paxos[name],
+            "at_path_shapes": {path: a[name] for path, a in at.items()},
         })
     print(json.dumps({"kernels": records}))
     print(card)

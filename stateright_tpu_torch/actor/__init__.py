@@ -1,12 +1,13 @@
 """Actor framework: model-checkable message-driven state machines.
 
 A copy of the JAX package's ``actor`` package (reference src/actor.rs
-and src/actor/*), cut to what the Paxos lane uses: the ``Actor``
-protocol, the ``ActorModel`` bridge into the checkable ``Model``
-protocol, the network semantics, and the register client/server
-(``actor/register.py``). Not ported yet: ``choice``,
-``ordered_reliable_link``, ``spawn`` (the UDP runtime), ``compile``
-(the actor→encoding compiler) and ``write_once_register``.
+and src/actor/*), cut to what the Paxos and compiled lanes use: the
+``Actor`` protocol, the ``ActorModel`` bridge into the checkable
+``Model`` protocol, the network semantics, the register client/server
+(``actor/register.py``) and the actor→encoding compiler
+(``actor/compile.py``). Not ported yet: ``choice``,
+``ordered_reliable_link``, ``spawn`` (the UDP runtime) and
+``write_once_register``.
 """
 
 from .base import (

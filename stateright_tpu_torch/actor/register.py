@@ -1,8 +1,9 @@
 """Register protocol adapters: the client/server message protocol shared
 by all register examples, plus consistency-history recording hooks.
 
-A copy of the JAX package's ``actor.register``, without the
-actor-compiler specs. Counterpart of stateright
+A copy of the JAX package's ``actor.register``, with its
+actor-compiler specs batched (:func:`register_specs`). Counterpart of
+stateright
 src/actor/register.rs:17-248:
 ``Put``/``Get`` requests with ``PutOk``/``GetOk`` responses (and
 ``Internal`` for the server protocol), ``record_invocations``/
@@ -177,3 +178,28 @@ class RegisterServer(Actor):
         if inner_cow.owned:
             state.set(ServerState(inner_cow.value))
 
+
+
+def register_specs(default_value=DEFAULT_VALUE):
+    """Device property specs for the register test-actor family
+    (single-copy, ABD): the standard linearizable / value-chosen pair
+    every register example checks (single-copy-register.rs:73-91,
+    linearizable-register.rs:243-257), as actor-compiler specs
+    (actor/compile.py) usable with any register-shaped ActorModel.
+    Each returns ``bool[N]`` over the batch."""
+
+    def linearizable(ctx, xp):
+        return (
+            ctx.history_value(
+                lambda h: int(h.serialized_history() is not None)
+            )
+            == 1
+        )
+
+    def value_chosen(ctx, xp):
+        return ctx.network_any(
+            lambda env: isinstance(env.msg, GetOk)
+            and env.msg.value != default_value
+        )
+
+    return {"linearizable": linearizable, "value chosen": value_chosen}

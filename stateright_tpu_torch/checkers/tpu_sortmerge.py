@@ -14,8 +14,9 @@ One wave, on the ``[W, n]`` lane-major frontier:
 2. the packed enabled-slot words of every row
    (:func:`frontier_enabled_bits`) and the enabled (row, slot) pairs in
    (row, ascending slot) order (:func:`sparse_pair_candidates`);
-3. the pair step, the boundary, and the fingerprint fold of every
-   successor, clamped off the sentinel (:func:`eval_pairs`);
+3. the pair step, the encoding's truncation flags, the boundary, and
+   the fingerprint fold of every successor, clamped off the sentinel
+   (:func:`eval_pairs`);
 4. one STABLE sort of the candidate keys (buffer position breaks ties,
    so the lowest-position duplicate wins) and an adjacent-equal check;
 5. membership against the sorted visited set — ``ops.merge.member_keys``,
@@ -48,7 +49,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..encoding import has_trivial_boundary, pair_step
 from ..model import Expectation
 from ..ops.bitmask import popcount_words, words_to_mask
 from ..ops.fingerprint import (
@@ -100,15 +100,31 @@ def sparse_pair_candidates(bits, k: int):
 
 
 def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool):
-    """Successors ``[W, P]``, their clamped keys (the sentinel where the
-    successor leaves the boundary) and the in-boundary mask for a block
-    of pairs."""
-    succ_t = pair_step(enc, frontier_t, rows, slots)
+    """Successors ``[W, P]``, their clamped keys (the sentinel where a
+    pair is excluded), the surviving-pair mask (``None``: every pair
+    survives) and the encoding-bound overflow flag (``None`` or a
+    ``bool`` tensor) for a block of pairs.
+
+    The encoding's flags apply as in the JAX engine: ``hard`` pairs
+    first (excluded, and they raise whatever the boundary says), then
+    the boundary, then ``trunc`` on the pairs still in it (excluded,
+    and they raise)."""
+    succ_t, trunc, hard = enc.step_slot_cols(frontier_t[:, rows], slots)
     keys = clamp_keys(pack_keys(*fingerprint_u32v_t(succ_t)))
-    if trivial_boundary:
-        return succ_t, keys, None
-    ok = enc.within_boundary_cols(succ_t)
-    return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok
+    ok = eov = None
+    if hard is not None:
+        eov = hard.any()
+        ok = ~hard
+    if not trivial_boundary:
+        inb = enc.within_boundary_cols(succ_t)
+        ok = inb if ok is None else ok & inb
+    if trunc is not None:
+        cut = trunc if ok is None else ok & trunc
+        eov = cut.any() if eov is None else eov | cut.any()
+        ok = ~trunc if ok is None else ok & ~trunc
+    if ok is None:
+        return succ_t, keys, None, eov
+    return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov
 
 
 class SortMergeTpuBfsChecker(TpuBfsChecker):
@@ -184,7 +200,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 f"properties come first (got index {max(evt_idx)})"
             )
         K = enc.max_actions
-        trivial = has_trivial_boundary(enc)
+        trivial = enc.trivial_boundary
         waves = max_cand = max_new = 0
         member_shape = merge_shape = (0, 0)
         done = st.frontier.shape[1] == 0
@@ -200,7 +216,9 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             )
             bits, cnt = frontier_enabled_bits(enc, front)
             rows, slots = sparse_pair_candidates(bits, K)
-            succ_t, keys, ok = eval_pairs(enc, front, rows, slots, trivial)
+            succ_t, keys, ok, eov = eval_pairs(enc, front, rows, slots,
+                                               trivial)
+            tripped = False
             if ok is None:
                 has_succ = cnt > 0
                 n_cand = rows.numel()
@@ -208,11 +226,17 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 has_succ = torch.zeros(front.shape[1], dtype=torch.bool,
                                        device=front.device)
                 has_succ[rows[ok]] = True
-                n_cand = int(ok.sum())
+                if eov is None:
+                    n_cand = int(ok.sum())
+                else:  # one transfer for the count and the flag
+                    n_cand, tripped = torch.stack(
+                        [ok.sum(), eov.long()]).tolist()
             if props:
                 hits = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
                                  f_lo, f_hi)
                 discovery_update(props, *hits, self._discovered_fps)
+            if tripped:
+                raise RuntimeError(self._overflow_message("encoding"))
 
             # -- merge stage: stable candidate sort, membership, winners
             s_key, s_pos = torch.sort(keys, stable=True)
@@ -279,6 +303,22 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 self._discoveries[name] = self._reconstruct(fp)
 
     def _overflow_message(self, kind: str) -> str:
+        if kind == "encoding":
+            msg = (
+                "encoding-bound overflow: a successor was pruned by "
+                "an internal encoding bound (e.g. a compiled envelope "
+                "count reached 128, a declared FIFO queue bound, or "
+                "an un-harvested history transition) — the state "
+                "space would be silently truncated. Bound the model "
+                "(boundary/closure bounds) or use an encoding with "
+                "wider fields."
+            )
+            if self._discovered_fps:
+                msg += (
+                    "  Discoveries recorded before truncation (valid "
+                    f"counterexamples): {sorted(self._discovered_fps)}"
+                )
+            return msg
         if kind == "visited":
             return (
                 f"visited table overflow (capacity={self.capacity}); "

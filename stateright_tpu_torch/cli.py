@@ -4,13 +4,18 @@
     python -m stateright_tpu_torch 2pc check-gpu 3 --device cpu
     python -m stateright_tpu_torch paxos check-gpu 4
     python -m stateright_tpu_torch paxos check-gpu 2 --device cpu
+    python -m stateright_tpu_torch 2pc-actors check-gpu 9
+    python -m stateright_tpu_torch paxos-compiled check-gpu 2
+    python -m stateright_tpu_torch linearizable-register check-gpu 2 ordered
 
 ``check-gpu`` runs the sort-merge wave engine on the CUDA device (on
 the CPU only with ``--device cpu``) and prints the same report as the
 JAX package's ``check-tpu`` lane of the same model: ``Done. states=…
 unique=… depth=… sec=…`` and every discovery with its encoded path and
 replayed states (for Paxos with 3 or more clients, as there, the
-discovery fingerprint only: paths are off).
+discovery fingerprint only: paths are off). The ``2pc-actors``,
+``paxos-compiled`` and ``linearizable-register`` lanes run encodings
+made by the actor→encoding compiler (actor/compile.py).
 """
 
 from __future__ import annotations
@@ -52,10 +57,9 @@ def _2pc(sub: str, args: list[str], device: str) -> None:
     if sub != "check-gpu":
         _usage()
         return
-    where = "GPU" if device == "cuda" else "CPU"
     print(
         f"Checking two phase commit with {rm_count} resource managers "
-        f"on the {where} wave engine."
+        f"on the {_where(device)} wave engine."
     )
     checker = TwoPhaseSys(rm_count=rm_count).checker().spawn_sortmerge(
         **twopc_sizes(rm_count), device=device
@@ -90,15 +94,106 @@ def _paxos(sub: str, args: list[str], device: str) -> None:
         _usage()
         return
     checker = paxos_checker(client_count, device)
-    where = "GPU" if device == "cuda" else "CPU"
     print(
         f"Model checking Single Decree Paxos with {client_count} "
-        f"clients on the {where} wave engine."
+        f"clients on the {_where(device)} wave engine."
     )
     checker.report(WriteReporter(sys.stdout))
 
 
-_MODELS = {"2pc": _2pc, "paxos": _paxos}
+def _where(device: str) -> str:
+    return "GPU" if device == "cuda" else "CPU"
+
+
+def _2pc_actors(sub: str, args: list[str], device: str) -> None:
+    """The compiled 2pc family: the count-comparable system actor model
+    (models/two_phase_commit_actors.py) through the actor→encoding
+    compiler, at the hand lane's sizes (the same pinned counts)."""
+    from .models.two_phase_commit_actors import (
+        two_phase_sys_actor_model,
+        two_phase_sys_compiled_encoded,
+    )
+
+    rm_count = int(args[0]) if args else 2
+    if sub != "check-gpu":
+        _usage()
+        return
+    print(
+        f"Checking two phase commit (compiled actor model) with "
+        f"{rm_count} resource managers on the {_where(device)} wave "
+        "engine."
+    )
+    checker = two_phase_sys_actor_model(rm_count).checker().spawn_sortmerge(
+        encoded=two_phase_sys_compiled_encoded(rm_count),
+        **twopc_sizes(rm_count), device=device,
+    )
+    checker.report(WriteReporter(sys.stdout))
+
+
+def _paxos_compiled(sub: str, args: list[str], device: str) -> None:
+    """Compiled paxos: the actor paxos model through the compiler in
+    reachable mode — the compile explores the space once on the host to
+    harvest bounds, so this lane caps at 2 clients (16,668 states)."""
+    from .models.paxos import (
+        PaxosModelCfg,
+        paxos_compiled_encoded,
+        paxos_model,
+    )
+
+    client_count = int(args[0]) if args else 2
+    if sub != "check-gpu":
+        _usage()
+        return
+    if client_count > 2:
+        raise SystemExit(
+            f"paxos-compiled check-gpu supports 1-2 clients (got "
+            f"{client_count}): reachable-mode compilation "
+            "explores the space once on the host to harvest "
+            "bounds (models/paxos.py paxos_compiled_encoded), "
+            "which is impractical beyond the 16,668-state "
+            "2-client config"
+        )
+    cfg = PaxosModelCfg(client_count=client_count, server_count=3)
+    print(
+        f"Model checking Single Decree Paxos (compiled) with "
+        f"{client_count} clients on the {_where(device)} wave engine."
+    )
+    checker = paxos_model(cfg).checker().spawn_sortmerge(
+        encoded=paxos_compiled_encoded(cfg),
+        capacity=1 << 15, frontier_capacity=1 << 13, device=device,
+    )
+    checker.report(WriteReporter(sys.stdout))
+
+
+def _linearizable(sub: str, args: list[str], device: str) -> None:
+    """ABD (models/linearizable_register.py) over the network named by
+    the second argument (default unordered non-duplicating), through
+    its compiled encoding."""
+    from .actor import Network
+    from .models.linearizable_register import AbdModelCfg, abd_model
+
+    client_count = int(args[0]) if args else 2
+    if sub != "check-gpu":
+        _usage()
+        return
+    network = (Network.from_name(args[1]) if len(args) > 1
+               else Network.new_unordered_nonduplicating())
+    cfg = AbdModelCfg(client_count=client_count)
+    print(
+        f"Model checking a linearizable register with {client_count} "
+        f"clients on the {_where(device)} wave engine (compiled actor "
+        "encoding)."
+    )
+    checker = abd_model(cfg, network).checker().spawn_sortmerge(
+        capacity=1 << (9 + 2 * client_count),
+        frontier_capacity=1 << (7 + client_count), device=device,
+    )
+    checker.report(WriteReporter(sys.stdout))
+
+
+_MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
+           "paxos-compiled": _paxos_compiled,
+           "linearizable-register": _linearizable}
 
 
 def _usage() -> None:
@@ -107,6 +202,12 @@ def _usage() -> None:
           "[--device cuda|cpu]")
     print("  python -m stateright_tpu_torch paxos check-gpu [CLIENTS 1-5] "
           "[--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch 2pc-actors check-gpu [COUNT] "
+          "[--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch paxos-compiled check-gpu "
+          "[CLIENTS 1-2] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch linearizable-register check-gpu "
+          "[CLIENTS] [NETWORK] [--device cuda|cpu]")
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -31,14 +31,21 @@ class SparseEncodedModel(Protocol):
 
     * ``enabled_bits_cols(states_t)`` — ``[W, N] -> int64[N, L]`` packed
       enabled-slot words (ops/bitmask.py layout, L = ceil(K/32));
-    * ``step_slot_cols(states_t, slots)`` — ``([W, N], int64[N]) ->
-      [W, N]``: the successor of each (state, enabled slot) pair. (The
-      JAX contract's optional truncation flags are not ported: no
-      encoding of the port has an internal bound yet.)
+    * ``step_slot_cols(states_t, slots)`` — ``([W, N], int64[N])``:
+      ``(succ_t, trunc, hard)``, the successor ``succ_t [W, N]`` of
+      each (state, enabled slot) pair and two ``bool[N]`` flags
+      (either may be ``None``: no pair flagged). ``trunc`` marks a pair
+      pruned by an internal encoding bound (a compiled envelope count
+      reaching 128, a declared FIFO queue bound): the engine excludes
+      it, and raises when its successor is within the boundary.
+      ``hard`` marks an unrepresentable successor (an un-harvested
+      history transition): excluded, and always raised;
     * ``property_conditions_cols(states_t)`` — ``[W, N] -> bool[N, P]``
       in ``host_model.properties()`` order. EVENTUALLY properties must
       sit at indices < 32 (the engine keeps their bits in one word);
     * ``within_boundary_cols(states_t)`` — ``[W, N] -> bool[N]``;
+      ``trivial_boundary`` is True when it is all-true, so the engine
+      skips it;
     * ``encode(state)`` / ``init_vecs()`` — host numpy ``uint32``
       vectors; encoding must be canonical (equal states encode equal).
     """
@@ -49,6 +56,8 @@ class SparseEncodedModel(Protocol):
     max_actions: int
     #: the semantic ground truth; also supplies properties() and replay
     host_model: Model
+    #: no boundary predicate: the engine skips within_boundary_cols
+    trivial_boundary: bool
 
     def init_vecs(self) -> np.ndarray: ...
 
@@ -57,7 +66,7 @@ class SparseEncodedModel(Protocol):
     def enabled_bits_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
 
     def step_slot_cols(self, states_t: torch.Tensor,
-                       slots: torch.Tensor) -> torch.Tensor: ...
+                       slots: torch.Tensor) -> tuple: ...
 
     def property_conditions_cols(self,
                                  states_t: torch.Tensor) -> torch.Tensor: ...
@@ -72,17 +81,8 @@ class EncodedModelBase:
         return torch.ones(states_t.shape[1], dtype=torch.bool,
                           device=states_t.device)
 
-
-def has_trivial_boundary(enc) -> bool:
-    """True when ``enc`` has no real boundary predicate (it inherits the
-    :class:`EncodedModelBase` default), so the engine skips the boundary
-    pass."""
-    wb = getattr(type(enc), "within_boundary_cols", None)
-    return wb is EncodedModelBase.within_boundary_cols
-
-
-def pair_step(enc, frontier_t: torch.Tensor, rows: torch.Tensor,
-              slots: torch.Tensor) -> torch.Tensor:
-    """The pair step: gather each pair's state column off the ``[W, F]``
-    frontier and step it by its slot; returns ``succ_t [W, N]``."""
-    return enc.step_slot_cols(frontier_t[:, rows], slots)
+    @property
+    def trivial_boundary(self) -> bool:
+        """True unless a subclass replaces ``within_boundary_cols``."""
+        return (type(self).within_boundary_cols
+                is EncodedModelBase.within_boundary_cols)

@@ -1,13 +1,12 @@
 """Single-decree Paxos serving a linearizable register.
 
-A copy of the JAX package's ``models.paxos``, without the
-actor-compiler specs (``paxos_device_specs``,
-``paxos_compiled_encoded``: the compiler is not ported yet).
-Counterpart of stateright examples/paxos.rs: each Put starts a new
-ballot (phase 1 prepare/prepared, phase 2 accept/accepted, then a
-decided broadcast); Gets answer only once decided. Checked against
-linearizability with 2 clients / 3 servers = 16,668 unique states
-(reference-pinned, paxos.rs:325, 349).
+A copy of the JAX package's ``models.paxos``; the actor-compiler specs
+(``paxos_device_specs``, ``paxos_compiled_encoded``) are batched for
+the port's compiler. Counterpart of stateright examples/paxos.rs: each
+Put starts a new ballot (phase 1 prepare/prepared, phase 2
+accept/accepted, then a decided broadcast); Gets answer only once
+decided. Checked against linearizability with 2 clients / 3 servers =
+16,668 unique states (reference-pinned, paxos.rs:325, 349).
 
 The vectorized encoding the wave engine runs lives in
 :mod:`stateright_tpu_torch.models.paxos_tpu`.
@@ -250,3 +249,32 @@ def paxos_model(cfg: PaxosModelCfg, network: Network | None = None) -> ActorMode
         .record_msg_out(record_invocations)
     )
 
+
+def paxos_device_specs() -> dict:
+    """Device property specs for compiling the ACTOR paxos model
+    (``compile_actor_model(paxos_model(cfg), **paxos_device_specs(),
+    closure="reachable")``) — the same history-table/network-scan
+    idiom as ABD's specs (actor/register.py ``register_specs``). The
+    hand encoding (models/paxos_tpu.py) stays the production path."""
+    from ..actor.register import register_specs
+
+    return dict(properties=register_specs(DEFAULT_VALUE))
+
+
+def paxos_compiled_encoded(cfg: PaxosModelCfg,
+                           network: Network | None = None, **kw):
+    """The compiled paxos encoding: the actor model through the
+    generic actor→encoding compiler, zero hand-written device code.
+    ``closure="reachable"`` (the harvest/bootstrap mode): paxos
+    ballots and the linearizability-tester history are bounded only by
+    system reachability, so the overapproximating fixpoint has no
+    protocol bound to converge on — the host explores the space once
+    at compile time."""
+    from ..actor.compile import compile_actor_model
+
+    return compile_actor_model(
+        paxos_model(cfg, network),
+        **paxos_device_specs(),
+        closure="reachable",
+        **kw,
+    )

@@ -854,8 +854,9 @@ class PaxosEncoded(EncodedModelBase):
         return states_t[self.n_state_lanes:].T & handled
 
     def step_slot_cols(self, states_t: torch.Tensor,
-                       slots: torch.Tensor) -> torch.Tensor:
-        """Successors of (state, enabled slot) pairs, ``[W, N]``: every
+                       slots: torch.Tensor) -> tuple:
+        """Successors of (state, enabled slot) pairs, ``[W, N]``, and no
+        truncation flags (``None, None``): every
         per-slot constant of the reference handlers is a table gather,
         every branch a select — one straight-line program over the
         batch. The output is a ``torch.stack`` of per-lane selects; no
@@ -1012,7 +1013,7 @@ class PaxosEncoded(EncodedModelBase):
             clear = torch.where((slot >> 5) == ln, _one_shl(slot & 31), 0)
             lanes.append((vec[self.n_state_lanes + ln] & ~clear)
                          | send_row[:, ln])
-        return torch.stack(lanes)
+        return torch.stack(lanes), None, None
 
     def property_conditions_cols(self,
                                  states_t: torch.Tensor) -> torch.Tensor:

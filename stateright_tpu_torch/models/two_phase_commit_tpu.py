@@ -136,8 +136,9 @@ class TwoPhaseSysEncoded(EncodedModelBase):
         return or_class_words(classes, mask_words(self.max_actions))
 
     def step_slot_cols(self, states_t: torch.Tensor,
-                       slots: torch.Tensor) -> torch.Tensor:
-        """Successors of (state, enabled slot) pairs, ``[2, N]``:
+                       slots: torch.Tensor) -> tuple:
+        """Successors of (state, enabled slot) pairs, ``[2, N]``, and no
+        truncation flags (``None, None``):
         branchless selects over the slot arithmetic (``rm = (slot-2) //
         5``, action kind ``(slot-2) % 5``) — no table is needed."""
         ps, ms = self._prep_shift, self._msgs_shift
@@ -181,7 +182,7 @@ class TwoPhaseSysEncoded(EncodedModelBase):
             l1_commit,
             torch.where(slots == 1, l1_abort, l1_rm),
         )
-        return torch.stack([l0, l1])
+        return torch.stack([l0, l1]), None, None
 
     def property_conditions_cols(self,
                                  states_t: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Packed enabled-mask bitmaps: the mask lane of the sparse dispatch.
 
 The PyTorch counterpart of ``stateright_tpu.ops.bitmask``, cut to what
-the sparse sort-merge engine uses. Word layout (everywhere): slot ``k``
+the sparse sort-merge engine and the actor compiler use. Word layout
+(everywhere): slot ``k``
 lives in word ``k // 32`` at bit ``k % 32``; tail bits of the last word
 are zero. Words are int64 tensors holding uint32 values.
 
@@ -10,7 +11,11 @@ masks (:func:`slot_mask_host`) OR-ed under per-state conditions
 (:func:`or_class_words`) or picked by a small field value
 (:func:`select_words_host`), so no dense ``bool[K]`` row is built by
 the predicate itself; the engine unpacks the words once per wave
-(:func:`words_to_mask`) for its pair compaction.
+(:func:`words_to_mask`) for its pair compaction. The actor compiler
+(actor/compile.py) adds two builders over host-planned tables:
+single-bit presence fields coalesced into word runs (:func:`bit_run_plan`,
+:func:`or_bit_runs`) and per-actor-state bits looked up in a packed
+host table (:func:`pack_bits_host`, :func:`bit_select`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,17 @@ import torch
 def mask_words(k: int) -> int:
     """Words per row for a K-slot mask."""
     return (int(k) + 31) // 32
+
+
+def pack_bits_host(flags) -> tuple:
+    """Host-side packing of a bool sequence into this module's word
+    layout (bit ``i`` of word ``i // 32``), the format
+    :func:`bit_select` reads. Always at least one word."""
+    words = [0] * max(1, mask_words(len(flags)))
+    for i, f in enumerate(flags):
+        if f:
+            words[i // 32] |= 1 << (i % 32)
+    return tuple(words)
 
 
 def slot_mask_host(k: int, slots) -> tuple:
@@ -71,6 +87,70 @@ def or_class_words(classes, L: int) -> torch.Tensor:
             words = const_words(words, cond.device)
         acc |= torch.where(cond[..., None], words, 0)
     return acc
+
+
+def bit_run_plan(k: int, sources):
+    """Host planner for the compiled-codegen mask: coalesce single-bit
+    presence extracts into word-level runs.
+
+    ``sources`` is a sequence of ``(slot, lane, shift)`` triples — slots
+    whose enabled-presence is ONE state bit (duplicating-network
+    envelope bits, timer armed bits). Wherever consecutive slots read
+    consecutive shifts of the same lane, the whole run collapses to a
+    single ``(lane >> shift) & mask``. Runs never cross an OUTPUT word
+    boundary (slot 32 starts a new word). Returns a list of
+    ``(dst_word, dst_pos, lane, shift, nbits)`` covering every source
+    exactly once; :func:`or_bit_runs` assembles them."""
+    runs = []
+    cur = None  # [dst_word, dst_pos, lane, shift, nbits]
+    for slot, lane, shift in sources:
+        if not 0 <= slot < k:
+            raise ValueError(f"slot {slot} outside 0..{k - 1}")
+        w, p = slot // 32, slot % 32
+        if (
+            cur is not None
+            and w == cur[0]
+            and p == cur[1] + cur[4]
+            and lane == cur[2]
+            and shift == cur[3] + cur[4]
+        ):
+            cur[4] += 1
+            continue
+        if cur is not None:
+            runs.append(tuple(cur))
+        cur = [w, p, lane, shift, 1]
+    if cur is not None:
+        runs.append(tuple(cur))
+    return runs
+
+
+def or_bit_runs(states_t: torch.Tensor, runs, L: int) -> list:
+    """Batched counterpart of :func:`bit_run_plan` over a ``[W, N]``
+    block: OR each run's ``(lane >> shift) & ((1 << nbits) - 1)`` into
+    its destination word. Returns a length-``L`` python list of
+    ``int64[N]`` word accumulators (``None`` where no run landed), so
+    the caller can fold in per-slot leftovers."""
+    acc = [None] * L
+    for dst_word, dst_pos, lane, shift, nbits in runs:
+        term = (states_t[lane] >> shift) & ((1 << nbits) - 1)
+        if dst_pos:
+            term = term << dst_pos
+        acc[dst_word] = (
+            term if acc[dst_word] is None else acc[dst_word] | term
+        )
+    return acc
+
+
+def bit_select(words, idx: torch.Tensor) -> torch.Tensor:
+    """Bit ``idx[i]`` of a host-constant packed bit table, for every
+    ``i``: ``int64[N]`` of 0/1. ``words`` is the table as an
+    ``int64[V]`` tensor on ``idx``'s device (a :func:`const_words` of a
+    :func:`pack_bits_host` tuple). The word is picked by ``idx >> 5``
+    (one past the table picks word 0, as the JAX version's where chain
+    does) and the bit by ``idx & 31``."""
+    wi = idx >> 5
+    wi = torch.where((wi >= 0) & (wi < words.shape[0]), wi, 0)
+    return (words[wi] >> (idx & 31)) & 1
 
 
 def words_to_mask(words: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,8 +1,15 @@
-"""Where the time of one ``2pc check-gpu N`` or ``paxos check-gpu N``
-run goes on the card.
+"""Where the time of one wave-engine run goes on the card.
 
     python -m stateright_tpu_torch.stage_profile 9
     python -m stateright_tpu_torch.stage_profile paxos 4
+    python -m stateright_tpu_torch.stage_profile 2pc-actors 9
+    python -m stateright_tpu_torch.stage_profile abd 2 3 ordered
+
+The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
+``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
+clients and S servers over the named network (paths off, the sizes of
+the bench's ``abd 2c/3s ordered``); the compiled encodings are built
+before the clock starts.
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -45,16 +52,52 @@ def _stage(name: str) -> str:
     return "other"
 
 
-def _check(model: str, n: int):
-    """One ``<model> check-gpu n`` run, timed to the device's end."""
+def _checker(model: str, n: int, extra: list):
+    """The checker of one run (its encoding compiled)."""
+    import warnings
+
     from .cli import paxos_checker, twopc_sizes
-    from .models.two_phase_commit import TwoPhaseSys
 
     if model == "paxos":
-        c = paxos_checker(n)
-    else:
-        c = TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
-            **twopc_sizes(n), device="cuda")
+        return paxos_checker(n)
+    if model == "2pc-actors":
+        from .models.two_phase_commit_actors import (
+            two_phase_sys_actor_model,
+            two_phase_sys_compiled_encoded,
+        )
+
+        return two_phase_sys_actor_model(n).checker().spawn_sortmerge(
+            encoded=two_phase_sys_compiled_encoded(n), **twopc_sizes(n),
+            device="cuda")
+    if model == "abd":
+        from .actor import Network
+        from .models.linearizable_register import AbdModelCfg, abd_model
+
+        servers = int(extra[0]) if extra else 2
+        network = Network.from_name(extra[1] if len(extra) > 1
+                                    else "unordered")
+        m = abd_model(AbdModelCfg(client_count=n, server_count=servers),
+                      network)
+        with warnings.catch_warnings():  # the declared queue-bound caps
+            warnings.simplefilter("ignore", RuntimeWarning)
+            enc = m.to_encoded()
+        return m.checker().spawn_sortmerge(
+            encoded=enc, capacity=1 << 21, frontier_capacity=1 << 18,
+            track_paths=False, device="cuda")
+    from .models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
+        **twopc_sizes(n), device="cuda")
+
+
+#: the warm-up size of each model (a smaller run of the same code)
+WARM = {"2pc": 5, "2pc-actors": 5, "paxos": 2, "abd": 1}
+
+
+def _check(model: str, n: int, extra: list):
+    """One run, timed to the device's end (the encoding is built
+    before the clock starts)."""
+    c = _checker(model, n, extra)
     t0 = time.monotonic()
     c.join()
     torch.cuda.synchronize()
@@ -62,9 +105,10 @@ def _check(model: str, n: int):
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    model = argv.pop(0) if argv and argv[0] in ("2pc", "paxos") else "2pc"
-    n = int(argv[0]) if argv else (4 if model == "paxos" else 9)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    model = argv.pop(0) if argv and argv[0] in WARM else "2pc"
+    n = int(argv[0]) if argv else {"paxos": 4, "abd": 2}.get(model, 9)
+    extra = argv[1:]
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -73,14 +117,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    _check(model, min(n, 2 if model == "paxos" else 5))
-    checker, wall = _check(model, n)
+    _check(model, min(n, WARM[model]), extra)
+    checker, wall = _check(model, n, extra)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced, traced_wall = _check(model, n)
+        traced, traced_wall = _check(model, n, extra)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -98,7 +142,7 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "card": card,
-        "model": model,
+        "model": " ".join([model, str(n), *extra]),
         "n": n,
         "unique": checker.unique_state_count(),
         "states": checker.state_count(),

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it and running its CLI
-(the 2pc and Paxos lanes) loads neither jax nor anything of the JAX
-package, and no source file of the port (nor chip_smoke.py) imports
-either."""
+(the 2pc and Paxos lanes, and the three compiled lanes at their
+smallest size) loads neither jax nor anything of the JAX package, and
+no source file of the port (nor chip_smoke.py) imports either."""
 
 import ast
 import os
@@ -24,6 +24,10 @@ def test_import_and_cli_load_no_jax():
         "from stateright_tpu_torch.cli import main\n"
         "main(['2pc', 'check-gpu', '2', '--device', 'cpu'])\n"
         "main(['paxos', 'check-gpu', '1', '--device', 'cpu'])\n"
+        "main(['2pc-actors', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "main(['paxos-compiled', 'check-gpu', '1', '--device', 'cpu'])\n"
+        "main(['linearizable-register', 'check-gpu', '1', 'ordered',"
+        " '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -36,7 +40,9 @@ def test_import_and_cli_load_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "Done. states=" in out.stdout and "unique=" in out.stdout
-    assert "Done. states=482, unique=265, depth=14" in out.stdout
+    assert out.stdout.count("Done. states=482, unique=265, depth=14") == 2
+    assert "Done. states=114, unique=56, depth=8" in out.stdout
+    assert "(compiled actor encoding)" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 

@@ -174,7 +174,8 @@ def test_2pc_encoding_equal_on_reachable_space(rm, count):
             jnp.asarray(vecs[rows]), jnp.asarray(slots.astype(np.uint32))
         )
     )
-    t_succ = tenc.step_slot_cols(states_t[:, rows], _t(slots))
+    t_succ, trunc, hard = tenc.step_slot_cols(states_t[:, rows], _t(slots))
+    assert trunc is None and hard is None
     assert (t_succ.numpy().T == j_succ).all()
 
     # host halves agree: same encodings of the same states

@@ -227,7 +227,8 @@ def test_device_functions_match_jax(encs, clients):
     # the pairs come from the port's words; the JAX words must equal them
     rows, slots = words_to_mask(bits, p.K).nonzero(as_tuple=True)
     assert rows.numel() > n  # every state has an enabled slot or more
-    succ = p.step_slot_cols(block[:, rows], slots)
+    succ, trunc, hard = p.step_slot_cols(block[:, rows], slots)
+    assert trunc is None and hard is None
     assert succ.shape == (p.width, rows.numel())
     assert int(succ.min()) >= 0 and int(succ.max()) < 1 << 32
     cond = p.property_conditions_cols(block)
