@@ -52,15 +52,32 @@ it exits non-zero and prints no result. Phases, each ending in
 10. compiled encodings on the card and on the CPU with paths (ABD 2c/2s
    ordered, 620; ``paxos-compiled`` 1c/3s, 265): the same counts,
    discovery fingerprints and paths, each path replayed;
-11. for every run of phases 4 and 6-9, each kernel against its plain
-   version (exactly) and timed at that run's widest wave's shapes, each
-   launch with L2 cold as the engine's calls find it;
-12. the device operations of one call of each kernel, counted in one
+11. the dense wave (``spawn_sortmerge(sparse=False)``, every slot of
+   every frontier row stepped in row chunks under a byte budget):
+   ``2pc rm=9 dense`` (10,340,352 unique, the same ``states=`` and
+   names as phase 4), ``paxos check 4 dense`` (paths off, 2,372,188,
+   the discovery fingerprints of phase 6's run) and ``2pc-actors rm=9
+   dense`` (compiled, 10,340,352);
+12. the last hand encodings through the library entry points and sizes
+   of their ``check-gpu`` lanes: ``increment-lock 8`` (dense, 438,401
+   unique, depth 33), ``increment 8`` (dense; discovers exactly "fin",
+   with a path that replays), ``register 8`` (sparse, 34,993 =
+   1 + 2·8·3⁷), ``single-copy-register 2`` (dense, 93, a "value chosen"
+   path that replays) and ``single-copy-register 3`` (compiled, sparse,
+   4,243);
+13. dense runs on the card and on the CPU with paths (``2pc`` rm=5,
+   ``paxos 2c``, ``increment-lock 4``): the same counts, discovery
+   fingerprints and paths;
+14. for every run of phases 4, 6-9 and 11, each kernel against its
+   plain version (exactly) and timed at that run's widest wave's
+   shapes, each launch with L2 cold as the engine's calls find it;
+15. the device operations of one call of each kernel, counted in one
    ``torch.profiler`` session after every timing.
 
-Every run of a main path (phases 4, 6, 7, 8, 9) prints its ``sec=``,
-states/s, waves, peak device memory above its start, the engine's
-``metrics`` and the launch count of each kernel in that run.
+Every run of a main path (phases 4, 6-9, 11 and 12) prints its
+``sec=``, states/s, waves, peak device memory above its start, the
+engine's ``metrics`` (with the dense chunk count of a dense run) and
+the launch count of each kernel in that run.
 
 It prints one JSON line of kernel records (``launches`` and the
 comparison at each path's shapes, ``at_path_shapes``, per path), then
@@ -480,6 +497,7 @@ def rm9():
     assert run["unique"] == 10_340_352, run["unique"]
     assert run["names"] == {"abort agreement", "commit agreement"}
     HAND["2pc rm=9"] = (run["unique"], run["names"])
+    HAND["2pc rm=9 states"] = run["states"]
     for name, path in checker.discoveries().items():
         assert _replays(model, path, model.property_by_name(name)), name
     return run
@@ -568,7 +586,9 @@ def run_main(checker, print_lines: int | None = None) -> dict:
           flush=True)
     assert all(n > 0 for n in launches.values()), launches
     return dict(launches=launches, metrics=checker.metrics, unique=unique,
-                names=checker.discovered_property_names())
+                names=checker.discovered_property_names(),
+                states=checker.state_count(), depth=checker.max_depth(),
+                fps=checker.discovery_fingerprints())
 
 
 def paxos_main(clients: int, unique_want: int):
@@ -584,7 +604,9 @@ def paxos_main(clients: int, unique_want: int):
 
 @phase("paxos check 4 (main path)")
 def paxos4():
-    return paxos_main(4, 2_372_188)
+    run = paxos_main(4, 2_372_188)
+    HAND["paxos 4c fps"] = run["fps"]
+    return run
 
 
 @phase("paxos check 5")
@@ -784,6 +806,169 @@ def compiled_card_vs_cpu():
             assert path.encode() == cpu.discovery(name).encode(), name
 
 
+def _dense_metrics(run):
+    m = run["metrics"]
+    assert m["expansion"] == "dense", m
+    assert m["dense_chunks"] >= m["waves"], m
+    return run
+
+
+@phase("2pc rm=9 dense")
+def rm9_dense():
+    """The dense wave of 2pc rm=9, held to the sparse run of this call:
+    the 2pc slots prune nothing, so ``states=`` is equal too."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    run = _dense_metrics(run_main(
+        TwoPhaseSys(rm_count=9).checker().spawn_sortmerge(
+            **twopc_sizes(9), sparse=False), print_lines=1))
+    assert "2pc rm=9" in HAND, "the sparse 2pc rm=9 phase did not pass"
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert run["states"] == HAND["2pc rm=9 states"], run["states"]
+    return run
+
+
+@phase("paxos check 4 dense")
+def paxos4_dense():
+    """The dense wave of ``paxos check 4``, paths off; the discovery
+    fingerprints of the sparse run of this call."""
+    from stateright_tpu_torch.cli import paxos_checker
+
+    run = _dense_metrics(run_main(paxos_checker(4, sparse=False)))
+    assert run["unique"] == 2_372_188, run["unique"]
+    assert "paxos 4c fps" in HAND, "the sparse paxos 4 phase did not pass"
+    assert run["fps"] == HAND["paxos 4c fps"], (run["fps"],
+                                                HAND["paxos 4c fps"])
+    return run
+
+
+@phase("2pc-actors rm=9 dense (compiled)")
+def twopc_actors9_dense():
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit_actors import (
+        two_phase_sys_actor_model,
+        two_phase_sys_compiled_encoded,
+    )
+
+    enc = _compiled(lambda: two_phase_sys_compiled_encoded(9))
+    run = _dense_metrics(run_main(two_phase_sys_actor_model(9).checker()
+                                  .spawn_sortmerge(encoded=enc, sparse=False,
+                                                   **twopc_sizes(9)),
+                                  print_lines=1))
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert run["names"] == HAND["2pc rm=9"][1], run["names"]
+    return run
+
+
+def _lane_run(checker, expansion: str, print_lines: int = 1) -> dict:
+    run = run_main(checker, print_lines=print_lines)
+    assert run["metrics"]["expansion"] == expansion, run["metrics"]
+    return run
+
+
+@phase("increment-lock 8")
+def increment_lock8():
+    from stateright_tpu_torch.cli import increment_checker
+
+    run = _lane_run(increment_checker(8, locked=True), "dense")
+    assert (run["unique"], run["depth"]) == (438_401, 33), run
+    assert run["names"] == set(), run["names"]
+    return run
+
+
+@phase("increment 8")
+def increment8():
+    from stateright_tpu_torch.cli import increment_checker
+    from stateright_tpu_torch.path import Path
+
+    checker = increment_checker(8, locked=False)
+    run = _lane_run(checker, "dense", print_lines=3)
+    assert run["names"] == {"fin"}, run["names"]
+    model = checker.model
+    path = checker.discovery("fin")
+    replayed = Path.from_fingerprints(model, path.fingerprints())
+    assert replayed.fingerprints() == path.fingerprints()
+    assert not model.property_by_name("fin").condition(
+        model, replayed.last_state())
+    return run
+
+
+@phase("register 8")
+def register8():
+    from stateright_tpu_torch.cli import register_checker
+
+    run = _lane_run(register_checker(8), "sparse")
+    assert run["unique"] == 1 + 2 * 8 * 3 ** 7 == 34_993, run["unique"]
+    assert run["names"] == {"all done", "lost write"}, run["names"]
+    return run
+
+
+@phase("single-copy-register 2")
+def single_copy2():
+    from stateright_tpu_torch.cli import single_copy_checker
+
+    checker = single_copy_checker(2)
+    run = _lane_run(checker, "dense", print_lines=3)
+    assert run["unique"] == 93, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    model = checker.model
+    assert _replays(model, checker.discovery("value chosen"),
+                    model.property_by_name("value chosen"))
+    return run
+
+
+@phase("single-copy-register 3 (compiled)")
+def single_copy3():
+    import warnings
+
+    from stateright_tpu_torch.cli import single_copy_checker
+
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        checker = single_copy_checker(3)
+    print(f"  host compile {time.monotonic() - t0:.3f}s", flush=True)
+    run = _lane_run(checker, "sparse")
+    assert run["unique"] == 4_243, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    return run
+
+
+@phase("dense, card vs CPU")
+def dense_card_vs_cpu():
+    """Dense runs on the card and on the CPU with paths: the same
+    counts, discovery fingerprints and paths."""
+    from stateright_tpu_torch.models.increment import IncrementLock
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    cases = [("2pc rm=5", TwoPhaseSys(rm_count=5), 8832),
+             ("paxos 2c", paxos_model(PaxosModelCfg(client_count=2,
+                                                    server_count=3)), 16668),
+             ("increment-lock 4", IncrementLock(4), 257)]
+    for label, model, want in cases:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            c = model.checker().spawn_sortmerge(
+                capacity=1 << 15, frontier_capacity=1 << 13, sparse=False,
+                device=device).join()
+            runs[device] = c
+            print(f"  {label} {device}: states={c.state_count()} "
+                  f"unique={c.unique_state_count()} depth={c.max_depth()} "
+                  f"discovered={sorted(c.discovered_property_names())} "
+                  f"chunks={c.metrics['dense_chunks']}", flush=True)
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        assert gpu.metrics["expansion"] == "dense"
+        assert gpu.unique_state_count() == want, gpu.unique_state_count()
+        assert (gpu.state_count(), gpu.max_depth()) == (
+            cpu.state_count(), cpu.max_depth())
+        assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
+        for name, path in gpu.discoveries().items():
+            assert _replays(model, path, model.property_by_name(name)), name
+            assert path.encode() == cpu.discovery(name).encode(), name
+
+
 def main() -> int:
     import torch
 
@@ -811,10 +996,20 @@ def main() -> int:
     runs["2pc-actors rm=9"] = twopc_actors9()
     runs["paxos-compiled 2c"] = paxos_compiled2()
     compiled_card_vs_cpu()
+    runs["2pc rm=9 dense"] = rm9_dense()
+    runs["paxos 4c dense"] = paxos4_dense()
+    runs["2pc-actors rm=9 dense"] = twopc_actors9_dense()
+    lanes = {"increment-lock 8": increment_lock8(),
+             "increment 8": increment8(), "register 8": register8(),
+             "single-copy-register 2": single_copy2(),
+             "single-copy-register 3": single_copy3()}
+    dense_card_vs_cpu()
     # each kernel held to its plain version at every path's own shapes
+    # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])
           for path, run in runs.items()}
-    launches = {path: run and run["launches"] for path, run in runs.items()}
+    launches = {path: run and run["launches"]
+                for path, run in {**runs, **lanes}.items()}
     per_call = device_ops(calls) if calls else None
     if (FAILED or rec is None or not all(at.values()) or per_call is None
             or not all(launches.values())):

@@ -7,12 +7,16 @@ fingerprint) it keeps as its own copy. Its wave engine runs on the CUDA
 device unless the caller asks for the CPU, where every kernel takes its
 plain-PyTorch version.
 
-Ported so far: the sparse sort-merge wave engine
-(``CheckerBuilder.spawn_sortmerge``) on the packed 2pc encoding and the
-Paxos hand encoding (with the actor framework and the linearizability
-tester it runs on), with the visited-set membership and merge as CUDA
-kernels (``csrc/merge_path.cu``). ``python -m stateright_tpu_torch 2pc
-check-gpu N`` and ``paxos check-gpu N`` run it.
+Ported so far: the sort-merge wave engine
+(``CheckerBuilder.spawn_sortmerge``), sparse and dense, with the
+visited-set membership and merge as CUDA kernels
+(``csrc/merge_path.cu``); the hand encodings of 2pc, Paxos, increment,
+the write-once register and the single-copy register; the actor
+framework, the linearizability tester and the actor→encoding compiler.
+``python -m stateright_tpu_torch`` runs them (``2pc``, ``paxos``,
+``increment``, ``increment-lock``, ``register``,
+``single-copy-register``, ``2pc-actors``, ``paxos-compiled``,
+``linearizable-register check-gpu N``).
 """
 
 from .checker import Checker, CheckerBuilder, DiscoveryClassification

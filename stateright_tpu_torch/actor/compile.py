@@ -45,9 +45,13 @@ values over the batch — ``actor_values`` is ``[n_actors, N]`` and a
 spec reduces it over ``dim=0``. The host functions a spec names run
 only over component domains, once per device.
 
-Only the optimized emission is ported. ``optimize=False`` (the naive
-emission), the dense ``step_vec`` (ROADMAP item 9), and the symmetry
-and ample-set declarations (item 11) raise ``NotImplementedError``.
+Two emissions are ported: the optimized sparse emission above and the
+dense step (:meth:`~CompiledActorEncoding.step_cols`, the JAX
+``step_vec``: every slot of every state from the per-slot transition
+tables, with its count- and queue-bound ``trunc`` flag). The engine
+runs the sparse one unless asked for ``sparse=False``. ``optimize=False``
+(the naive sparse emission, an ablation baseline) and the symmetry and
+ample-set declarations (ROADMAP item 11) raise ``NotImplementedError``.
 
 **Limits** (checked, as in the JAX package): ordered (FIFO) networks
 need per-channel queue bounds — harvested (``closure="reachable"``) or
@@ -67,7 +71,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..encoding import EncodedModelBase
+from ..encoding import EncodedModelBase, stack_slots
 from ..fingerprint import stable_hash
 from ..ops.bitmask import (
     bit_run_plan,
@@ -369,9 +373,9 @@ class CompiledActorEncoding(EncodedModelBase):
             )
         if not optimize:
             raise NotImplementedError(
-                "only the optimized emission is ported; the naive "
-                "optimize=False emission waits with the dense path "
-                "(ROADMAP item 9)"
+                "only the optimized sparse emission and the dense step "
+                "are ported; the naive optimize=False emission (an "
+                "ablation baseline) is not (ROADMAP item 9)"
             )
         self.ordered = isinstance(model._init_network, Ordered)
         self._queue_bound_decl = closure_queue_bound
@@ -1811,6 +1815,194 @@ class CompiledActorEncoding(EncodedModelBase):
             trunc = gated(trunc)
         hard = None if trivial_h else gated(h_missing)
         return succ, trunc, hard
+
+    def _dense_consts(self, device) -> dict:
+        """The dense emission's per-slot tables (``tbl_deliver``,
+        ``tbl_timeout``) and the packed history table as int64 tensors
+        on ``device``, made once per device."""
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_dense_dev", {})
+        if device not in cache:
+            def rows(tbl):
+                return [
+                    (i, k) + tuple(
+                        torch.from_numpy(np.asarray(a).astype(np.int64))
+                        .to(device) for a in t)
+                    for (i, k, *t) in tbl
+                ]
+
+            cache[device] = dict(
+                deliver=rows(self.tbl_deliver),
+                timeout=rows(self.tbl_timeout),
+                hist=torch.from_numpy(self.tbl_history_packed.astype(
+                    np.int64)).to(device),
+            )
+        return cache[device]
+
+    def step_cols(self, states_t: torch.Tensor) -> tuple:
+        """The dense emission (JAX ``step_vec``): ``[W, N] -> (succ [W, N,
+        K], valid bool[N, K], trunc bool[N])`` — every slot's successor
+        (deliver slots, then drops, timeouts and crashes, the JAX slot
+        order) from the per-(slot, actor-state) transition tables.
+
+        ``trunc`` marks rows where an otherwise-valid, in-boundary
+        successor was pruned by the implicit count bound (the top bit
+        of an 8-bit envelope field) or a FIFO queue bound, or where an
+        un-harvested history transition made it unrepresentable; the
+        engine raises on it. The lanes are uint32 values in int64: every
+        lane write is masked to 32 bits, as a uint32 store wraps."""
+        c = self._dense_consts(states_t.device)
+        W = self.width
+        n = states_t.shape[1]
+        dev = states_t.device
+        vec = [states_t[j] for j in range(W)]
+        hist = c["hist"]
+        false = torch.zeros(n, dtype=torch.bool, device=dev)
+        trunc = false
+
+        def getf(ls, f):
+            return (ls[f.lane] >> f.shift) & ((1 << f.bits) - 1)
+
+        def setf(ls, f, value):
+            out = list(ls)
+            out[f.lane] = ((ls[f.lane] & ~f.mask)
+                           | (value << f.shift)) & _M32
+            return out
+
+        def in_bound(ls):
+            if self.boundary_spec is None:
+                return True
+            return self.within_boundary_cols(torch.stack(ls))
+
+        n_crashed = sum(getf(vec, self.f_crashed[i]) for i in range(self.n))
+        h_idx = getf(vec, self.f_history).clamp(max=hist.shape[0] - 1)
+        top = [int(m) for m in self._net_top_mask]
+
+        def apply_transition(i, nxt, noop, ndl, tan, tor, hcl,
+                             extra_net=None):
+            s_idx = getf(vec, self.f_actor[i])
+            t_noop = _take(noop, s_idx) != 0
+            s = setf(vec, self.f_actor[i], _take(nxt, s_idx))
+            delta, t_and, t_or = (_take(ndl, s_idx), _take(tan, s_idx),
+                                  _take(tor, s_idx))
+            s = [((s[j] | delta[:, j]) if self.dup
+                  else (s[j] + delta[:, j]) & _M32) & t_and[:, j]
+                 | t_or[:, j] for j in range(W)]
+            hg = hist[h_idx, _take(hcl, s_idx).clamp(
+                max=hist.shape[1] - 1)]
+            s = setf(s, self.f_history, hg & 0x7FFFFFFF)
+            if extra_net is not None:
+                s = extra_net(s)
+            poisoned = false
+            if not self.dup and not self.ordered:
+                for j in range(W):
+                    if top[j]:
+                        poisoned = poisoned | ((s[j] & top[j]) != 0)
+            # an un-harvested (h, class) transition: the history field
+            # is garbage, so the boundary cannot be trusted and the
+            # truncation is raised whatever it says
+            hmiss = (hg >> 31) != 0
+            return s, t_noop, poisoned, hmiss
+
+        def ord_sends(s, i, sch, scd):
+            """Append the transition's sends to their FIFO queues in
+            emission order (q += code*base^len); a full queue sets the
+            overflow flag."""
+            s_idx = getf(vec, self.f_actor[i])
+            over = false
+            for j in range(self._smax):
+                chj = _take(sch, s_idx)[:, j]
+                cdj = _take(scd, s_idx)[:, j]
+                do = cdj > 0
+                for cc, ch in enumerate(self.channels):
+                    base, Q, f = self.ch_base[ch], self.ch_q[ch], \
+                        self.f_ch[cc]
+                    q = getf(s, f)
+                    ln = sum((q >= base**p).to(torch.int64)
+                             for p in range(Q))
+                    powv = torch.zeros_like(q)
+                    for p in range(Q):
+                        powv = torch.where(ln == p, base**p, powv)
+                    sel = do & (chj == cc)
+                    full = ln >= Q
+                    s = setf(s, f, torch.where(sel & ~full,
+                                               q + cdj * powv, q))
+                    over = over | (sel & full)
+            return s, over
+
+        succs, valids = [], []
+
+        def emit(s, valid):
+            succs.append(s)
+            valids.append(valid)
+
+        # Deliver slots (model.rs:299-351).
+        for (i, k, nxt, noop, ndl, tan, tor, hcl, sch, scd) in c["deliver"]:
+            crashed = getf(vec, self.f_crashed[i]) != 0
+            if self.ordered:
+                env = self.E[k]
+                ch = (env.src, env.dst)
+                base = self.ch_base[ch]
+                fq = self.f_ch[self.chidx[ch]]
+                # deliverable iff this message is the channel HEAD
+                # (model.rs:252-266); a no-op handler still pops
+                present = (getf(vec, fq) % base) == self.ch_code[ch][env.msg]
+
+                def pop_net(s, fq=fq, base=base):
+                    return setf(s, fq, getf(s, fq) // base)
+
+                s, t_noop, app_poison, hmiss = apply_transition(
+                    i, nxt, noop, ndl, tan, tor, hcl, extra_net=pop_net)
+                s, poisoned = ord_sends(s, i, sch, scd)
+                poisoned = poisoned | app_poison
+            else:
+                f = self.f_net[k]
+                present = getf(vec, f) > 0
+
+                def dec_net(s, f=f):
+                    if self.dup:
+                        return s  # redeliverable (network.rs:204-206)
+                    return setf(s, f, getf(s, f) - 1)
+
+                s, t_noop, poisoned, hmiss = apply_transition(
+                    i, nxt, noop, ndl, tan, tor, hcl, extra_net=dec_net)
+            enabled = present & ~crashed & ~t_noop
+            trunc = trunc | (enabled & ((poisoned & in_bound(s)) | hmiss))
+            emit(s, enabled & ~poisoned & ~hmiss)
+
+        # Drop slots — lossy networks only (model.rs:246-249).
+        for k in self.drop_slots:
+            f = self.f_net[k]
+            present = getf(vec, f) > 0
+            if self.dup:
+                s = list(vec)
+                s[f.lane] = vec[f.lane] & ~f.mask
+            else:
+                s = setf(vec, f, getf(vec, f) - 1)
+            emit(s, present)
+
+        # Timeout slots (model.rs:352-371).
+        for (i, j, nxt, noop, ndl, tan, tor, hcl, sch, scd) in (
+                c["timeout"]):
+            armed = getf(vec, self.f_timer[i][j]) != 0
+            s, t_noop, poisoned, hmiss = apply_transition(
+                i, nxt, noop, ndl, tan, tor, hcl)
+            if self.ordered:
+                s, over = ord_sends(s, i, sch, scd)
+                poisoned = poisoned | over
+            enabled = armed & ~t_noop
+            trunc = trunc | (enabled & ((poisoned & in_bound(s)) | hmiss))
+            emit(s, enabled & ~poisoned & ~hmiss)
+
+        # Crash slots (model.rs:372-380).
+        for i in self.crash_slots:
+            crashed = getf(vec, self.f_crashed[i]) != 0
+            s = setf(vec, self.f_crashed[i], torch.ones_like(vec[0]))
+            for f in self.f_timer[i]:
+                s[f.lane] = s[f.lane] & ~f.mask
+            emit(s, ~crashed & (n_crashed < self.max_crashes))
+
+        return (*stack_slots(succs, valids), trunc)
 
     def property_conditions_cols(self,
                                  states_t: torch.Tensor) -> torch.Tensor:

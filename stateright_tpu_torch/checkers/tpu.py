@@ -1,6 +1,7 @@
 """What the sort-merge wave engine inherits from the JAX package's
-``checkers/tpu.py``: frontier property evaluation, per-wave discovery
-recording, and counterexample path reconstruction.
+``checkers/tpu.py``: the dense step's flag normalization, frontier
+property evaluation, per-wave discovery recording, and counterexample
+path reconstruction.
 
 The frontier is an exact ``[W, n]`` lane-major block (the port sizes
 every wave to its live rows), so there is no row-validity mask here.
@@ -23,6 +24,17 @@ from ..ops.fingerprint import (
     pack_keys,
 )
 from ..path import Path
+
+
+def step_with_trunc(enc, states_t):
+    """``enc.step_cols`` over a ``[W, n]`` block, with the optional
+    truncation flag (see encoding.DenseEncodedModel) normalized to a
+    per-row bool: ``(succ [W, n, K], valid bool[n, K], trunc bool[n])``."""
+    succ, valid, trunc = enc.step_cols(states_t)
+    if trunc is None:
+        trunc = torch.zeros(states_t.shape[1], dtype=torch.bool,
+                            device=states_t.device)
+    return succ, valid, trunc
 
 
 def _props_and_ebits(cond, ebits, evt_idx):

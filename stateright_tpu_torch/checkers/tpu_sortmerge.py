@@ -1,7 +1,7 @@
 """The sort-merge wave engine, eager on a device.
 
-The port of ``stateright_tpu.checkers.tpu_sortmerge`` (its sparse,
-single-device, untiered path). The visited set is a SORTED array of
+The port of ``stateright_tpu.checkers.tpu_sortmerge`` (its single-device,
+untiered path, sparse and dense). The visited set is a SORTED array of
 packed int64 fingerprint keys (ops/fingerprint.py ``pack_keys``), kept
 sorted by merging each wave's winners into it; the parent forest is an
 append-only log of (parent, child) keys that stays on the device and is
@@ -11,20 +11,29 @@ One wave, on the ``[W, n]`` lane-major frontier:
 
 1. frontier fingerprints, property bits and discoveries
    (checkers/tpu.py ``frontier_props_t``, ``wave_hits``);
-2. the packed enabled-slot words of every row
-   (:func:`frontier_enabled_bits`) and the enabled (row, slot) pairs in
-   (row, ascending slot) order (:func:`sparse_pair_candidates`);
-3. the pair step, the encoding's truncation flags, the boundary, and
-   the fingerprint fold of every successor, clamped off the sentinel
-   (:func:`eval_pairs`);
-4. one STABLE sort of the candidate keys (buffer position breaks ties,
+2. the candidates, in (frontier row, ascending slot) order, by one of
+   two expansions:
+
+   * sparse (the default where the encoding offers it): the packed
+     enabled-slot words of every row (:func:`frontier_enabled_bits`),
+     the enabled (row, slot) pairs (:func:`sparse_pair_candidates`),
+     then the pair step, the encoding's truncation flags, the boundary
+     and the fingerprint fold of every successor (:func:`eval_pairs`);
+   * dense (``sparse=False``, or an encoding with only ``step_cols``):
+     the step of every row in every slot, in contiguous row chunks
+     whose ``[W, rows*K]`` block stays under a byte budget; each
+     chunk's valid, in-boundary successors are compacted (successor
+     columns, source row) before the next chunk is stepped, and only
+     they are fingerprinted (:func:`dense_candidates`, the JAX
+     ``expand_frontier`` and its per-tile path);
+3. one STABLE sort of the candidate keys (buffer position breaks ties,
    so the lowest-position duplicate wins) and an adjacent-equal check;
-5. membership against the sorted visited set — ``ops.merge.member_keys``,
+4. membership against the sorted visited set — ``ops.merge.member_keys``,
    the CUDA member kernel on the card;
-6. order-preserving winner compaction (``compact_winners_keys``); the
+5. order-preserving winner compaction (``compact_winners_keys``); the
    winners, in KEY order, become the next frontier, their parents' keys
    go to the parent log;
-7. the visited append — ``ops.merge.merge_keys``, the CUDA merge kernel
+6. the visited append — ``ops.merge.merge_keys``, the CUDA merge kernel
    on the card.
 
 The JAX engine compiles static shapes, so it carries class ladders,
@@ -59,7 +68,13 @@ from ..ops.fingerprint import (
 )
 from ..ops.merge import compact_winners_keys, member_keys, merge_keys
 from ..report import ReportData
-from .tpu import TpuBfsChecker, discovery_update, frontier_props_t, wave_hits
+from .tpu import (
+    TpuBfsChecker,
+    discovery_update,
+    frontier_props_t,
+    step_with_trunc,
+    wave_hits,
+)
 
 
 @dataclass
@@ -81,6 +96,12 @@ class WaveState:
 
 #: waves between two progress reports (the JAX engine's chunk length)
 REPORT_EVERY_WAVES = 64
+
+#: bytes of the ``[W, rows*K]`` int64 successor block one dense chunk
+#: may hold (its step's temporaries come on top): a dense step issues
+#: its torch ops once a chunk, whatever the chunk's rows, so fewer and
+#: larger chunks cost less host time
+DENSE_CHUNK_BYTES = 1 << 32
 
 
 def frontier_enabled_bits(enc, frontier_t):
@@ -127,6 +148,42 @@ def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool):
     return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov
 
 
+def dense_candidates(enc, frontier_t, trivial_boundary: bool,
+                     chunk_rows: int):
+    """The dense expansion of a non-empty ``[W, n]`` frontier,
+    ``chunk_rows`` rows at a time: ``(succ_t [W, P], rows int64[P],
+    has_succ bool[n], trunc, chunks)`` — the valid, in-boundary
+    successors in (row, ascending slot) order with their source rows,
+    which rows have one, the encoding-bound flag (a ``bool`` tensor: any
+    row's ``trunc``, whatever the boundary says, as in the JAX
+    ``expand_frontier``) and the number of chunks stepped. Each chunk is
+    compacted before the next is stepped, so only one ``[W,
+    chunk_rows*K]`` block lives at a time."""
+    n = frontier_t.shape[1]
+    dev = frontier_t.device
+    succs, rows, has, truncs = [], [], [], []
+    for r0 in range(0, n, chunk_rows):
+        block = frontier_t[:, r0:r0 + chunk_rows]
+        m = block.shape[1]
+        succ, valid, trunc = step_with_trunc(enc, block)
+        row, slot = valid.nonzero(as_tuple=True)  # (row, slot) order
+        cols = succ[:, row, slot]
+        del succ, valid
+        if not trivial_boundary:
+            inb = enc.within_boundary_cols(cols)
+            row, cols = row[inb], cols[:, inb]
+        h = torch.zeros(m, dtype=torch.bool, device=dev)
+        h[row] = True
+        succs.append(cols)
+        rows.append(row + r0)
+        has.append(h)
+        truncs.append(trunc.any())
+    if len(succs) == 1:
+        return succs[0], rows[0], has[0], truncs[0], 1
+    return (torch.cat(succs, dim=1), torch.cat(rows), torch.cat(has),
+            torch.stack(truncs).any(), len(succs))
+
+
 class SortMergeTpuBfsChecker(TpuBfsChecker):
     """``CheckerBuilder.spawn_sortmerge()``.
 
@@ -134,15 +191,40 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     states one wave may add (the JAX engine's buffer sizes); crossing
     either raises. ``device`` defaults to the CUDA device; pass
     ``"cpu"`` for the plain-PyTorch path.
+
+    ``sparse`` picks the expansion: ``None`` (default) runs sparse iff
+    the encoding has ``enabled_bits_cols`` and ``step_slot_cols`` (the
+    JAX engine's rule), ``False`` forces the dense ``step_cols``
+    expansion, ``True`` the sparse one. ``dense_chunk_bytes`` bounds the
+    ``[W, rows*K]`` int64 successor block of one dense chunk.
     """
 
     def __init__(self, builder, encoded=None, capacity: int = 1 << 16,
                  frontier_capacity: Optional[int] = None,
-                 track_paths: bool = True, device=None):
+                 track_paths: bool = True, device=None,
+                 sparse: Optional[bool] = None,
+                 dense_chunk_bytes: int = DENSE_CHUNK_BYTES):
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, device)
+        self.sparse = sparse
+        self.dense_chunk_bytes = dense_chunk_bytes
+        need = (("enabled_bits_cols", "step_slot_cols")
+                if self._use_sparse() else ("step_cols",))
+        missing = [m for m in need if not hasattr(self.encoded, m)]
+        if missing:
+            raise ValueError(
+                f"the {'sparse' if self._use_sparse() else 'dense'} wave "
+                f"needs {' and '.join(missing)}, which "
+                f"{type(self.encoded).__name__} does not have"
+            )
         self.metrics: dict = {}
         self._start: Optional[WaveState] = None
+
+    def _use_sparse(self) -> bool:
+        if self.sparse is not None:
+            return self.sparse
+        return (hasattr(self.encoded, "enabled_bits_cols")
+                and hasattr(self.encoded, "step_slot_cols"))
 
     def start_from(self, state: WaveState) -> "SortMergeTpuBfsChecker":
         """Run from ``state`` (e.g. ``convert.carry_from_numpy`` of a
@@ -209,28 +291,25 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         self._unique_states = st.vkeys.numel()
         self._total_states = st.generated
         self._max_depth = st.depth
+        sparse = self._use_sparse()
+        chunk_rows = max(1, self.dense_chunk_bytes // (8 * enc.width * K))
+        chunks = max_chunks = 0
         while not done:
             front = st.frontier
             cond, eb, f_lo, f_hi = frontier_props_t(
                 enc, props, evt_idx, front, st.ebits
             )
-            bits, cnt = frontier_enabled_bits(enc, front)
-            rows, slots = sparse_pair_candidates(bits, K)
-            succ_t, keys, ok, eov = eval_pairs(enc, front, rows, slots,
-                                               trivial)
-            tripped = False
-            if ok is None:
-                has_succ = cnt > 0
-                n_cand = rows.numel()
+            if sparse:
+                succ_t, keys, rows, has_succ, n_cand, tripped = \
+                    self._expand_sparse(front, K, trivial)
             else:
-                has_succ = torch.zeros(front.shape[1], dtype=torch.bool,
-                                       device=front.device)
-                has_succ[rows[ok]] = True
-                if eov is None:
-                    n_cand = int(ok.sum())
-                else:  # one transfer for the count and the flag
-                    n_cand, tripped = torch.stack(
-                        [ok.sum(), eov.long()]).tolist()
+                succ_t, rows, has_succ, eov, n_chunks = dense_candidates(
+                    enc, front, trivial, chunk_rows)
+                keys = clamp_keys(pack_keys(*fingerprint_u32v_t(succ_t)))
+                n_cand = keys.numel()
+                tripped = bool(eov)
+                chunks += n_chunks
+                max_chunks = max(max_chunks, n_chunks)
             if props:
                 hits = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
                                  f_lo, f_hi)
@@ -289,7 +368,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         # visited-set size it met there: (Na, Nq) and (Na, Nb)
         self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
                             max_wave_new=max_new, member_shape=member_shape,
-                            merge_shape=merge_shape)
+                            merge_shape=merge_shape,
+                            expansion="sparse" if sparse else "dense")
+        if not sparse:
+            self.metrics.update(dense_chunks=chunks,
+                                max_wave_chunks=max_chunks,
+                                chunk_rows=chunk_rows)
         self._final = st
         if self.track_paths:
             # the log stays on the device: each path step is one
@@ -301,6 +385,29 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             )
             for name, fp in self._discovered_fps.items():
                 self._discoveries[name] = self._reconstruct(fp)
+
+    def _expand_sparse(self, front, K: int, trivial: bool):
+        """The sparse expansion of one wave: ``(succ_t, keys, rows,
+        has_succ, n_cand, tripped)`` — every enabled pair's successor
+        and key (the sentinel where a pair is excluded), its source row,
+        which rows keep a successor, the surviving-pair count and the
+        encoding-bound overflow."""
+        enc = self.encoded
+        bits, cnt = frontier_enabled_bits(enc, front)
+        rows, slots = sparse_pair_candidates(bits, K)
+        succ_t, keys, ok, eov = eval_pairs(enc, front, rows, slots,
+                                           trivial)
+        tripped = False
+        if ok is None:
+            return succ_t, keys, rows, cnt > 0, rows.numel(), tripped
+        has_succ = torch.zeros(front.shape[1], dtype=torch.bool,
+                               device=front.device)
+        has_succ[rows[ok]] = True
+        if eov is None:
+            n_cand = int(ok.sum())
+        else:  # one transfer for the count and the flag
+            n_cand, tripped = torch.stack([ok.sum(), eov.long()]).tolist()
+        return succ_t, keys, rows, has_succ, n_cand, tripped
 
     def _overflow_message(self, kind: str) -> str:
         if kind == "encoding":

@@ -7,6 +7,10 @@
     python -m stateright_tpu_torch 2pc-actors check-gpu 9
     python -m stateright_tpu_torch paxos-compiled check-gpu 2
     python -m stateright_tpu_torch linearizable-register check-gpu 2 ordered
+    python -m stateright_tpu_torch increment check-gpu 8
+    python -m stateright_tpu_torch increment-lock check-gpu 3 --device cpu
+    python -m stateright_tpu_torch register check-gpu 8
+    python -m stateright_tpu_torch single-copy-register check-gpu 2
 
 ``check-gpu`` runs the sort-merge wave engine on the CUDA device (on
 the CPU only with ``--device cpu``) and prints the same report as the
@@ -15,7 +19,13 @@ unique=… depth=… sec=…`` and every discovery with its encoded path and
 replayed states (for Paxos with 3 or more clients, as there, the
 discovery fingerprint only: paths are off). The ``2pc-actors``,
 ``paxos-compiled`` and ``linearizable-register`` lanes run encodings
-made by the actor→encoding compiler (actor/compile.py).
+made by the actor→encoding compiler (actor/compile.py), as does
+``single-copy-register`` beyond 2 clients. ``increment``,
+``increment-lock`` and ``single-copy-register`` (up to 2 clients) run
+dense-only encodings, so the engine runs its dense wave there; every
+other lane runs the sparse wave (the dense wave of 2pc, Paxos and the
+compiled encodings is ``spawn_sortmerge(sparse=False)``, as in the JAX
+package, which has no flag for it either).
 """
 
 from __future__ import annotations
@@ -68,10 +78,12 @@ def _2pc(sub: str, args: list[str], device: str) -> None:
     checker.report(WriteReporter(sys.stdout))
 
 
-def paxos_checker(client_count: int, device: str = "cuda"):
+def paxos_checker(client_count: int, device: str = "cuda",
+                  sparse=None):
     """The checker ``paxos check-gpu N`` runs: the encoding's structural
     sizes, and paths only up to 2 clients (the JAX lane's rule: beyond
-    that the report gives the discovery fingerprint)."""
+    that the report gives the discovery fingerprint). ``sparse=False``
+    runs it on the dense wave (the CLI has no flag for it)."""
     from .models.paxos import PaxosModelCfg, paxos_model
     from .models.paxos_tpu import STRUCTURAL_SIZES
 
@@ -83,7 +95,7 @@ def paxos_checker(client_count: int, device: str = "cuda"):
         )
     cfg = PaxosModelCfg(client_count=client_count, server_count=3)
     return paxos_model(cfg).checker().spawn_sortmerge(
-        track_paths=client_count <= 2, device=device,
+        track_paths=client_count <= 2, device=device, sparse=sparse,
         **STRUCTURAL_SIZES[client_count],
     )
 
@@ -191,9 +203,102 @@ def _linearizable(sub: str, args: list[str], device: str) -> None:
     checker.report(WriteReporter(sys.stdout))
 
 
+#: engine sizes of the increment lanes: the largest space the encoding
+#: takes (8 threads: increment_lock 438,401 states, 40,320 in its widest
+#: wave) fits, so no thread count overflows (the engine sizes each wave
+#: exactly; a capacity only bounds it)
+INCREMENT_SIZES = dict(capacity=1 << 19, frontier_capacity=1 << 16)
+
+
+def increment_checker(thread_count: int, locked: bool,
+                      device: str = "cuda"):
+    """The checker ``increment[-lock] check-gpu N`` runs."""
+    from .models.increment import Increment, IncrementLock
+
+    model = (IncrementLock if locked else Increment)(thread_count)
+    return model.checker().spawn_sortmerge(**INCREMENT_SIZES,
+                                           device=device)
+
+
+def _increment(sub: str, args: list[str], device: str,
+               locked: bool = False) -> None:
+    thread_count = int(args[0]) if args else (3 if locked else 2)
+    if sub != "check-gpu":
+        _usage()
+        return
+    name = "increment_lock" if locked else "increment"
+    print(
+        f"Model checking {name} with {thread_count} threads on the "
+        f"{_where(device)} wave engine."
+    )
+    increment_checker(thread_count, locked, device).report(
+        WriteReporter(sys.stdout))
+
+
+def _increment_lock(sub: str, args: list[str], device: str) -> None:
+    _increment(sub, args, device, locked=True)
+
+
+def register_checker(n_clients: int, device: str = "cuda"):
+    """The checker ``register check-gpu N`` runs, at the JAX lane's
+    sizes: the raw space is 1 + 2n·3^(n-1) states
+    (models/nclient_register.py)."""
+    from .models.nclient_register import NClientRegSys
+
+    raw = 1 + 2 * n_clients * 3 ** max(0, n_clients - 1)
+    capacity = max(1 << 10, 1 << (raw - 1).bit_length())
+    return NClientRegSys(n_clients=n_clients).checker().spawn_sortmerge(
+        capacity=capacity, frontier_capacity=max(256, capacity // 4),
+        device=device,
+    )
+
+
+def _register(sub: str, args: list[str], device: str) -> None:
+    n_clients = int(args[0]) if args else 3
+    if sub != "check-gpu":
+        _usage()
+        return
+    print(
+        f"Checking the write-once register with {n_clients} clients on "
+        f"the {_where(device)} wave engine."
+    )
+    register_checker(n_clients, device).report(WriteReporter(sys.stdout))
+
+
+def single_copy_checker(client_count: int, device: str = "cuda"):
+    """The checker ``single-copy-register check-gpu N`` runs: the JAX
+    lane's sizes for the hand encoding (up to 2 clients; 93 states),
+    room for the compiled 3-client space (4,243) beyond."""
+    from .models.single_copy_register import (
+        SingleCopyRegisterCfg,
+        single_copy_register_model,
+    )
+
+    cfg = SingleCopyRegisterCfg(client_count=client_count)
+    sizes = (dict(capacity=256, frontier_capacity=64) if client_count <= 2
+             else dict(capacity=1 << 16, frontier_capacity=1 << 14))
+    return single_copy_register_model(cfg).checker().spawn_sortmerge(
+        **sizes, device=device)
+
+
+def _single_copy(sub: str, args: list[str], device: str) -> None:
+    client_count = int(args[0]) if args else 2
+    if sub != "check-gpu":
+        _usage()
+        return
+    print(
+        f"Model checking a single-copy register with {client_count} "
+        f"clients on the {_where(device)} wave engine."
+    )
+    single_copy_checker(client_count, device).report(
+        WriteReporter(sys.stdout))
+
+
 _MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
            "paxos-compiled": _paxos_compiled,
-           "linearizable-register": _linearizable}
+           "linearizable-register": _linearizable,
+           "increment": _increment, "increment-lock": _increment_lock,
+           "register": _register, "single-copy-register": _single_copy}
 
 
 def _usage() -> None:
@@ -208,6 +313,14 @@ def _usage() -> None:
           "[CLIENTS 1-2] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch linearizable-register check-gpu "
           "[CLIENTS] [NETWORK] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch increment check-gpu "
+          "[THREADS 1-8] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch increment-lock check-gpu "
+          "[THREADS 1-8] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch register check-gpu "
+          "[CLIENTS 1-8] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch single-copy-register check-gpu "
+          "[CLIENTS] [--device cuda|cpu]")
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -1,7 +1,9 @@
 """Fixed-width state encodings: the bridge from models to the device.
 
-The PyTorch counterpart of ``stateright_tpu.encoding``, cut to the
-sparse-dispatch contract the sort-merge engine runs. An encoding pairs
+The PyTorch counterpart of ``stateright_tpu.encoding``: the two
+contracts the sort-merge engine runs, the dense step
+(:class:`DenseEncodedModel`, JAX ``EncodedModel.step_vec``) and sparse
+dispatch (:class:`SparseEncodedModel`). An encoding pairs
 a host :class:`~stateright_tpu_torch.model.Model` (the semantic ground
 truth and replay oracle) with
 
@@ -23,6 +25,42 @@ import numpy as np
 import torch
 
 from .model import Model
+
+
+@runtime_checkable
+class DenseEncodedModel(Protocol):
+    """The dense contract (JAX ``EncodedModel.step_vec``, batched).
+
+    * ``step_cols(states_t)`` — ``[W, n] -> (succ [W, n, K], valid
+      bool[n, K], trunc)``: the successor of every state in every action
+      slot (``succ[:, r, k]`` for row ``r``, slot ``k``; either tensor
+      may be a strided view, see :func:`stack_slots`), which slots hold
+      a real successor, and ``trunc`` — ``bool[n]``, or ``None`` when
+      the encoding has no internal bound — marking rows where an
+      otherwise-valid successor was pruned by such a bound (the engine
+      raises on it);
+    * ``property_conditions_cols``, ``within_boundary_cols``,
+      ``trivial_boundary``, ``encode`` and ``init_vecs`` as in
+      :class:`SparseEncodedModel`.
+
+    The engine applies the boundary to the valid successors itself.
+    """
+
+    width: int
+    max_actions: int
+    host_model: Model
+    trivial_boundary: bool
+
+    def init_vecs(self) -> np.ndarray: ...
+
+    def encode(self, state: Any) -> np.ndarray: ...
+
+    def step_cols(self, states_t: torch.Tensor) -> tuple: ...
+
+    def property_conditions_cols(self,
+                                 states_t: torch.Tensor) -> torch.Tensor: ...
+
+    def within_boundary_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
 
 
 @runtime_checkable
@@ -48,6 +86,10 @@ class SparseEncodedModel(Protocol):
       skips it;
     * ``encode(state)`` / ``init_vecs()`` — host numpy ``uint32``
       vectors; encoding must be canonical (equal states encode equal).
+
+    An encoding may offer both contracts; each is held to its JAX twin
+    on its own (a compiled encoding's two emissions may count
+    ``states=`` differently, as in the JAX package).
     """
 
     #: uint32 lanes per state
@@ -72,6 +114,22 @@ class SparseEncodedModel(Protocol):
                                  states_t: torch.Tensor) -> torch.Tensor: ...
 
     def within_boundary_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
+
+
+def stack_slots(slots: list, valids: list) -> tuple:
+    """``(succ [W, N, K], valid bool[N, K])`` of a dense step from its
+    ``K`` per-slot lane lists (``W`` tensors ``[N]`` each; a lane a slot
+    leaves unchanged may be the input's own tensor) and validity masks.
+    Each slot is written whole into a slot-major ``[W, K, N]`` buffer,
+    lane by lane (a contiguous copy, and no second copy of the block);
+    ``succ`` is a ``[W, N, K]`` view of it and ``valid`` the transpose
+    of the ``[K, N]`` stacked masks."""
+    W, n = len(slots[0]), slots[0][0].shape[0]
+    out = torch.empty((W, len(slots), n), dtype=torch.int64,
+                      device=slots[0][0].device)
+    for w in range(W):
+        torch.stack([s[w] for s in slots], out=out[w])
+    return out.permute(0, 2, 1), torch.stack(valids).T
 
 
 class EncodedModelBase:

@@ -8,7 +8,9 @@ device half is written as batched torch over lane-major ``[W, N]``
 int64 blocks (see encoding.py) instead of per-state functions under
 ``vmap``: :meth:`PaxosEncoded.enabled_bits_cols`,
 :meth:`PaxosEncoded.step_slot_cols` and
-:meth:`PaxosEncoded.property_conditions_cols`.
+:meth:`PaxosEncoded.property_conditions_cols` (sparse dispatch), and
+the dense :meth:`PaxosEncoded.step_cols` with its per-kind ``_on_*``
+handlers.
 
 The encoding packs the full actor-model state of
 :mod:`stateright_tpu_torch.models.paxos` (reference examples/paxos.rs +
@@ -54,7 +56,7 @@ import torch
 
 from ..actor import Id
 from ..actor.register import Get, GetOk, Internal, Put, PutOk
-from ..encoding import EncodedModelBase
+from ..encoding import EncodedModelBase, stack_slots
 from ..ops.bitmask import (
     const_words,
     mask_words,
@@ -1014,6 +1016,266 @@ class PaxosEncoded(EncodedModelBase):
             lanes.append((vec[self.n_state_lanes + ln] & ~clear)
                          | send_row[:, ln])
         return torch.stack(lanes), None, None
+
+    # -- dense step (DenseEncodedModel) ------------------------------------
+    #
+    # The JAX ``step_vec``: one slot per envelope of the universe, each
+    # delivered by its kind's handler with every message field a python
+    # constant, batched over the rows. A handler returns the successor
+    # lanes (a lane it leaves alone is the input's own tensor) and
+    # whether it handled the message.
+
+    def step_cols(self, states_t: torch.Tensor) -> tuple:
+        """``[W, N] -> (succ [W, N, K], valid bool[N, K], None)``."""
+        lanes = list(states_t)
+        succs, valids = [], []
+        for k, e in enumerate(self.universe):
+            out, valid = self._deliver(lanes, k, e)
+            succs.append(out)
+            valids.append(valid)
+        return (*stack_slots(succs, valids), None)
+
+    def _deliver(self, v, k: int, e: EnvSpec):
+        lane = v[self.n_state_lanes + k // 32]
+        present = ((lane >> (k % 32)) & 1) != 0
+        out, handled = getattr(self, f"_on_{e.kind}")(v, k, e)
+        return out, present & handled
+
+    def _net_update(self, v, clear_k: int, send_masks: dict):
+        """Clear bit ``clear_k``; OR per-lane ``send_masks`` in."""
+        out = list(v)
+        for ln in range(self.net_lanes):
+            idx = self.n_state_lanes + ln
+            lane = v[idx]
+            if clear_k // 32 == ln:
+                lane = lane & ~(1 << (clear_k % 32))
+            m = send_masks.get(ln)
+            if m is not None:
+                lane = lane | m
+            out[idx] = lane
+        return out
+
+    def _send_masks(self, masks: dict, keys, hit) -> None:
+        """OR the per-lane masks of ``keys`` into ``masks`` where
+        ``hit``."""
+        for ln, m in self._const_mask(keys).items():
+            add = torch.where(hit, m, 0)
+            masks[ln] = add if ln not in masks else masks[ln] | add
+
+    def _poison(self, v, cond):
+        cl = self._clane_index(0)
+        out = list(v)
+        out[cl] = torch.where(cond, v[cl] | (1 << _B_POISON), v[cl])
+        return out
+
+    def _server_fields(self, lane):
+        return (_fget(lane, self.B_DEC, 1) != 0,
+                _fget(lane, self.B_BALLOT, self.W_BALLOT),
+                _fget(lane, self.B_PROP, self.W_PROP),
+                _fget(lane, self.B_ACC, self.W_ACC))
+
+    def _round_of(self, device) -> torch.Tensor:
+        cache = self.__dict__.setdefault("_round_dev", {})
+        if device not in cache:
+            cache[device] = torch.tensor(
+                [0] + [r for (r, _) in self.ballots], dtype=torch.int64,
+                device=device)
+        return cache[device]
+
+    def _on_put(self, v, k, e: EnvSpec):
+        lane = v[e.dst]
+        decided, ballot, prop, acc = self._server_fields(lane)
+        handled = ~decided & (prop == 0)
+        # New ballot: (round+1, dst). Rounds for this leader:
+        rounds = sorted(r for (r, l) in self.ballots if l == e.dst)
+        table = self._round_of(lane.device)
+        cur_round = table[ballot.clamp(max=table.numel() - 1)]
+        nb = torch.zeros_like(lane)
+        poison = handled
+        masks: dict = {}
+        for r in rounds:
+            hit = cur_round == (r - 1)
+            b = self.ballot_enum[(r, Id(e.dst))]
+            nb = torch.where(hit, b, nb)
+            poison = poison & ~hit
+            # Sends: Prepare(nb) to both peers — selected by round.
+            self._send_masks(masks, [
+                (e.dst, d, "prepare", b, 0, 0, 0)
+                for d in range(self.S) if d != e.dst
+            ], hit)
+        new_lane = ((nb << self.B_BALLOT) | (e.prop << self.B_PROP)
+                    | (acc << self.B_ACC))
+        # Put RESETS prepares to {self: accepted} (paxos.rs:160-176).
+        prep = ((acc + 1) << (self.W_PREP * e.dst)) & _M32
+        out = list(v)
+        if self.two_lane:
+            out[e.dst] = torch.where(handled, new_lane & _M32, lane)
+            pl = self._prep_lane(e.dst)
+            out[pl] = torch.where(handled, prep, v[pl])
+        else:
+            new_lane = (new_lane | (prep << self.B_PREP)) & _M32
+            out[e.dst] = torch.where(handled, new_lane, lane)
+        out = self._poison(out, poison)
+        return self._net_update(out, k, masks), handled
+
+    def _on_get(self, v, k, e: EnvSpec):
+        decided, _, _, acc = self._server_fields(v[e.dst])
+        # Reply GetOk(value of accepted proposal).
+        val = torch.where(acc > 0, ((acc - 1) % self.P) + 1, 0)
+        masks: dict = {}
+        for value in range(1, self.P + 1):
+            key = (e.dst, e.src, "getok", 0, 0, 0, value)
+            if key in self.index:
+                self._send_masks(masks, [key], decided & (val == value))
+        return self._net_update(v, k, masks), decided
+
+    def _on_putok(self, v, k, e: EnvSpec):
+        j = self.clients.index(e.dst)
+        cl, off = self._clane_index(j), self._coff(j)
+        lane = v[cl]
+        handled = _fget(lane, off, 2) == 0
+        # History: W returns, R invoked (phases 0 -> 2).
+        new_lane = _fset(_fset(lane, off, 2, 1), off + 2, 2, 2)
+        out = list(v)
+        out[cl] = torch.where(handled, new_lane, lane)
+        masks: dict = {}
+        self._send_masks(
+            masks, [(e.dst, (e.dst + 1) % self.S, "get", 0, 0, 0, 0)],
+            handled)
+        return self._net_update(out, k, masks), handled
+
+    def _on_getok(self, v, k, e: EnvSpec):
+        j = self.clients.index(e.dst)
+        cl, off = self._clane_index(j), self._coff(j)
+        lane = v[cl]
+        handled = _fget(lane, off, 2) == 1
+        new_lane = _fset(_fset(lane, off, 2, 2), off + 2, 2, 3)
+        new_lane = _fset(new_lane, off + 4, self.W_RV, e.value)
+        out = list(v)
+        out[cl] = torch.where(handled, new_lane, lane)
+        return self._net_update(out, k, {}), handled
+
+    def _on_prepare(self, v, k, e: EnvSpec):
+        lane = v[e.dst]
+        decided, ballot, _, acc = self._server_fields(lane)
+        handled = ~decided & (ballot < e.ballot)
+        new_lane = _fset(lane, self.B_BALLOT, self.W_BALLOT, e.ballot)
+        # Send Prepared(b, la=accepted) to the leader; select the
+        # envelope by the acceptor's current accepted code.
+        masks: dict = {}
+        covered = torch.zeros_like(handled)
+        for la in self.la_universe[e.ballot]:
+            hit = handled & (acc == la)
+            covered = covered | hit
+            self._send_masks(
+                masks, [(e.dst, e.src, "prepared", e.ballot, 0, la, 0)],
+                hit)
+        out = list(v)
+        out[e.dst] = torch.where(handled, new_lane, lane)
+        out = self._poison(out, handled & ~covered)
+        return self._net_update(out, k, masks), handled
+
+    def _on_prepared(self, v, k, e: EnvSpec):
+        ld = e.dst
+        lane = v[ld]
+        plane = v[self._prep_lane(ld)]
+        decided, ballot, prop, _ = self._server_fields(lane)
+        handled = ~decided & (ballot == e.ballot)
+        # prepares[src] = 1 + la.
+        new_plane = _fset(plane, self.B_PREP + self.W_PREP * e.src,
+                          self.W_PREP, 1 + e.la)
+        entries = [
+            _fget(new_plane, self.B_PREP + self.W_PREP * i, self.W_PREP)
+            for i in range(self.S)
+        ]
+        count = sum((en != 0).to(torch.int64) for en in entries)
+        fire = handled & (count == 2)  # majority(3) (paxos.rs:144)
+        # best la among present entries (la codes order by (ballot,
+        # proposal), None lowest — matches _accepted_sort_key).
+        best = torch.zeros_like(lane)
+        for en in entries:
+            best = torch.maximum(best, torch.where(en != 0, en - 1, 0))
+        chosen = torch.where(best > 0, ((best - 1) % self.P) + 1, prop)
+        acc_code = 1 + (e.ballot - 1) * self.P + (chosen - 1)
+        fired_lane = _fset(lane, self.B_PROP, self.W_PROP, chosen)
+        fired_lane = _fset(fired_lane, self.B_ACC, self.W_ACC, acc_code)
+        fired_lane = _fset(fired_lane, self.B_ACCEPTS, self.W_ACCEPTS,
+                           1 << ld)
+        new_lane = torch.where(fire, fired_lane, lane)
+        masks: dict = {}
+        covered = torch.zeros_like(fire)
+        for p in self.choosable[e.ballot]:
+            hit = fire & (chosen == p)
+            covered = covered | hit
+            self._send_masks(masks, [
+                (ld, d, "accept", e.ballot, p, 0, 0)
+                for d in range(self.S) if d != ld
+            ], hit)
+        out = list(v)
+        if self.two_lane:
+            out[ld] = torch.where(handled, new_lane, lane)
+            pl = self._prep_lane(ld)
+            out[pl] = torch.where(handled, new_plane, plane)
+        else:
+            # Main lane and prepares share one lane: merge the updated
+            # prepares field range into the (possibly fired) main bits.
+            pmask = ((1 << (self.S * self.W_PREP)) - 1) << self.B_PREP
+            merged = (new_lane & ~pmask) | (new_plane & pmask)
+            out[ld] = torch.where(handled, merged, lane)
+        out = self._poison(out, fire & ~covered)
+        return self._net_update(out, k, masks), handled
+
+    def _on_accept(self, v, k, e: EnvSpec):
+        lane = v[e.dst]
+        decided, ballot, _, _ = self._server_fields(lane)
+        handled = ~decided & (ballot <= e.ballot)
+        acc_code = 1 + (e.ballot - 1) * self.P + (e.prop - 1)
+        new_lane = _fset(lane, self.B_BALLOT, self.W_BALLOT, e.ballot)
+        new_lane = _fset(new_lane, self.B_ACC, self.W_ACC, acc_code)
+        out = list(v)
+        out[e.dst] = torch.where(handled, new_lane, lane)
+        masks: dict = {}
+        self._send_masks(
+            masks, [(e.dst, e.src, "accepted", e.ballot, 0, 0, 0)],
+            handled)
+        return self._net_update(out, k, masks), handled
+
+    def _on_accepted(self, v, k, e: EnvSpec):
+        ld = e.dst
+        lane = v[ld]
+        decided, ballot, prop, _ = self._server_fields(lane)
+        handled = ~decided & (ballot == e.ballot)
+        accepts = _fget(lane, self.B_ACCEPTS, self.W_ACCEPTS) | (1 << e.src)
+        count = sum((accepts >> i) & 1 for i in range(self.S))
+        fire = handled & (count == 2)
+        new_lane = _fset(lane, self.B_ACCEPTS, self.W_ACCEPTS, accepts)
+        new_lane = torch.where(
+            fire, (new_lane | (1 << self.B_DEC)) & _M32, new_lane)
+        masks: dict = {}
+        covered = torch.zeros_like(fire)
+        for p in self.choosable[e.ballot]:
+            hit = fire & (prop == p)
+            covered = covered | hit
+            # Decided to the peers, PutOk to the proposal's requester.
+            self._send_masks(masks, [
+                (ld, d, "decided", e.ballot, p, 0, 0)
+                for d in range(self.S) if d != ld
+            ] + [(ld, self.clients[p - 1], "putok", 0, p, 0, 0)], hit)
+        out = list(v)
+        out[ld] = torch.where(handled, new_lane, lane)
+        out = self._poison(out, fire & ~covered)
+        return self._net_update(out, k, masks), handled
+
+    def _on_decided(self, v, k, e: EnvSpec):
+        lane = v[e.dst]
+        handled = _fget(lane, self.B_DEC, 1) == 0
+        acc_code = 1 + (e.ballot - 1) * self.P + (e.prop - 1)
+        new_lane = _fset(lane, self.B_BALLOT, self.W_BALLOT, e.ballot)
+        new_lane = _fset(new_lane, self.B_ACC, self.W_ACC, acc_code)
+        new_lane = (new_lane | (1 << self.B_DEC)) & _M32
+        out = list(v)
+        out[e.dst] = torch.where(handled, new_lane, lane)
+        return self._net_update(out, k, {}), handled
 
     def property_conditions_cols(self,
                                  states_t: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,9 @@ Actions (``max_actions = 2 + 5*N``), mirroring 2pc.rs actions():
   per rm: tm_rcv_prepared, rm_prepare, rm_choose_abort,
           rm_rcv_commit, rm_rcv_abort
 
-The enabled mask is word-native: every slot guard is a small function
+The dense step (``step_cols``) builds every slot's successor with the
+same bitfield updates as the JAX ``step_vec``. The enabled mask is
+word-native: every slot guard is a small function
 of one 2-bit RM field or a TM/message bit, so the packed words assemble
 from ``4 + 2N`` condition-gated host-constant class masks
 (ops/bitmask.py) and no dense ``bool[K]`` row is built by the predicate.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..encoding import EncodedModelBase
+from ..encoding import EncodedModelBase, stack_slots
 from ..ops.bitmask import mask_words, or_class_words, slot_mask_host
 from .two_phase_commit import RmState, TmState, TwoPhaseState, TwoPhaseSys
 
@@ -112,6 +114,46 @@ class TwoPhaseSysEncoded(EncodedModelBase):
         )
 
     # -- device side -----------------------------------------------------
+
+    def step_cols(self, states_t: torch.Tensor) -> tuple:
+        """The dense step (JAX ``step_vec``): ``[2, N] -> (succ [2, N,
+        K], valid bool[N, K], None)``, every slot's successor by the
+        same branchless bitfield updates as 2pc.rs actions() /
+        next_state()."""
+        n = self.rm_count
+        ps, ms = self._prep_shift, self._msgs_shift
+        lane0, lane1 = states_t[0], states_t[1]
+        tm = lane1 & 3
+        prep = (lane1 >> ps) & ((1 << n) - 1)
+        commit_bit, abort_bit = 1 << ms, 1 << (ms + 1)
+        tm_clear = lane1 & ~3
+        tm_init = tm == _INIT
+        # (lane 0, lane 1, valid) per slot, in slot order
+        slots = [
+            (lane0, tm_clear | _TM_COMMITTED | commit_bit,
+             tm_init & (prep == (1 << n) - 1)),        # tm_commit
+            (lane0, tm_clear | _TM_ABORTED | abort_bit, tm_init),
+        ]
+        committed = (lane1 & commit_bit) != 0
+        aborted = (lane1 & abort_bit) != 0
+        for rm in range(n):
+            working = ((lane0 >> (2 * rm)) & 3) == _WORKING
+            prepared_bit = 1 << (ms + 2 + rm)
+            rm_clear = lane0 & ~(3 << (2 * rm))
+            slots += [
+                (lane0, lane1 | (1 << (ps + rm)),       # tm_rcv_prepared
+                 tm_init & ((lane1 & prepared_bit) != 0)),
+                (rm_clear | (_PREPARED << (2 * rm)),    # rm_prepare
+                 lane1 | prepared_bit, working),
+                (rm_clear | (_ABORTED << (2 * rm)), lane1,
+                 working),                              # rm_choose_abort
+                (rm_clear | (_COMMITTED << (2 * rm)), lane1,
+                 committed),                            # rm_rcv_commit
+                (rm_clear | (_ABORTED << (2 * rm)), lane1,
+                 aborted),                              # rm_rcv_abort
+            ]
+        return (*stack_slots([s[:2] for s in slots],
+                             [s[2] for s in slots]), None)
 
     def enabled_bits_cols(self, states_t: torch.Tensor) -> torch.Tensor:
         """``[2, N] -> int64[N, ceil(K/32)]`` packed enabled mask: an OR

@@ -4,22 +4,24 @@
     python -m stateright_tpu_torch.stage_profile paxos 4
     python -m stateright_tpu_torch.stage_profile 2pc-actors 9
     python -m stateright_tpu_torch.stage_profile abd 2 3 ordered
+    python -m stateright_tpu_torch.stage_profile --dense paxos 4
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
 clients and S servers over the named network (paths off, the sizes of
 the bench's ``abd 2c/3s ordered``); the compiled encodings are built
-before the clock starts.
+before the clock starts. ``--dense`` runs the same checker on the dense
+wave (``spawn_sortmerge(sparse=False)``).
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
 in ``torch.cuda.synchronize()``, then repeats the run under
-``torch.profiler`` and sums the device time of every kernel, grouped
-into stages by kernel name. It prints one JSON object: the card's name
-and power limit, the untraced and traced walls, the device busy time
-and the idle share of the traced wall, the per-stage and top
-per-kernel device times, and the Merge Path kernels' share of the
-device time.
+``torch.profiler`` (device activity only) and sums the device time of
+every kernel, grouped into stages by kernel name. It prints one JSON
+object: the card's name and power limit, the untraced and traced walls,
+the device busy time and the idle share of the traced wall, the
+per-stage and top per-kernel device times, and the Merge Path kernels'
+share of the device time.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ STAGES = (
     ("compaction (nonzero, scan)", r"nonzero|[Ss]can|[Ss]elect|flag|write_indices"),
     ("gather / scatter / index", r"index|[Gg]ather|[Ss]catter|take"),
     ("reduction", r"reduce|[Rr]educe"),
+    ("stack / cat (dense successor block)", r"CatArray|[Cc]at_"),
     ("elementwise", r"elementwise|[Ff]ill|copy"),
     ("memcpy / memset", r"Memcpy|Memset"),
 )
@@ -52,14 +55,15 @@ def _stage(name: str) -> str:
     return "other"
 
 
-def _checker(model: str, n: int, extra: list):
-    """The checker of one run (its encoding compiled)."""
+def _checker(model: str, n: int, extra: list, sparse=None):
+    """The checker of one run (its encoding compiled); ``sparse=False``
+    forces the dense wave."""
     import warnings
 
     from .cli import paxos_checker, twopc_sizes
 
     if model == "paxos":
-        return paxos_checker(n)
+        return paxos_checker(n, sparse=sparse)
     if model == "2pc-actors":
         from .models.two_phase_commit_actors import (
             two_phase_sys_actor_model,
@@ -68,7 +72,7 @@ def _checker(model: str, n: int, extra: list):
 
         return two_phase_sys_actor_model(n).checker().spawn_sortmerge(
             encoded=two_phase_sys_compiled_encoded(n), **twopc_sizes(n),
-            device="cuda")
+            device="cuda", sparse=sparse)
     if model == "abd":
         from .actor import Network
         from .models.linearizable_register import AbdModelCfg, abd_model
@@ -83,21 +87,21 @@ def _checker(model: str, n: int, extra: list):
             enc = m.to_encoded()
         return m.checker().spawn_sortmerge(
             encoded=enc, capacity=1 << 21, frontier_capacity=1 << 18,
-            track_paths=False, device="cuda")
+            track_paths=False, device="cuda", sparse=sparse)
     from .models.two_phase_commit import TwoPhaseSys
 
     return TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
-        **twopc_sizes(n), device="cuda")
+        **twopc_sizes(n), device="cuda", sparse=sparse)
 
 
 #: the warm-up size of each model (a smaller run of the same code)
 WARM = {"2pc": 5, "2pc-actors": 5, "paxos": 2, "abd": 1}
 
 
-def _check(model: str, n: int, extra: list):
+def _check(model: str, n: int, extra: list, sparse=None):
     """One run, timed to the device's end (the encoding is built
     before the clock starts)."""
-    c = _checker(model, n, extra)
+    c = _checker(model, n, extra, sparse)
     t0 = time.monotonic()
     c.join()
     torch.cuda.synchronize()
@@ -106,6 +110,10 @@ def _check(model: str, n: int, extra: list):
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    sparse = None
+    if "--dense" in argv:
+        argv.remove("--dense")
+        sparse = False
     model = argv.pop(0) if argv and argv[0] in WARM else "2pc"
     n = int(argv[0]) if argv else {"paxos": 4, "abd": 2}.get(model, 9)
     extra = argv[1:]
@@ -117,14 +125,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    _check(model, min(n, WARM[model]), extra)
-    checker, wall = _check(model, n, extra)
+    _check(model, min(n, WARM[model]), extra, sparse)
+    checker, wall = _check(model, n, extra, sparse)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        traced, traced_wall = _check(model, n, extra)
+    # device activity only: the host ops of a dense Paxos run are
+    # millions of events, more than the profiler digests in minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced, traced_wall = _check(model, n, extra, sparse)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -142,7 +151,8 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     print(json.dumps({
         "card": card,
-        "model": " ".join([model, str(n), *extra]),
+        "model": " ".join([model, str(n), *extra]
+                          + (["dense"] if sparse is False else [])),
         "n": n,
         "unique": checker.unique_state_count(),
         "states": checker.state_count(),

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it and running its CLI
-(the 2pc and Paxos lanes, and the three compiled lanes at their
+(the 2pc and Paxos lanes, the three compiled lanes, and the increment,
+increment-lock, register and single-copy-register lanes, at their
 smallest size) loads neither jax nor anything of the JAX package, and
 no source file of the port (nor chip_smoke.py) imports either."""
 
@@ -28,6 +29,11 @@ def test_import_and_cli_load_no_jax():
         "main(['paxos-compiled', 'check-gpu', '1', '--device', 'cpu'])\n"
         "main(['linearizable-register', 'check-gpu', '1', 'ordered',"
         " '--device', 'cpu'])\n"
+        "main(['increment', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "main(['increment-lock', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "main(['register', 'check-gpu', '2', '--device', 'cpu'])\n"
+        "main(['single-copy-register', 'check-gpu', '2', '--device',"
+        " 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -43,6 +49,11 @@ def test_import_and_cli_load_no_jax():
     assert out.stdout.count("Done. states=482, unique=265, depth=14") == 2
     assert "Done. states=114, unique=56, depth=8" in out.stdout
     assert "(compiled actor encoding)" in out.stdout
+    for done in ("Done. states=15, unique=13, depth=5",
+                 "Done. states=17, unique=17, depth=9",
+                 "Done. states=17, unique=13, depth=5",
+                 "Done. states=121, unique=93, depth=9"):
+        assert done in out.stdout, done
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
