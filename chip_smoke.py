@@ -68,16 +68,24 @@ it exits non-zero and prints no result. Phases, each ending in
 13. dense runs on the card and on the CPU with paths (``2pc`` rm=5,
    ``paxos 2c``, ``increment-lock 4``): the same counts, discovery
    fingerprints and paths;
-14. for every run of phases 4, 6-9 and 11, each kernel against its
+14. the reductions, through the CLI's entry points (``RunFlags``):
+   ``2pc rm=9 --symmetry`` sparse and dense, ``2pc rm=9 --ample-set``
+   (fewer than the raw 10,340,352 states, the same names as phase 4),
+   ``2pc rm=9 --symmetry --ample-set`` and ``register 8 --symmetry``
+   (1 + 8·9 = 73 orbits); every ``--symmetry`` run is held to the same
+   run on the CPU (counts, ``states=``, depth, canonical hits,
+   discovery fingerprints and paths, each path replayed);
+15. for every run of phases 4, 6-9, 11 and 14, each kernel against its
    plain version (exactly) and timed at that run's widest wave's
    shapes, each launch with L2 cold as the engine's calls find it;
-15. the device operations of one call of each kernel, counted in one
+16. the device operations of one call of each kernel, counted in one
    ``torch.profiler`` session after every timing.
 
-Every run of a main path (phases 4, 6-9, 11 and 12) prints its
+Every run of a main path (phases 4, 6-9, 11, 12 and 14) prints its
 ``sec=``, states/s, waves, peak device memory above its start, the
-engine's ``metrics`` (with the dense chunk count of a dense run) and
-the launch count of each kernel in that run.
+engine's ``metrics`` (with the dense chunk count of a dense run and the
+canonical hits: candidates whose canonical form differed) and the
+launch count of each kernel in that run.
 
 It prints one JSON line of kernel records (``launches`` and the
 comparison at each path's shapes, ``at_path_shapes``, per path), then
@@ -969,6 +977,90 @@ def dense_card_vs_cpu():
             assert path.encode() == cpu.discovery(name).encode(), name
 
 
+def _reduced_checker(flags, lane: str, n: int, sparse=None):
+    """The checker ``<lane> check-gpu N`` runs with ``flags`` (a
+    ``RunFlags``); ``sparse=False`` its dense wave."""
+    from stateright_tpu_torch.cli import register_checker, twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    if lane == "register":
+        return register_checker(n, flags)
+    return flags.spawn(TwoPhaseSys(rm_count=n), symmetric=True,
+                       sparse=sparse, **twopc_sizes(n))
+
+
+def reduced_run(lane: str, n: int, sparse=None, **reductions) -> dict:
+    """One reduced run on the card (``run_main``); a ``--symmetry``
+    run is held to the same run on the CPU."""
+    from stateright_tpu_torch.cli import RunFlags
+
+    checker = _reduced_checker(RunFlags(**reductions), lane, n, sparse)
+    run = run_main(checker, print_lines=1)
+    if not reductions.get("symmetry"):
+        return run
+    t0 = time.monotonic()
+    cpu = _reduced_checker(RunFlags("cpu", **reductions), lane, n,
+                           sparse).join()
+    print(f"  cpu: states={cpu.state_count()} "
+          f"unique={cpu.unique_state_count()} depth={cpu.max_depth()} "
+          f"canonical_hits={cpu.metrics['canonical_hits']} "
+          f"in {time.monotonic() - t0:.3f}s", flush=True)
+    assert (run["unique"], run["states"], run["depth"]) == (
+        cpu.unique_state_count(), cpu.state_count(), cpu.max_depth())
+    assert run["metrics"]["canonical_hits"] == cpu.metrics[
+        "canonical_hits"] > 0
+    assert run["fps"] == cpu.discovery_fingerprints(), run["fps"]
+    model = checker.model
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+    return run
+
+
+@phase("2pc rm=9 --symmetry")
+def rm9_sym():
+    run = reduced_run("2pc", 9, symmetry=True)
+    assert 0 < run["unique"] < 10_340_352, run["unique"]
+    assert run["names"] == {"abort agreement", "commit agreement"}
+    HAND["2pc rm=9 sym"] = (run["unique"], run["states"], run["fps"])
+    return run
+
+
+@phase("2pc rm=9 --symmetry dense")
+def rm9_sym_dense():
+    run = _dense_metrics(reduced_run("2pc", 9, sparse=False,
+                                     symmetry=True))
+    assert "2pc rm=9 sym" in HAND, "the sparse symmetry phase did not pass"
+    assert (run["unique"], run["states"], run["fps"]) == HAND[
+        "2pc rm=9 sym"], run
+    return run
+
+
+@phase("2pc rm=9 --ample-set")
+def rm9_ample():
+    run = reduced_run("2pc", 9, ample_set=True)
+    assert 0 < run["unique"] < 10_340_352, run["unique"]
+    assert run["names"] == {"abort agreement", "commit agreement"}
+    return run
+
+
+@phase("2pc rm=9 --symmetry --ample-set")
+def rm9_sym_ample():
+    run = reduced_run("2pc", 9, symmetry=True, ample_set=True)
+    assert "2pc rm=9 sym" in HAND, "the sparse symmetry phase did not pass"
+    assert 0 < run["unique"] < HAND["2pc rm=9 sym"][0], run["unique"]
+    assert run["names"] == {"abort agreement", "commit agreement"}
+    return run
+
+
+@phase("register 8 --symmetry")
+def register8_sym():
+    run = reduced_run("register", 8, symmetry=True)
+    assert run["unique"] == 1 + 8 * 9 == 73, run["unique"]
+    assert run["names"] == {"all done", "lost write"}, run["names"]
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1004,6 +1096,11 @@ def main() -> int:
              "single-copy-register 2": single_copy2(),
              "single-copy-register 3": single_copy3()}
     dense_card_vs_cpu()
+    runs["2pc rm=9 --symmetry"] = rm9_sym()
+    runs["2pc rm=9 --symmetry dense"] = rm9_sym_dense()
+    runs["2pc rm=9 --ample-set"] = rm9_ample()
+    runs["2pc rm=9 --symmetry --ample-set"] = rm9_sym_ample()
+    runs["register 8 --symmetry"] = register8_sym()
     # each kernel held to its plain version at every path's own shapes
     # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])

@@ -12,7 +12,9 @@ Ported so far: the sort-merge wave engine
 visited-set membership and merge as CUDA kernels
 (``csrc/merge_path.cu``); the hand encodings of 2pc, Paxos, increment,
 the write-once register and the single-copy register; the actor
-framework, the linearizability tester and the actor→encoding compiler.
+framework, the linearizability tester and the actor→encoding compiler;
+device symmetry reduction and the static ample-set filter
+(``ops/canonical.py``, gated by ``soundness.py``).
 ``python -m stateright_tpu_torch`` runs them (``2pc``, ``paxos``,
 ``increment``, ``increment-lock``, ``register``,
 ``single-copy-register``, ``2pc-actors``, ``paxos-compiled``,

@@ -315,9 +315,13 @@ def compile_actor_model(
     under-declared bound fails loudly rather than silently
     truncating. Ignored for unordered networks.
 
-    ``device_rewrite_spec`` (device symmetry) and ``ample_mask`` (the
-    static ample-set filter) are not ported yet: passing either raises
-    ``NotImplementedError``.
+    ``device_rewrite_spec`` (an ``ops.canonical.DeviceRewriteSpec``)
+    declares the encoding's interchangeable limb group for device
+    symmetry reduction — validated against the compiled lane layout.
+    ``ample_mask`` is a packed slot-word tuple (ops/bitmask.py layout)
+    for the static ample-set filter. Neither is on the port's certified
+    list (soundness.py), so the engine runs them only with
+    ``CheckerBuilder.unsound_ok()``.
 
     ``optimize`` (default True) runs the post-``_build_tables`` codegen
     optimizer: effect-class fusion
@@ -366,11 +370,6 @@ class CompiledActorEncoding(EncodedModelBase):
     ):
         if closure_mode not in ("overapprox", "reachable"):
             raise ValueError(f"unknown closure mode {closure_mode!r}")
-        if device_rewrite_spec is not None or ample_mask is not None:
-            raise NotImplementedError(
-                "device symmetry (device_rewrite_spec) and the ample-set "
-                "filter (ample_mask) are not ported yet (ROADMAP item 11)"
-            )
         if not optimize:
             raise NotImplementedError(
                 "only the optimized sparse emission and the dense step "
@@ -433,9 +432,30 @@ class CompiledActorEncoding(EncodedModelBase):
                 "codegen optimizer has no plan; the naive emission is not "
                 "ported (ROADMAP item 9)"
             )
-        #: no symmetry or ample declaration (both refused above)
-        self._spec = None
-        self._ample_mask = None
+        self._spec = device_rewrite_spec
+        self._ample_mask = ample_mask
+        if device_rewrite_spec is not None:
+            from ..ops.canonical import validate_spec
+
+            validate_spec(device_rewrite_spec, width=self.width)
+        if ample_mask is not None:
+            from ..ops.bitmask import mask_words
+
+            if len(ample_mask) != mask_words(self.max_actions):
+                raise ValueError(
+                    f"ample_mask has {len(ample_mask)} words; this "
+                    f"encoding's {self.max_actions}-slot mask needs "
+                    f"{mask_words(self.max_actions)}"
+                )
+
+    def device_rewrite_spec(self):
+        """The declared symmetry spec (compile_actor_model's
+        ``device_rewrite_spec``), or None."""
+        return self._spec
+
+    def ample_mask_host(self):
+        """The declared ample-set slot words, or None."""
+        return self._ample_mask
 
     # -- closure ---------------------------------------------------------
 

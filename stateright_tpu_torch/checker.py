@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import time
 from enum import Enum
-from typing import Optional
+from typing import Callable, Optional
 
-from .model import Expectation, Model
+from .model import Expectation, Model, State
 from .path import Path
 from .report import ReportData, Reporter
 
@@ -32,6 +32,39 @@ class CheckerBuilder:
 
     def __init__(self, model: Model):
         self.model = model
+        self._symmetry: Optional[Callable[[State], State]] = None
+        self._target_state_count: Optional[int] = None
+        self._target_max_depth: Optional[int] = None
+        self._unsound_ok: bool = False
+
+    def unsound_ok(self) -> "CheckerBuilder":
+        """Waive the reduction gate (soundness.py): a declared
+        ``DeviceRewriteSpec`` or ample mask that is not certified runs
+        anyway instead of refusing at spawn (``--unsound-ok`` on the
+        CLI) — the run's counts carry no soundness guarantee."""
+        self._unsound_ok = True
+        return self
+
+    def symmetry(self) -> "CheckerBuilder":
+        """Enable symmetry reduction via the state's own
+        ``representative`` method (checker.rs:217-222). The wave engine
+        canonicalizes through the encoding's ``device_rewrite_spec()``
+        instead, and refuses an encoding that declares none."""
+        self._symmetry = lambda state: state.representative()
+        return self
+
+    def target_state_count(self, count: int) -> "CheckerBuilder":
+        """Stop after visiting approximately ``count`` unique states
+        (checker.rs:236-241): the wave engine stops after the wave that
+        reaches it."""
+        self._target_state_count = count
+        return self
+
+    def target_max_depth(self, depth: int) -> "CheckerBuilder":
+        """Do not expand states deeper than ``depth``
+        (checker.rs:244-249)."""
+        self._target_max_depth = depth
+        return self
 
     def spawn_sortmerge(self, **kwargs) -> "Checker":
         """Spawn the sort-merge wave engine on a device — the port of the

@@ -1,7 +1,7 @@
 """What the sort-merge wave engine inherits from the JAX package's
 ``checkers/tpu.py``: the dense step's flag normalization, frontier
-property evaluation, per-wave discovery recording, and counterexample
-path reconstruction.
+property evaluation, per-wave discovery recording, the symmetry spec's
+resolution at spawn, and counterexample path reconstruction.
 
 The frontier is an exact ``[W, n]`` lane-major block (the port sizes
 every wave to its live rows), so there is no row-validity mask here.
@@ -16,6 +16,7 @@ import torch
 
 from ..checker import Checker, CheckerBuilder
 from ..model import Expectation
+from ..ops.canonical import canonicalize_t
 from ..ops.fingerprint import (
     clamp_keys,
     fingerprint_u32v_t,
@@ -24,6 +25,7 @@ from ..ops.fingerprint import (
     pack_keys,
 )
 from ..path import Path
+from .common import symmetry_refusal
 
 
 def step_with_trunc(enc, states_t):
@@ -44,12 +46,20 @@ def _props_and_ebits(cond, ebits, evt_idx):
     return ebits
 
 
-def frontier_props_t(enc, props, evt_idx, frontier_t, ebits):
+def frontier_props_t(enc, props, evt_idx, frontier_t, ebits,
+                     sym_spec=None):
     """The step-free half of a wave over the ``[W, n]`` frontier:
     frontier fingerprints, the property bitmap, and eventually-bit
-    clearing. Returns ``(cond[n, P], ebits[n], f_lo[n], f_hi[n])``."""
+    clearing. Returns ``(cond[n, P], ebits[n], f_lo[n], f_hi[n])``.
+
+    With ``sym_spec`` (device symmetry) the fingerprints are CANONICAL,
+    so the parent keys they seed match the canonical child keys the
+    dedup writes, and discovery fingerprints are canonical fingerprints;
+    properties still evaluate on the concrete frontier."""
     n = frontier_t.shape[1]
-    f_lo, f_hi = fingerprint_u32v_t(frontier_t)
+    fp_src = (frontier_t if sym_spec is None
+              else canonicalize_t(sym_spec, frontier_t))
+    f_lo, f_hi = fingerprint_u32v_t(fp_src)
     if props:
         cond = enc.property_conditions_cols(frontier_t)
     else:
@@ -90,6 +100,9 @@ class TpuBfsChecker(Checker):
     engine: encoding resolution, discovery accessors, and path
     reconstruction from the device parent log."""
 
+    #: the name refusals give the spawn
+    _engine_name = "spawn_sortmerge"
+
     def __init__(self, builder: CheckerBuilder, encoded=None,
                  capacity: int = 1 << 16,
                  frontier_capacity: Optional[int] = None,
@@ -104,6 +117,14 @@ class TpuBfsChecker(Checker):
                 )
             encoded = to_encoded()
         self.encoded = encoded
+        #: waive the reduction gate (``CheckerBuilder.unsound_ok()``)
+        self.unsound_ok = builder._unsound_ok
+        #: the device symmetry spec when the reduction is on: candidates
+        #: canonicalize before the fold, so visited keys are canonical
+        #: fingerprints while the frontier keeps concrete states
+        self.sym_spec = None
+        if builder._symmetry is not None:
+            self.sym_spec = self._resolve_symmetry()
         self.capacity = capacity
         self.frontier_capacity = frontier_capacity or capacity
         self.track_paths = track_paths
@@ -115,6 +136,27 @@ class TpuBfsChecker(Checker):
         #: the parent log, (child keys, parent keys) as packed int64
         #: tensors on the run's device, once the run has finished.
         self._plog = None
+
+    def _resolve_symmetry(self):
+        """The encoding's ``DeviceRewriteSpec``, through the capability
+        refusal and then the gate (soundness.py)."""
+        from ..encoding import device_rewrite_spec
+        from ..soundness import gate_symmetry
+
+        enc = self.encoded
+        spec = device_rewrite_spec(enc)
+        if spec is None:
+            raise symmetry_refusal(
+                self._engine_name,
+                missing=(
+                    f"encoding {type(enc).__name__} declares no "
+                    "device_rewrite_spec() — the vectorized "
+                    "canonicalization needs the strided bit-field "
+                    "layout of the interchangeable limb group"
+                ),
+            )
+        gate_symmetry(enc, self._engine_name, self.unsound_ok)
+        return spec
 
     # -- results ----------------------------------------------------------
 
@@ -154,9 +196,12 @@ class TpuBfsChecker(Checker):
     def _vec_fps(self, rows) -> list:
         """Host fingerprints of encoded rows ``[N, W]``, with the device
         keys' all-ones clamp (the parent log stores clamped child
-        keys)."""
+        keys). Under symmetry the rows canonicalize first, with the
+        device's own math, so replay meets the keys the device wrote."""
         block = torch.from_numpy(np.asarray(rows, np.int64).reshape(
             -1, self.encoded.width).T.copy())
+        if self.sym_spec is not None:
+            block = canonicalize_t(self.sym_spec, block)
         keys = clamp_keys(pack_keys(*fingerprint_u32v_t(block)))
         return [key_to_fp(k) for k in keys.tolist()]
 

@@ -36,6 +36,23 @@ One wave, on the ``[W, n]`` lane-major frontier:
 6. the visited append — ``ops.merge.merge_keys``, the CUDA merge kernel
    on the card.
 
+Two reductions ride the wave, each armed by the caller and gated by
+soundness.py:
+
+* symmetry (``CheckerBuilder.symmetry()``): every block is mapped to its
+  orbit representatives (ops/canonical.py) just before each fingerprint
+  fold — the init rows, the frontier, every candidate — so visited keys,
+  parent keys and discovery fingerprints are canonical while the
+  frontier keeps the concrete states and paths replay;
+* the ample set (``ample_set=True``, sparse only): the encoding's
+  host-constant ample words are ANDed into every row's enabled words
+  before the pair peel and the per-row count.
+
+``target_state_count`` / ``target_max_depth`` stop the loop as in the
+JAX engine: after the wave that brings the visited count to the target,
+or with a wave at the target depth that evaluates properties but
+expands nothing.
+
 The JAX engine compiles static shapes, so it carries class ladders,
 ``lax.switch`` variants, pair-width and candidate budgets, and a budget
 store. PyTorch runs eagerly, so this engine sizes every wave exactly:
@@ -59,7 +76,8 @@ import numpy as np
 import torch
 
 from ..model import Expectation
-from ..ops.bitmask import popcount_words, words_to_mask
+from ..ops.bitmask import mask_words, popcount_words, words_to_mask
+from ..ops.canonical import canonical_hits, canonicalize_t
 from ..ops.fingerprint import (
     SENTINEL_KEY,
     clamp_keys,
@@ -104,10 +122,15 @@ REPORT_EVERY_WAVES = 64
 DENSE_CHUNK_BYTES = 1 << 32
 
 
-def frontier_enabled_bits(enc, frontier_t):
+def frontier_enabled_bits(enc, frontier_t, ample_words=None):
     """Per-row packed enabled words ``int64[n, L]`` and per-row enabled
-    counts over the ``[W, n]`` frontier."""
+    counts over the ``[W, n]`` frontier. ``ample_words`` (``int64[L]``,
+    or None: no filter) is the ample-set mask, ANDed in before the
+    count, so a slot it drops neither reaches the peel nor makes its
+    row non-terminal."""
     bits = enc.enabled_bits_cols(frontier_t)
+    if ample_words is not None:
+        bits = bits & ample_words
     return bits, popcount_words(bits)
 
 
@@ -120,18 +143,33 @@ def sparse_pair_candidates(bits, k: int):
     return words_to_mask(bits, k).nonzero(as_tuple=True)
 
 
-def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool):
+def successor_keys(succ_t, sym_spec=None, valid=None):
+    """The clamped packed keys of a ``[W, n]`` successor block and its
+    canonical hits: without symmetry ``(keys, None)``; with it, the keys
+    of the orbit representatives and the count of ``valid`` columns
+    (all, if None) the canonicalizer changed."""
+    if sym_spec is None:
+        src, hits = succ_t, None
+    else:
+        src = canonicalize_t(sym_spec, succ_t)
+        hits = canonical_hits(succ_t, src, valid)
+    return clamp_keys(pack_keys(*fingerprint_u32v_t(src))), hits
+
+
+def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool,
+               sym_spec=None):
     """Successors ``[W, P]``, their clamped keys (the sentinel where a
     pair is excluded), the surviving-pair mask (``None``: every pair
-    survives) and the encoding-bound overflow flag (``None`` or a
-    ``bool`` tensor) for a block of pairs.
+    survives), the encoding-bound overflow flag (``None`` or a ``bool``
+    tensor) and the canonical hits (``None`` without symmetry) for a
+    block of pairs. The successors stay concrete; under symmetry the
+    keys are their representatives'.
 
     The encoding's flags apply as in the JAX engine: ``hard`` pairs
     first (excluded, and they raise whatever the boundary says), then
     the boundary, then ``trunc`` on the pairs still in it (excluded,
     and they raise)."""
     succ_t, trunc, hard = enc.step_slot_cols(frontier_t[:, rows], slots)
-    keys = clamp_keys(pack_keys(*fingerprint_u32v_t(succ_t)))
     ok = eov = None
     if hard is not None:
         eov = hard.any()
@@ -143,9 +181,10 @@ def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool):
         cut = trunc if ok is None else ok & trunc
         eov = cut.any() if eov is None else eov | cut.any()
         ok = ~trunc if ok is None else ok & ~trunc
+    keys, hits = successor_keys(succ_t, sym_spec, ok)
     if ok is None:
-        return succ_t, keys, None, eov
-    return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov
+        return succ_t, keys, None, eov, hits
+    return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov, hits
 
 
 def dense_candidates(enc, frontier_t, trivial_boundary: bool,
@@ -197,16 +236,24 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     JAX engine's rule), ``False`` forces the dense ``step_cols``
     expansion, ``True`` the sparse one. ``dense_chunk_bytes`` bounds the
     ``[W, rows*K]`` int64 successor block of one dense chunk.
+
+    ``ample_set=True`` ANDs the encoding's ``ample_mask_host()`` words
+    into the sparse enabled bits (a static partial-order reduction);
+    the run refuses, when it starts, on the dense wave, without a mask,
+    or with a mask the gate does not certify (unless
+    ``CheckerBuilder.unsound_ok()``).
     """
 
     def __init__(self, builder, encoded=None, capacity: int = 1 << 16,
                  frontier_capacity: Optional[int] = None,
                  track_paths: bool = True, device=None,
                  sparse: Optional[bool] = None,
-                 dense_chunk_bytes: int = DENSE_CHUNK_BYTES):
+                 dense_chunk_bytes: int = DENSE_CHUNK_BYTES,
+                 ample_set: bool = False):
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, device)
         self.sparse = sparse
+        self.ample_set = bool(ample_set)
         self.dense_chunk_bytes = dense_chunk_bytes
         need = (("enabled_bits_cols", "step_slot_cols")
                 if self._use_sparse() else ("step_cols",))
@@ -225,6 +272,38 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             return self.sparse
         return (hasattr(self.encoded, "enabled_bits_cols")
                 and hasattr(self.encoded, "step_slot_cols"))
+
+    def _resolve_ample_words(self):
+        """The validated ample mask as a device ``int64[L]``, or None
+        when the filter is off (JAX ``_resolve_ample_words``)."""
+        if not self.ample_set:
+            return None
+        from ..encoding import ample_mask_host
+        from ..soundness import gate_ample
+
+        enc = self.encoded
+        if not self._use_sparse():
+            raise ValueError(
+                "ample_set requires the sparse dispatch path (the "
+                "filter is an AND over the packed enabled bitmap); "
+                "this run resolved to the dense wave"
+            )
+        aw = ample_mask_host(enc)
+        if aw is None:
+            raise ValueError(
+                f"ample_set: encoding {type(enc).__name__} declares "
+                "no ample_mask_host() — the engine cannot invent a "
+                "sound reduction; declare the mask on the encoding "
+                "(it owns the soundness argument) or drop the flag"
+            )
+        if aw.shape[0] != mask_words(enc.max_actions):
+            raise ValueError(
+                f"ample_mask_host() returned {aw.shape[0]} words; "
+                f"max_actions={enc.max_actions} needs "
+                f"{mask_words(enc.max_actions)}"
+            )
+        gate_ample(enc, self._engine_name, self.unsound_ok)
+        return torch.from_numpy(aw.astype(np.int64)).to(self.device)
 
     def start_from(self, state: WaveState) -> "SortMergeTpuBfsChecker":
         """Run from ``state`` (e.g. ``convert.carry_from_numpy`` of a
@@ -254,7 +333,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             np.stack(rows).astype(np.int64).T.copy() if rows
             else np.zeros((W, 0), np.int64)
         ).to(self.device)
-        keys = clamp_keys(pack_keys(*fingerprint_u32v_t(front)))
+        keys, _ = successor_keys(front, self.sym_spec)
         ebits = torch.full((n0,), self._eventually_bits_init(),
                            dtype=torch.int64, device=self.device)
         return WaveState(vkeys=torch.sort(keys).values, frontier=front,
@@ -269,6 +348,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
 
     def _run(self, reporter=None) -> None:
         self._check_device()
+        ample_words = self._resolve_ample_words()
         st = self._start if self._start is not None else self.seed_state()
         self._start = None
         enc = self.encoded
@@ -283,6 +363,10 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             )
         K = enc.max_actions
         trivial = enc.trivial_boundary
+        sym = self.sym_spec
+        target_states = self.builder._target_state_count
+        target_depth = self.builder._target_max_depth
+        hits_total = torch.zeros((), dtype=torch.int64, device=self.device)
         waves = max_cand = max_new = 0
         member_shape = merge_shape = (0, 0)
         done = st.frontier.shape[1] == 0
@@ -297,23 +381,32 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         while not done:
             front = st.frontier
             cond, eb, f_lo, f_hi = frontier_props_t(
-                enc, props, evt_idx, front, st.ebits
+                enc, props, evt_idx, front, st.ebits, sym
             )
-            if sparse:
-                succ_t, keys, rows, has_succ, n_cand, tripped = \
-                    self._expand_sparse(front, K, trivial)
+            hits = None
+            if target_depth is not None and st.depth >= target_depth:
+                # the wave at the target depth evaluates its frontier and
+                # expands nothing; its rows are not terminal
+                succ_t, keys = front[:, :0], st.vkeys[:0]
+                rows, n_cand, tripped = keys, 0, False
+                has_succ = torch.ones_like(eb, dtype=torch.bool)
+            elif sparse:
+                succ_t, keys, rows, has_succ, n_cand, tripped, hits = \
+                    self._expand_sparse(front, K, trivial, ample_words)
             else:
                 succ_t, rows, has_succ, eov, n_chunks = dense_candidates(
                     enc, front, trivial, chunk_rows)
-                keys = clamp_keys(pack_keys(*fingerprint_u32v_t(succ_t)))
+                keys, hits = successor_keys(succ_t, sym)
                 n_cand = keys.numel()
                 tripped = bool(eov)
                 chunks += n_chunks
                 max_chunks = max(max_chunks, n_chunks)
+            if hits is not None:
+                hits_total += hits
             if props:
-                hits = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
+                disc = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
                                  f_lo, f_hi)
-                discovery_update(props, *hits, self._discovered_fps)
+                discovery_update(props, *disc, self._discovered_fps)
             if tripped:
                 raise RuntimeError(self._overflow_message("encoding"))
 
@@ -348,7 +441,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 merge_shape = (unique - new_count, new_count)
 
             all_disc = bool(props) and len(self._discovered_fps) == len(props)
-            done = new_count == 0 or all_disc
+            target_hit = target_states is not None and unique >= target_states
+            done = new_count == 0 or all_disc or target_hit
             if not done:
                 st.depth += 1
             self._unique_states = unique
@@ -369,7 +463,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
                             max_wave_new=max_new, member_shape=member_shape,
                             merge_shape=merge_shape,
-                            expansion="sparse" if sparse else "dense")
+                            expansion="sparse" if sparse else "dense",
+                            canonical_hits=int(hits_total))
         if not sparse:
             self.metrics.update(dense_chunks=chunks,
                                 max_wave_chunks=max_chunks,
@@ -386,20 +481,22 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             for name, fp in self._discovered_fps.items():
                 self._discoveries[name] = self._reconstruct(fp)
 
-    def _expand_sparse(self, front, K: int, trivial: bool):
+    def _expand_sparse(self, front, K: int, trivial: bool, ample_words):
         """The sparse expansion of one wave: ``(succ_t, keys, rows,
-        has_succ, n_cand, tripped)`` — every enabled pair's successor
-        and key (the sentinel where a pair is excluded), its source row,
-        which rows keep a successor, the surviving-pair count and the
-        encoding-bound overflow."""
+        has_succ, n_cand, tripped, hits)`` — every enabled pair's
+        successor and key (the sentinel where a pair is excluded), its
+        source row, which rows keep a successor, the surviving-pair
+        count, the encoding-bound overflow and the canonical hits
+        (``None`` without symmetry)."""
         enc = self.encoded
-        bits, cnt = frontier_enabled_bits(enc, front)
+        bits, cnt = frontier_enabled_bits(enc, front, ample_words)
         rows, slots = sparse_pair_candidates(bits, K)
-        succ_t, keys, ok, eov = eval_pairs(enc, front, rows, slots,
-                                           trivial)
+        succ_t, keys, ok, eov, hits = eval_pairs(
+            enc, front, rows, slots, trivial, self.sym_spec)
         tripped = False
         if ok is None:
-            return succ_t, keys, rows, cnt > 0, rows.numel(), tripped
+            return (succ_t, keys, rows, cnt > 0, rows.numel(), tripped,
+                    hits)
         has_succ = torch.zeros(front.shape[1], dtype=torch.bool,
                                device=front.device)
         has_succ[rows[ok]] = True
@@ -407,7 +504,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             n_cand = int(ok.sum())
         else:  # one transfer for the count and the flag
             n_cand, tripped = torch.stack([ok.sum(), eov.long()]).tolist()
-        return succ_t, keys, rows, has_succ, n_cand, tripped
+        return succ_t, keys, rows, has_succ, n_cand, tripped, hits
 
     def _overflow_message(self, kind: str) -> str:
         if kind == "encoding":

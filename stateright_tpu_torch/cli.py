@@ -11,6 +11,8 @@
     python -m stateright_tpu_torch increment-lock check-gpu 3 --device cpu
     python -m stateright_tpu_torch register check-gpu 8
     python -m stateright_tpu_torch single-copy-register check-gpu 2
+    python -m stateright_tpu_torch 2pc check-gpu 9 --symmetry --ample-set
+    python -m stateright_tpu_torch register check-gpu 8 --symmetry
 
 ``check-gpu`` runs the sort-merge wave engine on the CUDA device (on
 the CPU only with ``--device cpu``) and prints the same report as the
@@ -26,29 +28,74 @@ dense-only encodings, so the engine runs its dense wave there; every
 other lane runs the sparse wave (the dense wave of 2pc, Paxos and the
 compiled encodings is ``spawn_sortmerge(sparse=False)``, as in the JAX
 package, which has no flag for it either).
+
+Three flags arm the reductions, as in the JAX lanes: ``--symmetry`` (the
+``2pc`` and ``register`` lanes: canonical fingerprints before dedup,
+ops/canonical.py), ``--ample-set`` (any sparse lane whose encoding
+declares an ample mask) and ``--unsound-ok`` (run a spec or mask the
+port's gate, soundness.py, does not certify).
 """
 
 from __future__ import annotations
 
 import math
 import sys
+from dataclasses import dataclass
 
 from .report import WriteReporter
 
 
-def _pop_device(argv: list[str]):
-    device, rest = "cuda", []
+@dataclass(frozen=True)
+class RunFlags:
+    """The options of a ``check-gpu`` run."""
+
+    device: str = "cuda"
+    symmetry: bool = False
+    ample_set: bool = False
+    unsound_ok: bool = False
+
+    def spawn(self, model, symmetric: bool = False, **kw):
+        """``model.checker()`` armed with these flags, spawned on the
+        sort-merge engine with ``kw``. ``symmetric``: the lane may arm
+        the symmetry reduction."""
+        builder = model.checker()
+        if self.symmetry:
+            if not symmetric:
+                raise SystemExit(
+                    "--symmetry: this lane does not arm the symmetry "
+                    "reduction (supported: 2pc check-gpu and register "
+                    "check-gpu — the device canonicalization lanes)"
+                )
+            builder = builder.symmetry()
+        if self.unsound_ok:
+            builder = builder.unsound_ok()
+        return builder.spawn_sortmerge(device=self.device,
+                                       ample_set=self.ample_set, **kw)
+
+
+def _flags(flags) -> RunFlags:
+    """A device name is the flags of a plain run on that device."""
+    return flags if isinstance(flags, RunFlags) else RunFlags(flags)
+
+
+def _pop_flags(argv: list[str]):
+    """``(RunFlags, the other arguments)``."""
+    device, rest, on = "cuda", [], set()
+    names = {"--symmetry": "symmetry", "--ample-set": "ample_set",
+             "--unsound-ok": "unsound_ok"}
     it = iter(argv)
     for arg in it:
         if arg == "--device":
             device = next(it, None)
         elif arg.startswith("--device="):
             device = arg.split("=", 1)[1]
+        elif arg in names:
+            on.add(names[arg])
         else:
             rest.append(arg)
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
-    return device, rest
+    return RunFlags(device, **{n: True for n in on}), rest
 
 
 def twopc_sizes(rm_count: int) -> dict:
@@ -60,7 +107,7 @@ def twopc_sizes(rm_count: int) -> dict:
                 frontier_capacity=max(256, capacity // 4))
 
 
-def _2pc(sub: str, args: list[str], device: str) -> None:
+def _2pc(sub: str, args: list[str], flags: RunFlags) -> None:
     from .models.two_phase_commit import TwoPhaseSys
 
     rm_count = int(args[0]) if args else 2
@@ -69,21 +116,20 @@ def _2pc(sub: str, args: list[str], device: str) -> None:
         return
     print(
         f"Checking two phase commit with {rm_count} resource managers "
-        f"on the {_where(device)} wave engine."
+        f"on the {_where(flags)} wave engine."
     )
-    checker = TwoPhaseSys(rm_count=rm_count).checker().spawn_sortmerge(
-        **twopc_sizes(rm_count), device=device
-    )
+    checker = flags.spawn(TwoPhaseSys(rm_count=rm_count), symmetric=True,
+                          **twopc_sizes(rm_count))
     # the reference-format reporter (report.rs:60-98), as the JAX lane
     checker.report(WriteReporter(sys.stdout))
 
 
-def paxos_checker(client_count: int, device: str = "cuda",
-                  sparse=None):
+def paxos_checker(client_count: int, flags="cuda", sparse=None):
     """The checker ``paxos check-gpu N`` runs: the encoding's structural
     sizes, and paths only up to 2 clients (the JAX lane's rule: beyond
     that the report gives the discovery fingerprint). ``sparse=False``
-    runs it on the dense wave (the CLI has no flag for it)."""
+    runs it on the dense wave (the CLI has no flag for it). ``flags``:
+    a :class:`RunFlags`, or a device name."""
     from .models.paxos import PaxosModelCfg, paxos_model
     from .models.paxos_tpu import STRUCTURAL_SIZES
 
@@ -94,30 +140,30 @@ def paxos_checker(client_count: int, device: str = "cuda",
             "(models/paxos_tpu.py)"
         )
     cfg = PaxosModelCfg(client_count=client_count, server_count=3)
-    return paxos_model(cfg).checker().spawn_sortmerge(
-        track_paths=client_count <= 2, device=device, sparse=sparse,
+    return _flags(flags).spawn(
+        paxos_model(cfg), track_paths=client_count <= 2, sparse=sparse,
         **STRUCTURAL_SIZES[client_count],
     )
 
 
-def _paxos(sub: str, args: list[str], device: str) -> None:
+def _paxos(sub: str, args: list[str], flags: RunFlags) -> None:
     client_count = int(args[0]) if args else 2
     if sub != "check-gpu":
         _usage()
         return
-    checker = paxos_checker(client_count, device)
+    checker = paxos_checker(client_count, flags)
     print(
         f"Model checking Single Decree Paxos with {client_count} "
-        f"clients on the {_where(device)} wave engine."
+        f"clients on the {_where(flags)} wave engine."
     )
     checker.report(WriteReporter(sys.stdout))
 
 
-def _where(device: str) -> str:
-    return "GPU" if device == "cuda" else "CPU"
+def _where(flags: RunFlags) -> str:
+    return "GPU" if flags.device == "cuda" else "CPU"
 
 
-def _2pc_actors(sub: str, args: list[str], device: str) -> None:
+def _2pc_actors(sub: str, args: list[str], flags: RunFlags) -> None:
     """The compiled 2pc family: the count-comparable system actor model
     (models/two_phase_commit_actors.py) through the actor→encoding
     compiler, at the hand lane's sizes (the same pinned counts)."""
@@ -132,17 +178,18 @@ def _2pc_actors(sub: str, args: list[str], device: str) -> None:
         return
     print(
         f"Checking two phase commit (compiled actor model) with "
-        f"{rm_count} resource managers on the {_where(device)} wave "
+        f"{rm_count} resource managers on the {_where(flags)} wave "
         "engine."
     )
-    checker = two_phase_sys_actor_model(rm_count).checker().spawn_sortmerge(
+    checker = flags.spawn(
+        two_phase_sys_actor_model(rm_count),
         encoded=two_phase_sys_compiled_encoded(rm_count),
-        **twopc_sizes(rm_count), device=device,
+        **twopc_sizes(rm_count),
     )
     checker.report(WriteReporter(sys.stdout))
 
 
-def _paxos_compiled(sub: str, args: list[str], device: str) -> None:
+def _paxos_compiled(sub: str, args: list[str], flags: RunFlags) -> None:
     """Compiled paxos: the actor paxos model through the compiler in
     reachable mode — the compile explores the space once on the host to
     harvest bounds, so this lane caps at 2 clients (16,668 states)."""
@@ -168,16 +215,16 @@ def _paxos_compiled(sub: str, args: list[str], device: str) -> None:
     cfg = PaxosModelCfg(client_count=client_count, server_count=3)
     print(
         f"Model checking Single Decree Paxos (compiled) with "
-        f"{client_count} clients on the {_where(device)} wave engine."
+        f"{client_count} clients on the {_where(flags)} wave engine."
     )
-    checker = paxos_model(cfg).checker().spawn_sortmerge(
-        encoded=paxos_compiled_encoded(cfg),
-        capacity=1 << 15, frontier_capacity=1 << 13, device=device,
+    checker = flags.spawn(
+        paxos_model(cfg), encoded=paxos_compiled_encoded(cfg),
+        capacity=1 << 15, frontier_capacity=1 << 13,
     )
     checker.report(WriteReporter(sys.stdout))
 
 
-def _linearizable(sub: str, args: list[str], device: str) -> None:
+def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
     """ABD (models/linearizable_register.py) over the network named by
     the second argument (default unordered non-duplicating), through
     its compiled encoding."""
@@ -193,12 +240,12 @@ def _linearizable(sub: str, args: list[str], device: str) -> None:
     cfg = AbdModelCfg(client_count=client_count)
     print(
         f"Model checking a linearizable register with {client_count} "
-        f"clients on the {_where(device)} wave engine (compiled actor "
+        f"clients on the {_where(flags)} wave engine (compiled actor "
         "encoding)."
     )
-    checker = abd_model(cfg, network).checker().spawn_sortmerge(
-        capacity=1 << (9 + 2 * client_count),
-        frontier_capacity=1 << (7 + client_count), device=device,
+    checker = flags.spawn(
+        abd_model(cfg, network), capacity=1 << (9 + 2 * client_count),
+        frontier_capacity=1 << (7 + client_count),
     )
     checker.report(WriteReporter(sys.stdout))
 
@@ -210,17 +257,15 @@ def _linearizable(sub: str, args: list[str], device: str) -> None:
 INCREMENT_SIZES = dict(capacity=1 << 19, frontier_capacity=1 << 16)
 
 
-def increment_checker(thread_count: int, locked: bool,
-                      device: str = "cuda"):
+def increment_checker(thread_count: int, locked: bool, flags="cuda"):
     """The checker ``increment[-lock] check-gpu N`` runs."""
     from .models.increment import Increment, IncrementLock
 
     model = (IncrementLock if locked else Increment)(thread_count)
-    return model.checker().spawn_sortmerge(**INCREMENT_SIZES,
-                                           device=device)
+    return _flags(flags).spawn(model, **INCREMENT_SIZES)
 
 
-def _increment(sub: str, args: list[str], device: str,
+def _increment(sub: str, args: list[str], flags: RunFlags,
                locked: bool = False) -> None:
     thread_count = int(args[0]) if args else (3 if locked else 2)
     if sub != "check-gpu":
@@ -229,43 +274,43 @@ def _increment(sub: str, args: list[str], device: str,
     name = "increment_lock" if locked else "increment"
     print(
         f"Model checking {name} with {thread_count} threads on the "
-        f"{_where(device)} wave engine."
+        f"{_where(flags)} wave engine."
     )
-    increment_checker(thread_count, locked, device).report(
+    increment_checker(thread_count, locked, flags).report(
         WriteReporter(sys.stdout))
 
 
-def _increment_lock(sub: str, args: list[str], device: str) -> None:
-    _increment(sub, args, device, locked=True)
+def _increment_lock(sub: str, args: list[str], flags: RunFlags) -> None:
+    _increment(sub, args, flags, locked=True)
 
 
-def register_checker(n_clients: int, device: str = "cuda"):
+def register_checker(n_clients: int, flags="cuda"):
     """The checker ``register check-gpu N`` runs, at the JAX lane's
     sizes: the raw space is 1 + 2n·3^(n-1) states
-    (models/nclient_register.py)."""
+    (models/nclient_register.py). The lane arms ``--symmetry``."""
     from .models.nclient_register import NClientRegSys
 
     raw = 1 + 2 * n_clients * 3 ** max(0, n_clients - 1)
     capacity = max(1 << 10, 1 << (raw - 1).bit_length())
-    return NClientRegSys(n_clients=n_clients).checker().spawn_sortmerge(
+    return _flags(flags).spawn(
+        NClientRegSys(n_clients=n_clients), symmetric=True,
         capacity=capacity, frontier_capacity=max(256, capacity // 4),
-        device=device,
     )
 
 
-def _register(sub: str, args: list[str], device: str) -> None:
+def _register(sub: str, args: list[str], flags: RunFlags) -> None:
     n_clients = int(args[0]) if args else 3
     if sub != "check-gpu":
         _usage()
         return
     print(
         f"Checking the write-once register with {n_clients} clients on "
-        f"the {_where(device)} wave engine."
+        f"the {_where(flags)} wave engine."
     )
-    register_checker(n_clients, device).report(WriteReporter(sys.stdout))
+    register_checker(n_clients, flags).report(WriteReporter(sys.stdout))
 
 
-def single_copy_checker(client_count: int, device: str = "cuda"):
+def single_copy_checker(client_count: int, flags="cuda"):
     """The checker ``single-copy-register check-gpu N`` runs: the JAX
     lane's sizes for the hand encoding (up to 2 clients; 93 states),
     room for the compiled 3-client space (4,243) beyond."""
@@ -277,20 +322,19 @@ def single_copy_checker(client_count: int, device: str = "cuda"):
     cfg = SingleCopyRegisterCfg(client_count=client_count)
     sizes = (dict(capacity=256, frontier_capacity=64) if client_count <= 2
              else dict(capacity=1 << 16, frontier_capacity=1 << 14))
-    return single_copy_register_model(cfg).checker().spawn_sortmerge(
-        **sizes, device=device)
+    return _flags(flags).spawn(single_copy_register_model(cfg), **sizes)
 
 
-def _single_copy(sub: str, args: list[str], device: str) -> None:
+def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
     client_count = int(args[0]) if args else 2
     if sub != "check-gpu":
         _usage()
         return
     print(
         f"Model checking a single-copy register with {client_count} "
-        f"clients on the {_where(device)} wave engine."
+        f"clients on the {_where(flags)} wave engine."
     )
-    single_copy_checker(client_count, device).report(
+    single_copy_checker(client_count, flags).report(
         WriteReporter(sys.stdout))
 
 
@@ -304,7 +348,7 @@ _MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
 def _usage() -> None:
     print("USAGE:")
     print("  python -m stateright_tpu_torch 2pc check-gpu [COUNT] "
-          "[--device cuda|cpu]")
+          "[--symmetry] [--ample-set] [--unsound-ok] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch paxos check-gpu [CLIENTS 1-5] "
           "[--device cuda|cpu]")
     print("  python -m stateright_tpu_torch 2pc-actors check-gpu [COUNT] "
@@ -318,15 +362,23 @@ def _usage() -> None:
     print("  python -m stateright_tpu_torch increment-lock check-gpu "
           "[THREADS 1-8] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch register check-gpu "
-          "[CLIENTS 1-8] [--device cuda|cpu]")
+          "[CLIENTS 1-8] [--symmetry] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch single-copy-register check-gpu "
           "[CLIENTS] [--device cuda|cpu]")
+    print("       --symmetry on 2pc/register check-gpu runs the device "
+          "symmetry reduction (canonical-form fingerprints before dedup, "
+          "ops/canonical.py; 2pc rm=5: 8,832 -> 314 states); --ample-set "
+          "on a sparse check-gpu lane ANDs the encoding's partial-order "
+          "ample mask into the enabled-bits pass (fewer interleavings, "
+          "same verdicts). Both consult the port's certified list "
+          "(soundness.py): a spec or mask not on it refuses at spawn; "
+          "--unsound-ok waives the gate (no soundness guarantee)")
 
 
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    device, argv = _pop_device(argv)
+    flags, argv = _pop_flags(argv)
     if len(argv) < 2 or argv[0] not in _MODELS:
         _usage()
         return
-    _MODELS[argv[0]](argv[1], argv[2:], device)
+    _MODELS[argv[0]](argv[1], argv[2:], flags)

@@ -15,6 +15,10 @@ truth and replay oracle) with
   writes the batch out), and
 * property / boundary predicates aligned index-for-index with the host
   model's ``properties()``.
+
+Two optional declarations arm the reductions (:func:`device_rewrite_spec`,
+:func:`ample_mask_host`): an encoding's ``device_rewrite_spec()``
+(ops/canonical.py) and its ``ample_mask_host()`` packed slot words.
 """
 
 from __future__ import annotations
@@ -114,6 +118,49 @@ class SparseEncodedModel(Protocol):
                                  states_t: torch.Tensor) -> torch.Tensor: ...
 
     def within_boundary_cols(self, states_t: torch.Tensor) -> torch.Tensor: ...
+
+
+@runtime_checkable
+class SymmetricEncodedModel(Protocol):
+    """An encoding whose interchangeable participants occupy uniformly
+    strided bit-fields declares them (JAX ``SymmetricEncodedModel``):
+    with ``CheckerBuilder.symmetry()`` the engine canonicalizes every
+    candidate block before the fingerprint fold, so the visited key is
+    the canonical fingerprint while the frontier keeps the concrete
+    states and paths stay replayable (dfs.rs:300-311).
+
+    The spec MUST be constant on orbits: sort on the FULL per-member
+    tuple. A declared spec runs only if the port's gate certifies it
+    (soundness.py), or with ``unsound_ok()``."""
+
+    def device_rewrite_spec(self):
+        """``DeviceRewriteSpec`` for this encoding's interchangeable
+        limb group, or None when the instance has none (e.g. a
+        single-member configuration)."""
+        ...
+
+
+def device_rewrite_spec(enc):
+    """The encoding's ``DeviceRewriteSpec``, or None when it declares
+    none — the engine's single capability probe."""
+    fn = getattr(enc, "device_rewrite_spec", None)
+    return fn() if callable(fn) else None
+
+
+def ample_mask_host(enc):
+    """The encoding's host-precomputed ample-set slot mask (a
+    ``uint32[ceil(max_actions/32)]`` numpy array in the ops/bitmask.py
+    word layout), or None when it declares none. The sparse engine ANDs
+    the words into every row's enabled bits — a static
+    partial-order-reduction filter, run only if the port's gate
+    certifies it (soundness.py), or with ``unsound_ok()``."""
+    fn = getattr(enc, "ample_mask_host", None)
+    if not callable(fn):
+        return None
+    words = fn()
+    if words is None:
+        return None
+    return np.asarray(words, dtype=np.uint32)
 
 
 def stack_slots(slots: list, valids: list) -> tuple:

@@ -8,11 +8,14 @@ was still empty) and the value its read observed. All clients write
 the same value, so the only interesting state is the race outcome:
 exactly one client wins, every read after a write observes it. Class
 and field names match the JAX package's, so host fingerprints and
-encoded paths are identical. The symmetry representatives are left out
-(symmetry reduction is not ported yet).
+encoded paths are identical. ``representative_full`` is the host
+oracle of the device symmetry spec (models/nclient_register_tpu.py).
 
-Closed-form count: raw unique states = 1 + 2n·3^(n-1)
-(n=2: 13, n=3: 55, n=4: 217, n=8: 34,993).
+Closed-form counts:
+  raw unique states   = 1 + 2n·3^(n-1)   (n=2: 13, n=3: 55, n=4: 217,
+                                          n=8: 34,993)
+  canonical orbits    = 1 + n(n+1)       (n=2: 7,  n=3: 13, n=4: 21,
+                                          n=8: 73)
 
 The device encoding is
 :mod:`stateright_tpu_torch.models.nclient_register_tpu`.
@@ -24,6 +27,7 @@ from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 from ..model import Model, Property
+from ..symmetry import RewritePlan
 
 #: per-client program counter
 _IDLE, _WROTE, _DONE = 0, 1, 2
@@ -35,6 +39,20 @@ class NClientRegState:
     #: read value; the register itself is ``reg``
     clients: Tuple[Tuple[int, int, int], ...]
     reg: int
+
+    def representative(self) -> "NClientRegState":
+        """Canonicalize under client permutation: stable-sort the
+        FULL per-client tuple, so the canonicalizer is constant on
+        orbits."""
+        plan = RewritePlan.from_values_to_sort(list(self.clients))
+        return NClientRegState(
+            clients=tuple(plan.reindex(self.clients)), reg=self.reg
+        )
+
+    def representative_full(self) -> "NClientRegState":
+        """Already the full-tuple sort: the host oracle of the device
+        canonicalization coincides with ``representative()``."""
+        return self.representative()
 
 
 @dataclass

@@ -17,9 +17,9 @@ Actions (``max_actions = 2n``): slot ``2c`` = write(c), slot
 the packed enabled words assemble from ``2n`` condition-gated host
 class masks (the 2pc idiom, ops/bitmask.py).
 
-The JAX encoding also declares a ``DeviceRewriteSpec`` (client
-permutation symmetry); the port's symmetry reduction waits for ROADMAP
-item 11, so :meth:`NClientRegEncoded.device_rewrite_spec` raises.
+The encoding declares the clients' permutation symmetry
+(``device_rewrite_spec``, ops/canonical.py): with it the n-client space
+of 1 + 2n·3^(n-1) states reduces to 1 + n(n+1) orbits.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from ..encoding import EncodedModelBase, stack_slots
 from ..ops.bitmask import mask_words, or_class_words, slot_mask_host
+from ..ops.canonical import DeviceRewriteSpec, MemberField
 from .nclient_register import NClientRegState, NClientRegSys
 
 _IDLE, _WROTE, _DONE = 0, 1, 2
@@ -53,11 +54,23 @@ class NClientRegEncoded(EncodedModelBase):
             read=[slot_mask_host(K, [2 * c + 1]) for c in range(n_clients)],
         )
 
+    # -- device symmetry -------------------------------------------------
+
     def device_rewrite_spec(self):
-        """Client permutation symmetry — not ported yet."""
-        raise NotImplementedError(
-            "device symmetry (the register's client-permutation "
-            "DeviceRewriteSpec) is not ported yet (ROADMAP item 11)"
+        """Client permutation symmetry: one strided 4-bit field on
+        lane 1 holding the FULL per-client tuple (pc, won, rv), all
+        of it in the sort key — a perfect canonicalizer, certified by
+        the JAX analyzer (``SOUND_r01.json``) and so on the port's list
+        (soundness.py)."""
+        if self.n_clients < 2:
+            return None
+        return DeviceRewriteSpec(
+            n_members=self.n_clients,
+            fields=(
+                MemberField(
+                    lane=1, shift=0, stride=4, width=4, sort_key=True
+                ),
+            ),
         )
 
     # -- host side -------------------------------------------------------

@@ -244,6 +244,8 @@ class SingleCopyEncoded(EncodedModelBase):
                 history[t] = (w_done,)
                 in_flight[t] = (snap_t, ReadOp())
             else:
+                if rv > len(self.values):
+                    return None  # a read of a value no client wrote
                 v = "\x00" if rv == 0 else self.values[rv - 1]
                 history[t] = (
                     w_done,

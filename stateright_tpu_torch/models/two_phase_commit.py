@@ -6,8 +6,8 @@ resource managers (RMs) prepare/abort, a transaction manager commits
 once all are prepared. Reference-pinned counts: 3 RMs → 288 unique
 states, 5 RMs → 8,832 (2pc.rs:151-170). Class and field names match the
 JAX package's, so host fingerprints — and therefore encoded paths —
-are identical. The symmetry representatives are left out (symmetry
-reduction is not ported yet).
+are identical. ``representative_full`` is the host oracle of the
+device symmetry spec (models/two_phase_commit_tpu.py).
 
 The device encoding is
 :mod:`stateright_tpu_torch.models.two_phase_commit_tpu`.
@@ -20,6 +20,7 @@ from enum import Enum
 from typing import Optional, Sequence, Tuple
 
 from ..model import Model, Property
+from ..symmetry import RewritePlan
 
 
 class RmState(Enum):
@@ -44,6 +45,53 @@ class TwoPhaseState:
     tm_state: TmState
     tm_prepared: Tuple[bool, ...]
     msgs: frozenset
+
+    def representative(self) -> "TwoPhaseState":
+        """Canonicalize under RM permutation symmetry (2pc.rs:203-222)."""
+        plan = RewritePlan.from_values_to_sort(
+            [(s.value,) for s in self.rm_state]
+        )
+        return TwoPhaseState(
+            rm_state=tuple(plan.reindex(self.rm_state)),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(plan.reindex(self.tm_prepared)),
+            msgs=frozenset(
+                ("prepared", plan.rewrite(m[1])) if m[0] == "prepared" else m
+                for m in self.msgs
+            ),
+        )
+
+    def representative_full(self) -> "TwoPhaseState":
+        """Perfect canonicalizer: stable-sort RMs by their FULL
+        per-member tuple ``(rm_state, tm_prepared, prepared-msg)``.
+
+        ``representative()`` above sorts on rm_state alone (like the
+        reference), which is not constant on orbits. This variant is,
+        so its reduced count is search-order-independent (rm=5: 314
+        classes); it is the host oracle of the device
+        ``DeviceRewriteSpec`` canonicalization (ops/canonical.py),
+        which sorts the same tuple in the same encoded order."""
+        prep_bits = [
+            int(("prepared", i) in self.msgs)
+            for i in range(len(self.rm_state))
+        ]
+        plan = RewritePlan.from_values_to_sort(
+            [
+                (s.value, int(p), b)
+                for s, p, b in zip(
+                    self.rm_state, self.tm_prepared, prep_bits
+                )
+            ]
+        )
+        return TwoPhaseState(
+            rm_state=tuple(plan.reindex(self.rm_state)),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(plan.reindex(self.tm_prepared)),
+            msgs=frozenset(
+                ("prepared", plan.rewrite(m[1])) if m[0] == "prepared" else m
+                for m in self.msgs
+            ),
+        )
 
 
 @dataclass

@@ -23,6 +23,10 @@ word-native: every slot guard is a small function
 of one 2-bit RM field or a TM/message bit, so the packed words assemble
 from ``4 + 2N`` condition-gated host-constant class masks
 (ops/bitmask.py) and no dense ``bool[K]`` row is built by the predicate.
+
+The encoding declares both reductions: the RMs' symmetry
+(``device_rewrite_spec``) and a static ample set
+(``ample_mask_host``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,13 @@ import numpy as np
 import torch
 
 from ..encoding import EncodedModelBase, stack_slots
-from ..ops.bitmask import mask_words, or_class_words, slot_mask_host
+from ..ops.bitmask import (
+    mask_words,
+    or_class_words,
+    pack_bits_host,
+    slot_mask_host,
+)
+from ..ops.canonical import DeviceRewriteSpec, MemberField
 from .two_phase_commit import RmState, TmState, TwoPhaseState, TwoPhaseSys
 
 _WORKING, _PREPARED, _COMMITTED, _ABORTED = 0, 1, 2, 3
@@ -63,6 +73,61 @@ class TwoPhaseSysEncoded(EncodedModelBase):
                      for rm in range(n)],
             rcv_prep=[slot_mask_host(K, [2 + 5 * rm]) for rm in range(n)],
         )
+
+    # -- device symmetry / reduction hooks -------------------------------
+
+    def device_rewrite_spec(self):
+        """RM permutation symmetry as strided bit-fields: member
+        ``m``'s tuple is (rm_state lane0 bits [2m, 2m+2),
+        tm_prepared lane1 bit _prep_shift+m, prepared-msg lane1 bit
+        _msgs_shift+2+m). ALL three fields are sort keys — the FULL
+        per-member tuple — so the canonicalizer is constant on orbits
+        and the reduced count is search-order-independent (rm=5:
+        8,832 → 314). The host oracle is
+        ``TwoPhaseState.representative_full``, which sorts the same
+        tuple in the same encoded order."""
+        if self.rm_count < 2:
+            return None
+        return DeviceRewriteSpec(
+            n_members=self.rm_count,
+            fields=(
+                MemberField(
+                    lane=0, shift=0, stride=2, width=2, sort_key=True
+                ),
+                MemberField(
+                    lane=1, shift=self._prep_shift, stride=1, width=1,
+                    sort_key=True,
+                ),
+                MemberField(
+                    lane=1, shift=self._msgs_shift + 2, stride=1,
+                    width=1, sort_key=True,
+                ),
+            ),
+        )
+
+    def ample_mask_host(self):
+        """Static partial-order ample-set filter: keep
+        ``rm_choose_abort`` (slot 4+5·rm) only for rm 0, drop it for
+        rm ≥ 1.
+
+        Soundness for THIS property set (all state predicates, no
+        EVENTUALLY liveness): spontaneous aborts of distinct RMs
+        commute with every other action and with each other, and each
+        property's witness states stay reachable with only rm 0's
+        spontaneous abort available — "abort agreement" via tm_abort
+        + rm_rcv_abort alone, "commit agreement" via the all-prepare
+        path (which never needs choose_abort), and the ALWAYS property
+        "consistent" is checked on every state the filtered search DOES
+        reach, a subset of the full space, so it can produce no false
+        violation; a missed violation would need a state whose every
+        path uses a choose_abort by rm ≥ 1, and by RM symmetry such a
+        path maps to one using rm 0's. The JAX analyzer certified this
+        mask (``SOUND_r01.json``), which puts it on the port's list
+        (soundness.py)."""
+        keep = np.ones(self.max_actions, dtype=bool)
+        for rm in range(1, self.rm_count):
+            keep[4 + 5 * rm] = False
+        return pack_bits_host(keep)
 
     # -- host side -------------------------------------------------------
 

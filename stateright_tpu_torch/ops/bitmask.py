@@ -162,6 +162,17 @@ def words_to_mask(words: torch.Tensor, k: int) -> torch.Tensor:
     return flat[..., :k] != 0
 
 
+def mask_to_words(mask: torch.Tensor) -> torch.Tensor:
+    """``bool[..., K] -> int64[..., ceil(K/32)]`` — pack a dense
+    enabled mask into bitmap words (the inverse of
+    :func:`words_to_mask`)."""
+    k = mask.shape[-1]
+    L = mask_words(k)
+    mp = torch.nn.functional.pad(mask.to(torch.int64), (0, L * 32 - k))
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    return (mp.reshape(mask.shape[:-1] + (L, 32)) << shifts).sum(dim=-1)
+
+
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """``[..., L] -> int64[...]`` — set bits per row (the per-row
     enabled-slot count). SWAR popcount: torch has no bit count."""

@@ -5,13 +5,17 @@
     python -m stateright_tpu_torch.stage_profile 2pc-actors 9
     python -m stateright_tpu_torch.stage_profile abd 2 3 ordered
     python -m stateright_tpu_torch.stage_profile --dense paxos 4
+    python -m stateright_tpu_torch.stage_profile --symmetry 9
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
 clients and S servers over the named network (paths off, the sizes of
 the bench's ``abd 2c/3s ordered``); the compiled encodings are built
 before the clock starts. ``--dense`` runs the same checker on the dense
-wave (``spawn_sortmerge(sparse=False)``).
+wave (``spawn_sortmerge(sparse=False)``). ``--symmetry`` and
+``--ample-set`` arm the reductions of the 2pc run, as the CLI flags do;
+with ``--symmetry`` it also reports the canonicalizer's own cost (see
+:func:`_canonicalizer_cost`).
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -55,12 +59,13 @@ def _stage(name: str) -> str:
     return "other"
 
 
-def _checker(model: str, n: int, extra: list, sparse=None):
+def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
     """The checker of one run (its encoding compiled); ``sparse=False``
-    forces the dense wave."""
+    forces the dense wave; ``flags`` (a ``cli.RunFlags``) arms the 2pc
+    run's reductions."""
     import warnings
 
-    from .cli import paxos_checker, twopc_sizes
+    from .cli import RunFlags, paxos_checker, twopc_sizes
 
     if model == "paxos":
         return paxos_checker(n, sparse=sparse)
@@ -90,30 +95,82 @@ def _checker(model: str, n: int, extra: list, sparse=None):
             track_paths=False, device="cuda", sparse=sparse)
     from .models.two_phase_commit import TwoPhaseSys
 
-    return TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
-        **twopc_sizes(n), device="cuda", sparse=sparse)
+    return (flags or RunFlags()).spawn(
+        TwoPhaseSys(rm_count=n), symmetric=True, **twopc_sizes(n),
+        sparse=sparse)
 
 
 #: the warm-up size of each model (a smaller run of the same code)
 WARM = {"2pc": 5, "2pc-actors": 5, "paxos": 2, "abd": 1}
 
 
-def _check(model: str, n: int, extra: list, sparse=None):
+def _check(model: str, n: int, extra: list, sparse=None, flags=None):
     """One run, timed to the device's end (the encoding is built
     before the clock starts)."""
-    c = _checker(model, n, extra, sparse)
+    c = _checker(model, n, extra, sparse, flags)
     t0 = time.monotonic()
     c.join()
     torch.cuda.synchronize()
     return c, time.monotonic() - t0
 
 
+def _canonicalizer_cost(run) -> dict:
+    """The symmetry canonicalizer's share of one run: ``run()`` is made
+    with every device call of ``canonicalize_t`` recorded (its input
+    block kept), then the recorded calls are replayed alone under the
+    profiler — the same ops on the same blocks — and their kernels
+    counted and summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .checkers import tpu, tpu_sortmerge
+    from .ops.canonical import canonicalize_t
+
+    calls = []
+
+    def recording(spec, block):
+        if block.is_cuda:
+            calls.append((spec, block.clone()))
+        return canonicalize_t(spec, block)
+
+    tpu.canonicalize_t = tpu_sortmerge.canonicalize_t = recording
+    try:
+        checker = run()
+    finally:
+        tpu.canonicalize_t = tpu_sortmerge.canonicalize_t = canonicalize_t
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for spec, block in calls:
+            canonicalize_t(spec, block)
+        torch.cuda.synchronize()
+    kernels = {ev.key: (ev.count, ev.self_device_time_total / 1e3)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    waves = checker.metrics["waves"]
+    launches = sum(n for n, _ in kernels.values())
+    return dict(
+        calls=len(calls), columns=sum(b.shape[1] for _, b in calls),
+        launches=launches, launches_per_wave=launches / waves,
+        device_ms=sum(ms for _, ms in kernels.values()),
+        kernels_ms={k: ms for k, (_, ms) in sorted(
+            kernels.items(), key=lambda kv: -kv[1][1])})
+
+
 def main(argv=None) -> int:
+    from .cli import RunFlags
+
     argv = list(sys.argv[1:] if argv is None else argv)
     sparse = None
     if "--dense" in argv:
         argv.remove("--dense")
         sparse = False
+    on = {}
+    for flag, name in (("--symmetry", "symmetry"),
+                       ("--ample-set", "ample_set")):
+        if flag in argv:
+            argv.remove(flag)
+            on[name] = True
+    flags = RunFlags(**on)
     model = argv.pop(0) if argv and argv[0] in WARM else "2pc"
     n = int(argv[0]) if argv else {"paxos": 4, "abd": 2}.get(model, 9)
     extra = argv[1:]
@@ -125,15 +182,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    _check(model, min(n, WARM[model]), extra, sparse)
-    checker, wall = _check(model, n, extra, sparse)
+    _check(model, min(n, WARM[model]), extra, sparse, flags)
+    checker, wall = _check(model, n, extra, sparse, flags)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: the host ops of a dense Paxos run are
     # millions of events, more than the profiler digests in minutes
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced, traced_wall = _check(model, n, extra, sparse)
+        traced, traced_wall = _check(model, n, extra, sparse, flags)
     kernels = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -149,10 +206,14 @@ def main(argv=None) -> int:
     merge_path_ms = stages.get("member kernel", 0.0) + stages.get(
         "merge kernel", 0.0)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    canon = (_canonicalizer_cost(
+        lambda: _check(model, n, extra, sparse, flags)[0])
+        if flags.symmetry else None)
     print(json.dumps({
         "card": card,
         "model": " ".join([model, str(n), *extra]
-                          + (["dense"] if sparse is False else [])),
+                          + (["dense"] if sparse is False else [])
+                          + [f"--{k.replace('_', '-')}" for k in on]),
         "n": n,
         "unique": checker.unique_state_count(),
         "states": checker.state_count(),
@@ -166,6 +227,7 @@ def main(argv=None) -> int:
         "metrics": traced.metrics,
         "stages_ms": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(top),
+        "canonicalizer": canon,
     }, indent=1))
     return 0
 

@@ -15,8 +15,9 @@ package, exactly (every comparison is integer equality: tolerance 0).
   count bounds and a count that wraps past bit 31;
 * the engine and the CLI report against the JAX engine and lane, a
   run continued from a JAX mid-run carry, the loud truncation of a
-  model that overflows an encoding bound, and the parts left out
-  (``NotImplementedError``).
+  model that overflows an encoding bound, the part left out
+  (``NotImplementedError``) and the validation of the symmetry spec and
+  ample mask a compilation may declare.
 """
 
 import contextlib
@@ -829,10 +830,27 @@ def test_left_out_parts_raise():
 
     cfg = PingPongCfg(max_nat=1)
     specs = ping_pong_device_specs(cfg)
-    for kw in (dict(optimize=False), dict(device_rewrite_spec=object()),
-               dict(ample_mask=(1,))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            compile_actor_model(ping_pong_model(cfg), **kw, **specs)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        compile_actor_model(ping_pong_model(cfg), optimize=False, **specs)
+    # the reductions' declarations are accepted and validated
+    # as in the JAX compiler: a spec against the compiled width, a mask
+    # against the slot count
+    from stateright_tpu_torch.ops.canonical import (
+        DeviceRewriteSpec,
+        MemberField,
+    )
+
+    off_width = DeviceRewriteSpec(2, (MemberField(99, 0, 2, 2, True),))
+    with pytest.raises(ValueError, match="outside encoding width"):
+        compile_actor_model(ping_pong_model(cfg),
+                            device_rewrite_spec=off_width, **specs)
+    with pytest.raises(ValueError, match="ample_mask has 2 words"):
+        compile_actor_model(ping_pong_model(cfg), ample_mask=(1, 1),
+                            **specs)
+    enc = compile_actor_model(ping_pong_model(cfg), ample_mask=(1,),
+                              **specs)
+    assert enc.ample_mask_host() == (1,)
+    assert enc.device_rewrite_spec() is None
 
 
 # -- 6. slow ---------------------------------------------------------------
@@ -857,34 +875,27 @@ def test_2pc_sys_counts_slow(rm, unique):
 
 @pytest.mark.slow
 def test_abd_2c3s_depth_prefix_matches_jax_engine(encs):
-    """ABD 2c/3s ordered: the states the port engine reaches within 10
-    waves equal the JAX engine's run to depth 10 (1,066 states) and the
-    JAX host BFS's set, encoded."""
+    """ABD 2c/3s ordered: the port engine's run to depth 10
+    (``target_max_depth``) equals the JAX engine's (1,066 states), and
+    its visited set is the JAX host BFS's set to that depth, encoded."""
     (jm, j), (_, p) = encs("abd-2c3s-ordered")
     jr = jm.checker().target_max_depth(10).spawn_tpu_sortmerge(
         encoded=j, capacity=1 << 13, frontier_capacity=1 << 11,
         cand_capacity=1 << 13, track_paths=False).join()
     assert jr.unique_state_count() == 1066
-    frontiers = []
-    real = p.enabled_bits_cols
+    pr = p.host_model.checker().target_max_depth(10).spawn_sortmerge(
+        encoded=p, capacity=1 << 21, track_paths=False,
+        device="cpu").join()
+    assert pr.unique_state_count() == jr.unique_state_count()
+    assert pr.state_count() == jr.state_count()
+    assert pr.max_depth() == jr.max_depth() == 10
+    # the visited keys are the keys of the host BFS's states, encoded
+    from stateright_tpu_torch.ops.fingerprint import (
+        clamp_keys,
+        fingerprint_u32v_t,
+        pack_keys,
+    )
 
-    class Stop(Exception):
-        pass
-
-    def recording(states_t):
-        if len(frontiers) == 10:
-            raise Stop
-        frontiers.append(states_t.T.numpy().astype(np.uint32))
-        return real(states_t)
-
-    p.enabled_bits_cols = recording
-    try:
-        with pytest.raises(Stop):
-            p.host_model.checker().spawn_sortmerge(
-                encoded=p, capacity=1 << 21, track_paths=False,
-                device="cpu").join()
-    finally:
-        del p.enabled_bits_cols
-    got = {tuple(v) for f in frontiers for v in f.tolist()}
-    host = {tuple(j.encode(s).tolist()) for s in _bfs(jm, 9)}
-    assert got == host and len(got) == jr.unique_state_count()
+    host = np.stack([j.encode(s) for s in _bfs(jm, 9)])
+    keys = clamp_keys(pack_keys(*fingerprint_u32v_t(_t(host))))
+    assert torch.equal(pr._final.vkeys, torch.sort(keys).values)

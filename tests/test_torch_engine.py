@@ -1,7 +1,9 @@
 """The PyTorch port's sort-merge wave engine, on the CPU, held against
 the JAX package's ``spawn_tpu_sortmerge(merge_impl="xla")`` at 2pc
 rm=3 and rm=4: unique count, ``states=``, depth, discovered set,
-discovery fingerprints and path fingerprints, all exact. Also the CLI
+discovery fingerprints and path fingerprints, all exact; the same
+where ``target_state_count`` / ``target_max_depth`` stop the run. Also
+the CLI
 report against the JAX lane's, a run continued from a JAX mid-depth
 carry (convert.carry_from_numpy), and the loud overflows."""
 
@@ -108,6 +110,32 @@ def test_overflow_raises():
         _port_checker(3, capacity=100).join()
     with pytest.raises(RuntimeError, match="frontier overflow"):
         _port_checker(3, frontier_capacity=8).join()
+
+
+@pytest.mark.parametrize("target,value", [("state_count", 100),
+                                          ("max_depth", 5)])
+def test_targets_stop_where_jax_stops(target, value):
+    """``target_state_count`` stops after the wave that reaches it and
+    ``target_max_depth`` expands no state at that depth, in the port as
+    in the JAX engine run one wave a chunk: the same counts, depth,
+    discovery fingerprints and paths."""
+    from stateright_tpu.models.two_phase_commit import TwoPhaseSys as Jax
+    from stateright_tpu_torch.models.two_phase_commit import (
+        TwoPhaseSys as Port,
+    )
+
+    jb = getattr(Jax(rm_count=3).checker(), f"target_{target}")(value)
+    pb = getattr(Port(rm_count=3).checker(), f"target_{target}")(value)
+    j = jb.spawn_tpu_sortmerge(**dict(JAX_SHAPES, waves_per_sync=1)).join()
+    p = pb.spawn_sortmerge(capacity=1 << 11, device="cpu").join()
+    assert 0 < p.unique_state_count() == j.unique_state_count() < 288
+    assert p.state_count() == j.state_count()
+    assert p.max_depth() == j.max_depth()
+    assert p.discovery_fingerprints() == j.discovery_fingerprints()
+    jd, pd = j.discoveries(), p.discoveries()
+    assert set(pd) == set(jd)
+    for name in jd:
+        assert pd[name].encode() == jd[name].encode(), name
 
 
 def _mask_sec(text):

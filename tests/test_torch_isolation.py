@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it and running its CLI
 (the 2pc and Paxos lanes, the three compiled lanes, and the increment,
 increment-lock, register and single-copy-register lanes, at their
-smallest size) loads neither jax nor anything of the JAX package, and
+smallest size, and the 2pc and register lanes with the reductions on)
+loads neither jax nor anything of the JAX package, and
 no source file of the port (nor chip_smoke.py) imports either."""
 
 import ast
@@ -34,6 +35,10 @@ def test_import_and_cli_load_no_jax():
         "main(['register', 'check-gpu', '2', '--device', 'cpu'])\n"
         "main(['single-copy-register', 'check-gpu', '2', '--device',"
         " 'cpu'])\n"
+        "main(['2pc', 'check-gpu', '3', '--symmetry', '--ample-set',"
+        " '--device', 'cpu'])\n"
+        "main(['register', 'check-gpu', '3', '--symmetry', '--device',"
+        " 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -52,7 +57,9 @@ def test_import_and_cli_load_no_jax():
     for done in ("Done. states=15, unique=13, depth=5",
                  "Done. states=17, unique=17, depth=9",
                  "Done. states=17, unique=13, depth=5",
-                 "Done. states=121, unique=93, depth=9"):
+                 "Done. states=121, unique=93, depth=9",
+                 "Done. states=270, unique=76, depth=11",
+                 "Done. states=26, unique=13, depth=7"):
         assert done in out.stdout, done
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 

@@ -271,14 +271,59 @@ def test_single_copy_three_clients_compiles():
     assert c.metrics["expansion"] == "sparse"
 
 
+def test_single_copy_one_client_matches_jax_host():
+    """One client: 5 states, depth 5 and the JAX host check's "value
+    chosen" discovery; every reachable state steps as JAX ``step_vec``
+    does. The JAX encoding cannot be built at one client (its table
+    builder reads a value no client wrote), so the comparison uses a
+    subclass that skips those table entries, as the port does."""
+    from stateright_tpu.models.single_copy_register import (
+        SingleCopyRegisterCfg,
+    )
+    from stateright_tpu.models.single_copy_register_tpu import (
+        SingleCopyEncoded,
+    )
+    from stateright_tpu_torch.cli import single_copy_checker
+
+    class JaxOneClient(SingleCopyEncoded):
+        def _tester_for(self, combos):
+            if any(ph == 3 and rv > len(self.values)
+                   for ph, rv, _ in combos):
+                return None
+            return super()._tester_for(combos)
+
+    jm, pm = _model("jax", "single-copy-1"), _model("torch",
+                                                     "single-copy-1")
+    host = jm.checker().spawn_dfs().join()
+    c = single_copy_checker(1, "cpu").join()
+    assert c.unique_state_count() == host.unique_state_count() == 5
+    assert c.max_depth() == host.max_depth() == 5
+    assert set(c.discoveries()) == set(host.discoveries()) == {
+        "value chosen"}
+    assert (c.discovery("value chosen").fingerprints()
+            == host.discovery("value chosen").fingerprints())
+    j = JaxOneClient(SingleCopyRegisterCfg(client_count=1))
+    p = pm.to_encoded()
+    pairs = _bfs_lockstep(jm, pm)
+    assert len(pairs) == 5
+    vecs = np.stack([j.encode(js) for js, _ in pairs])
+    for (_, ps), vec in zip(pairs, vecs):
+        assert np.array_equal(p.encode(ps), vec)
+    assert np.array_equal(p._lin_table, j._lin_table)
+    _compare_device_fns(j, p, vecs)
+
+
 def test_left_out_and_limits():
     from stateright_tpu_torch.models.increment_tpu import IncrementEncoded
     from stateright_tpu_torch.models.nclient_register_tpu import (
         NClientRegEncoded,
     )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        NClientRegEncoded(3).device_rewrite_spec()
+    # the register declares its clients' symmetry; one client
+    # has nothing to permute
+    spec = NClientRegEncoded(3).device_rewrite_spec()
+    assert spec.n_members == 3 and len(spec.fields) == 1
+    assert NClientRegEncoded(1).device_rewrite_spec() is None
     with pytest.raises(ValueError, match="at most 8 threads"):
         IncrementEncoded(9)
     with pytest.raises(ValueError, match="up to 8 clients"):
