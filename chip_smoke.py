@@ -75,20 +75,39 @@ it exits non-zero and prints no result. Phases, each ending in
    (1 + 8·9 = 73 orbits); every ``--symmetry`` run is held to the same
    run on the CPU (counts, ``states=``, depth, canonical hits,
    discovery fingerprints and paths, each path replayed);
-15. for every run of phases 4, 6-9, 11 and 14, each kernel against its
+15. for every run of phases 4, 6-9, 11, 14 and 20, each kernel against its
    plain version (exactly) and timed at that run's widest wave's
    shapes, each launch with L2 cold as the engine's calls find it;
 16. the device operations of one call of each kernel, counted in one
-   ``torch.profiler`` session after every timing.
+   ``torch.profiler`` session after every timing;
+17. ``simulation 2pc rm=5`` (``spawn_device_simulation``: 4,096 walks,
+   32 steps, 2 rounds, seed 0, paths on) on the card and on the CPU:
+   the same ``states=``, depth, discovered names, discovery
+   fingerprints and ``Path.encode()`` of every frozen trace;
+18. the simulation main path, ``simulation 2pc rm=9``: 262,144 walks of
+   64 steps, 4 rounds, paths on — 67,371,008 states, depth ≤ 65,
+   discoveries among the host's with paths that replay, and no Merge
+   Path launch (a simulation has no visited set);
+19. ``simulation paxos check 4`` (16,384 walks, paths off): the dense
+   Paxos step, host-bound; it prints the device operations a walk step
+   (a 2-step run's less a 1-step run's, each profiled in a process of
+   its own, ``chip_smoke.py --paxos-simulation-device-ops N``);
+20. the hybrid racer (``spawn_hybrid``: the host DFS in a thread against
+   the sort-merge engine on the card): ``increment 6`` (the shallow
+   bug: the engine's own names), ``paxos 2c/3s`` (16,668, "value
+   chosen") and ``paxos check 4`` (2,372,188), each printing its
+   winner; the last is followed by the engine alone, and both walls are
+   printed. When the device wins, both kernels must have launched.
 
-Every run of a main path (phases 4, 6-9, 11, 12 and 14) prints its
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18 and 20) prints its
 ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run and the
 canonical hits: candidates whose canonical form differed) and the
 launch count of each kernel in that run.
 
 It prints one JSON line of kernel records (``launches`` and the
-comparison at each path's shapes, ``at_path_shapes``, per path), then
+comparison at each path's shapes, ``at_path_shapes``, per path — the
+hybrid paths' at their device side's widest wave, where it ran one), then
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failed phase makes it exit 1 without that last line.
 """
@@ -594,7 +613,7 @@ def run_main(checker, print_lines: int | None = None) -> dict:
           flush=True)
     assert all(n > 0 for n in launches.values()), launches
     return dict(launches=launches, metrics=checker.metrics, unique=unique,
-                names=checker.discovered_property_names(),
+                sec=sec, names=checker.discovered_property_names(),
                 states=checker.state_count(), depth=checker.max_depth(),
                 fps=checker.discovery_fingerprints())
 
@@ -1061,6 +1080,230 @@ def register8_sym():
     return run
 
 
+# -- device simulation and the hybrid racer ---------------------------------
+
+
+def sim_run(checker) -> dict:
+    """Run a device simulation once, the launch counts zeroed just
+    before and read just after: it runs no Merge Path kernel (it has no
+    visited set), so both counts must stay 0. Prints ``sec=``,
+    walk-steps/s, the peak device memory above the run's start and the
+    launches."""
+    import torch
+
+    base = _mem_base()
+    _zero_launches()
+    t0 = time.monotonic()
+    checker.join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = _read_launches()
+    steps = checker.n_walks * checker.rounds * checker.max_steps
+    names = checker.discovered_property_names()
+    print(f"  walks={checker.n_walks} max_steps={checker.max_steps} "
+          f"rounds={checker.rounds} states={checker.state_count()} "
+          f"depth={checker.max_depth()} discovered={sorted(names)} "
+          f"sec={sec:.3f} walk-steps/s={steps / sec:.0f} "
+          f"launches={launches} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
+          flush=True)
+    assert all(n == 0 for n in launches.values()), launches
+    return dict(launches=launches, sec=sec, names=names,
+                states=checker.state_count(), depth=checker.max_depth(),
+                fps=checker.discovery_fingerprints())
+
+
+def _sim(model, device="cuda", **kw):
+    return model.checker().spawn_device_simulation(device=device, **kw)
+
+
+@phase("simulation 2pc rm=5, card vs CPU")
+def sim_rm5():
+    """The same walks on the card and on the CPU: every stats field,
+    the discovery fingerprints and the frozen traces' paths equal."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    cfg = dict(n_walks=4_096, max_steps=32, rounds=2, seed=0)
+    gpu = _sim(model, **cfg)
+    run = sim_run(gpu)
+    t0 = time.monotonic()
+    cpu = _sim(model, "cpu", **cfg).join()
+    print(f"  cpu: states={cpu.state_count()} depth={cpu.max_depth()} "
+          f"in {time.monotonic() - t0:.3f}s", flush=True)
+    assert run["states"] == cpu.state_count() == 4_096 * (1 + 2 * 32)
+    assert run["depth"] == cpu.max_depth(), (run["depth"], cpu.max_depth())
+    assert run["names"] == cpu.discovered_property_names(), run["names"]
+    assert run["fps"] == cpu.discovery_fingerprints(), run["fps"]
+    assert run["names"], "no discovery to hold the traces to"
+    for name, path in gpu.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+    return run
+
+
+@phase("simulation 2pc rm=9 (main path)")
+def sim_rm9():
+    """262,144 walks of 64 steps, 4 rounds, paths on: 67,371,008
+    generated states, traces no deeper than a round, discoveries among
+    the host's, each path replayed."""
+    from stateright_tpu_torch.model import Expectation
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = _sim(model, n_walks=262_144, max_steps=64, rounds=4, seed=0)
+    run = sim_run(checker)
+    assert run["states"] == 262_144 * (1 + 4 * 64) == 67_371_008
+    assert 1 < run["depth"] <= 65, run["depth"]
+    host = HAND.get("2pc rm=9", (None, {
+        p.name for p in model.properties()
+        if p.expectation == Expectation.SOMETIMES}))[1]
+    assert run["names"] <= host, (run["names"], host)
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    return run
+
+
+#: the option that makes the script print the device operations of one
+#: ``simulation paxos check 4`` run of N steps, and nothing else
+SIM_OPS_FLAG = "--paxos-simulation-device-ops"
+
+
+def _paxos_sim(max_steps: int):
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+
+    model = paxos_model(PaxosModelCfg(client_count=4, server_count=3))
+    return _sim(model, n_walks=16_384, max_steps=max_steps, rounds=1,
+                seed=0, track_paths=False)
+
+
+def sim_device_ops(max_steps: int) -> int:
+    """Device operations of one Paxos 4 simulation run of ``max_steps``
+    steps, counted by ``torch.profiler`` (device activity only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    checker = _paxos_sim(max_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        checker.join()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+
+
+def _device_kernels(max_steps: int) -> int:
+    """``sim_device_ops`` in a process of its own: a second profiler
+    session in one process can come back empty, and the last phase
+    takes this process's one session."""
+    out = subprocess.run([sys.executable, __file__, SIM_OPS_FLAG,
+                          str(max_steps)], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"device-op count failed: {out.stderr[-2000:]}")
+    return int(out.stdout.split()[-1])
+
+
+@phase("simulation paxos check 4")
+def sim_paxos4():
+    """16,384 walks of the Paxos 4 encoding's dense step, paths off: a
+    host-bound run. Kernels a walk step: a 2-step run's device
+    operations less a 1-step run's."""
+    run = sim_run(_paxos_sim(SIM_PAXOS_STEPS))
+    assert run["states"] == 16_384 * (1 + SIM_PAXOS_STEPS)
+    assert run["names"] <= {"value chosen"}, run["names"]
+    one, two = _device_kernels(1), _device_kernels(2)
+    run["kernels_a_step"] = two - one
+    print(f"  kernels a walk step: {two - one} (1-step run {one}, 2-step "
+          f"run {two})", flush=True)
+    return run
+
+
+#: the walk length of the Paxos 4 simulation phase
+SIM_PAXOS_STEPS = 32
+
+
+def hybrid_run(builder, **kw) -> dict:
+    """One hybrid race on the card, the launch counts zeroed just before
+    and read just after. Prints the winner, ``sec=``, the counts and
+    each side's progress; when the device wins, both kernels must have
+    launched."""
+    import torch
+
+    base = _mem_base()
+    _zero_launches()
+    t0 = time.monotonic()
+    hy = builder.spawn_hybrid(**kw).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = _read_launches()
+    host, dev = hy.engines["host"], hy.engines["device"]
+    names = hy.discovered_property_names()
+    print(f"  winner={hy.winner} states={hy.state_count()} "
+          f"unique={hy.unique_state_count()} depth={hy.max_depth()} "
+          f"discovered={sorted(names)} sec={sec:.3f} launches={launches} "
+          f"device: waves={dev.metrics.get('waves')} "
+          f"cancelled={dev.cancelled}; host: unique="
+          f"{host._unique_states} cancelled={host.cancelled} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
+          flush=True)
+    if hy.winner == "device":
+        assert all(n > 0 for n in launches.values()), launches
+    return dict(launches=launches, metrics=dev.metrics, sec=sec,
+                unique=hy.unique_state_count(), names=names,
+                winner=hy.winner)
+
+
+@phase("hybrid increment 6")
+def hybrid_increment6():
+    """The shallow bug: the names the engine alone discovers."""
+    from stateright_tpu_torch.cli import INCREMENT_SIZES, increment_checker
+    from stateright_tpu_torch.models.increment import Increment
+
+    alone = increment_checker(6, locked=False).join()
+    run = hybrid_run(Increment(6).checker(), **INCREMENT_SIZES)
+    assert run["names"] == alone.discovered_property_names() == {"fin"}
+    return run
+
+
+@phase("hybrid paxos 2c/3s")
+def hybrid_paxos2():
+    """The full check, paths on as ``paxos check-gpu 2``: 16,668 unique
+    states and "value chosen", whichever side wins."""
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.paxos_tpu import STRUCTURAL_SIZES
+
+    model = paxos_model(PaxosModelCfg(client_count=2, server_count=3))
+    run = hybrid_run(model.checker(), **STRUCTURAL_SIZES[2])
+    assert run["unique"] == 16_668, run["unique"]
+    assert "value chosen" in run["names"], run["names"]
+    return run
+
+
+@phase("hybrid paxos check 4 (main path)")
+def hybrid_paxos4():
+    """``paxos check 4`` raced, at the sizes of ``paxos check-gpu 4``
+    (paths off), then the engine alone in the same call: 2,372,188
+    unique states either way, and the two walls."""
+    from stateright_tpu_torch.cli import paxos_checker
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.paxos_tpu import STRUCTURAL_SIZES
+
+    model = paxos_model(PaxosModelCfg(client_count=4, server_count=3))
+    run = hybrid_run(model.checker(), track_paths=False,
+                     **STRUCTURAL_SIZES[4])
+    assert run["unique"] == 2_372_188, run["unique"]
+    assert "value chosen" in run["names"], run["names"]
+    alone = run_main(paxos_checker(4))
+    assert alone["unique"] == 2_372_188, alone["unique"]
+    run["alone_sec"] = alone["sec"]
+    print(f"  raced sec={run['sec']:.3f} against alone sec="
+          f"{alone['sec']:.3f}: {run['sec'] / alone['sec']:.1f}x",
+          flush=True)
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1101,12 +1344,23 @@ def main() -> int:
     runs["2pc rm=9 --ample-set"] = rm9_ample()
     runs["2pc rm=9 --symmetry --ample-set"] = rm9_sym_ample()
     runs["register 8 --symmetry"] = register8_sym()
+    sims = {"simulation 2pc rm=5": sim_rm5(),
+            "simulation 2pc rm=9": sim_rm9(),
+            "simulation paxos 4": sim_paxos4()}
+    hybrids = {"hybrid increment 6": hybrid_increment6(),
+               "hybrid paxos 2c/3s": hybrid_paxos2(),
+               "hybrid paxos 4": hybrid_paxos4()}
+    # the hybrids' device sides, at their widest waves, where they ran
+    # one (a side cancelled before its first wave has no shapes)
+    runs.update({path: run for path, run in hybrids.items()
+                 if run is None or run["metrics"].get("waves")})
     # each kernel held to its plain version at every path's own shapes
     # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])
           for path, run in runs.items()}
     launches = {path: run and run["launches"]
-                for path, run in {**runs, **lanes}.items()}
+                for path, run in {**runs, **lanes, **sims,
+                                  **hybrids}.items()}
     per_call = device_ops(calls) if calls else None
     if (FAILED or rec is None or not all(at.values()) or per_call is None
             or not all(launches.values())):
@@ -1137,4 +1391,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SIM_OPS_FLAG]:
+        print(sim_device_ops(int(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

@@ -14,11 +14,14 @@ visited-set membership and merge as CUDA kernels
 the write-once register and the single-copy register; the actor
 framework, the linearizability tester and the actor→encoding compiler;
 device symmetry reduction and the static ample-set filter
-(``ops/canonical.py``, gated by ``soundness.py``).
-``python -m stateright_tpu_torch`` runs them (``2pc``, ``paxos``,
-``increment``, ``increment-lock``, ``register``,
+(``ops/canonical.py``, gated by ``soundness.py``); the host
+depth-first search (``spawn_dfs``), the device simulation
+(``spawn_device_simulation``) and the hybrid racer of the two
+(``spawn_hybrid``). ``python -m stateright_tpu_torch`` runs them
+(``2pc``, ``paxos``, ``increment``, ``increment-lock``, ``register``,
 ``single-copy-register``, ``2pc-actors``, ``paxos-compiled``,
-``linearizable-register check-gpu N``).
+``linearizable-register``, each ``check-gpu N`` on the device or
+``check N`` on the host).
 """
 
 from .checker import Checker, CheckerBuilder, DiscoveryClassification

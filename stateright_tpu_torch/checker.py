@@ -1,12 +1,13 @@
 """Checker configuration and the common checker interface.
 
 A copy of the JAX package's ``checker`` module, cut to what the
-sort-merge slice uses. ``CheckerBuilder`` mirrors the reference's
+ported engines use. ``CheckerBuilder`` mirrors the reference's
 fluent builder (stateright src/checker.rs:64-267) and ``Checker`` its
 result interface (src/checker.rs:273-557): counts, discoveries as
-replayable :class:`~stateright_tpu_torch.path.Path` objects and
-reporting. The search runs synchronously on first demand
-(``join`` or any accessor).
+replayable :class:`~stateright_tpu_torch.path.Path` objects,
+reporting and the assertion helpers. The search runs synchronously on
+first demand (``join`` or any accessor); the hybrid racer runs its host
+side in a thread of its own (checkers/hybrid.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable, Optional
 from .model import Expectation, Model, State
 from .path import Path
 from .report import ReportData, Reporter
+from .visitor import CheckerVisitor, as_visitor
 
 
 class DiscoveryClassification(str, Enum):
@@ -36,6 +38,7 @@ class CheckerBuilder:
         self._target_state_count: Optional[int] = None
         self._target_max_depth: Optional[int] = None
         self._unsound_ok: bool = False
+        self._visitor: Optional[CheckerVisitor] = None
 
     def unsound_ok(self) -> "CheckerBuilder":
         """Waive the reduction gate (soundness.py): a declared
@@ -65,6 +68,36 @@ class CheckerBuilder:
         (checker.rs:244-249)."""
         self._target_max_depth = depth
         return self
+
+    def visitor(self, v) -> "CheckerBuilder":
+        """Attach a visitor called with every evaluated state's path
+        (checker.rs:261-266); the host DFS calls it."""
+        self._visitor = as_visitor(v)
+        return self
+
+    def spawn_dfs(self) -> "Checker":
+        """Spawn the host depth-first search (checkers/dfs.py)."""
+        from .checkers.dfs import DfsChecker
+
+        return DfsChecker(self)
+
+    def spawn_device_simulation(self, **kwargs) -> "Checker":
+        """Spawn the device simulation checker — the port of the JAX
+        package's ``spawn_tpu_simulation``: N random walks advancing in
+        lockstep on the CUDA device unless ``device="cpu"`` is passed
+        (see checkers/tpu_simulation.py)."""
+        from .checkers.tpu_simulation import TpuSimulationChecker
+
+        return TpuSimulationChecker(self, **kwargs)
+
+    def spawn_hybrid(self, **kwargs) -> "Checker":
+        """Spawn the hybrid racer: the host DFS in a thread against the
+        sort-merge engine in the calling thread; the first to finish
+        wins and the loser is cancelled (see checkers/hybrid.py).
+        ``kwargs`` go to the sort-merge engine."""
+        from .checkers.hybrid import HybridChecker
+
+        return HybridChecker(self, **kwargs)
 
     def spawn_sortmerge(self, **kwargs) -> "Checker":
         """Spawn the sort-merge wave engine on a device — the port of the
@@ -171,6 +204,30 @@ class Checker:
         reporter.report_discoveries(self)
         return self
 
+    # -- assertion helpers (checker.rs:447-556) --------------------------
+
+    def assert_properties(self) -> None:
+        """Assert no always/eventually counterexamples and an example for
+        every sometimes property (checker.rs:447-473)."""
+        for prop in self.model.properties():
+            if prop.expectation == Expectation.SOMETIMES:
+                self.assert_any_discovery(prop.name)
+            else:
+                self.assert_no_discovery(prop.name)
+
+    def assert_any_discovery(self, name: str) -> Path:
+        path = self.discovery(name)
+        if path is None:
+            raise AssertionError(f"expected a discovery for {name!r}")
+        return path
+
+    def assert_no_discovery(self, name: str) -> None:
+        path = self.discovery(name)
+        if path is not None:
+            raise AssertionError(
+                f"unexpected discovery for {name!r}: {path.encode()}\n{path!r}"
+            )
+
     # -- shared engine internals ----------------------------------------
 
     def _eventually_bits_init(self) -> int:
@@ -181,3 +238,11 @@ class Checker:
             if prop.expectation == Expectation.EVENTUALLY:
                 bits |= 1 << i
         return bits
+
+    def _all_discovered(self) -> bool:
+        """Early-exit condition: every property has a discovery
+        (bfs.rs:128-135)."""
+        props = self.model.properties()
+        return len(props) > 0 and all(
+            p.name in self._discoveries for p in props
+        )

@@ -158,6 +158,13 @@ class TpuBfsChecker(Checker):
         gate_symmetry(enc, self._engine_name, self.unsound_ok)
         return spec
 
+    def _check_device(self) -> None:
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the device engines run on the GPU unless "
+                "device='cpu' is passed"
+            )
+
     # -- results ----------------------------------------------------------
 
     def discovered_property_names(self) -> set:
@@ -169,6 +176,7 @@ class TpuBfsChecker(Checker):
         return dict(self._discovered_fps)
 
     def discoveries(self):
+        self._ensure_run()
         if not self.track_paths and self._discovered_fps:
             raise RuntimeError(
                 "paths unavailable with track_paths=False; use "
@@ -228,7 +236,13 @@ class TpuBfsChecker(Checker):
                 break
             fps.append(parent)
         fps.reverse()
+        return self._replay_fps(fps)
 
+    def _replay_fps(self, fps: list) -> Path:
+        """Replay a fingerprint trace through the HOST model: the init
+        state, then at each step the first successor (in
+        ``model.actions`` order) whose encoding has the next
+        fingerprint."""
         model = self.model
         enc = self.encoded
         state = None

@@ -51,7 +51,9 @@ soundness.py:
 ``target_state_count`` / ``target_max_depth`` stop the loop as in the
 JAX engine: after the wave that brings the visited count to the target,
 or with a wave at the target depth that evaluates properties but
-expands nothing.
+expands nothing. A set ``cancel_event`` (the hybrid racer's losing
+side, checkers/hybrid.py) stops it at the top of the next wave, with
+``cancelled`` True, the counts of the waves done and no paths.
 
 The JAX engine compiles static shapes, so it carries class ladders,
 ``lax.switch`` variants, pair-width and candidate budgets, and a budget
@@ -266,6 +268,11 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             )
         self.metrics: dict = {}
         self._start: Optional[WaveState] = None
+        #: optional ``threading.Event``: when set, the run returns at the
+        #: top of its next wave with partial counts and ``cancelled``
+        #: True (the hybrid racer's losing side; see checkers/hybrid.py)
+        self.cancel_event = None
+        self.cancelled = False
 
     def _use_sparse(self) -> bool:
         if self.sparse is not None:
@@ -339,13 +346,6 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         return WaveState(vkeys=torch.sort(keys).values, frontier=front,
                          ebits=ebits, generated=n0)
 
-    def _check_device(self) -> None:
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the wave engine runs on the GPU unless "
-                "device='cpu' is passed"
-            )
-
     def _run(self, reporter=None) -> None:
         self._check_device()
         ample_words = self._resolve_ample_words()
@@ -378,7 +378,11 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         sparse = self._use_sparse()
         chunk_rows = max(1, self.dense_chunk_bytes // (8 * enc.width * K))
         chunks = max_chunks = 0
+        cancel = self.cancel_event
         while not done:
+            if cancel is not None and cancel.is_set():
+                self.cancelled = True
+                break
             front = st.frontier
             cond, eb, f_lo, f_hi = frontier_props_t(
                 enc, props, evt_idx, front, st.ebits, sym
@@ -470,7 +474,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                                 max_wave_chunks=max_chunks,
                                 chunk_rows=chunk_rows)
         self._final = st
-        if self.track_paths:
+        if self.track_paths and not self.cancelled:
             # the log stays on the device: each path step is one
             # device-side lookup, and nothing of it is downloaded
             empty = st.vkeys.new_zeros(0)

@@ -13,6 +13,14 @@
     python -m stateright_tpu_torch single-copy-register check-gpu 2
     python -m stateright_tpu_torch 2pc check-gpu 9 --symmetry --ample-set
     python -m stateright_tpu_torch register check-gpu 8 --symmetry
+    python -m stateright_tpu_torch 2pc check 3
+    python -m stateright_tpu_torch paxos check 2 ordered
+
+``check`` runs the host depth-first search (checkers/dfs.py) and prints
+what the JAX lane's ``check`` prints: the same header and the
+``Done. states=… unique=… depth=… sec=…`` report with every discovery's
+path. It runs on the host, so ``--device`` does not apply to it, and
+the reduction flags belong to ``check-gpu``.
 
 ``check-gpu`` runs the sort-merge wave engine on the CUDA device (on
 the CPU only with ``--device cpu``) and prints the same report as the
@@ -98,6 +106,28 @@ def _pop_flags(argv: list[str]):
     return RunFlags(device, **{n: True for n in on}), rest
 
 
+def _check(header: str, model, flags: RunFlags) -> None:
+    """The ``check`` subcommand: ``header``, then the host DFS of
+    ``model`` with the reference-format report."""
+    if flags.symmetry or flags.ample_set or flags.unsound_ok:
+        raise SystemExit(
+            "--symmetry, --ample-set and --unsound-ok apply to check-gpu; "
+            "check runs the plain host DFS"
+        )
+    print(header)
+    model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
+
+
+def _network(args: list[str], index: int):
+    """The network named by ``args[index]`` (default unordered
+    non-duplicating), as the JAX lanes read it."""
+    from .actor import Network
+
+    if len(args) > index:
+        return Network.from_name(args[index])
+    return Network.new_unordered_nonduplicating()
+
+
 def twopc_sizes(rm_count: int) -> dict:
     """The engine capacities of the 2pc lane (the JAX lane's sizing: the
     2pc space grows ~2.53 bits/RM, and a sorted visited array has no
@@ -111,6 +141,10 @@ def _2pc(sub: str, args: list[str], flags: RunFlags) -> None:
     from .models.two_phase_commit import TwoPhaseSys
 
     rm_count = int(args[0]) if args else 2
+    if sub == "check":
+        _check(f"Checking two phase commit with {rm_count} resource "
+               "managers.", TwoPhaseSys(rm_count=rm_count), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -148,6 +182,13 @@ def paxos_checker(client_count: int, flags="cuda", sparse=None):
 
 def _paxos(sub: str, args: list[str], flags: RunFlags) -> None:
     client_count = int(args[0]) if args else 2
+    if sub == "check":
+        from .models.paxos import PaxosModelCfg, paxos_model
+
+        cfg = PaxosModelCfg(client_count=client_count, server_count=3)
+        _check(f"Model checking Single Decree Paxos with {client_count} "
+               "clients.", paxos_model(cfg, _network(args, 1)), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -173,6 +214,11 @@ def _2pc_actors(sub: str, args: list[str], flags: RunFlags) -> None:
     )
 
     rm_count = int(args[0]) if args else 2
+    if sub == "check":
+        _check(f"Checking two phase commit (compiled actor model) with "
+               f"{rm_count} resource managers.",
+               two_phase_sys_actor_model(rm_count), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -200,6 +246,11 @@ def _paxos_compiled(sub: str, args: list[str], flags: RunFlags) -> None:
     )
 
     client_count = int(args[0]) if args else 2
+    if sub == "check":
+        cfg = PaxosModelCfg(client_count=client_count, server_count=3)
+        _check("Model checking Single Decree Paxos (compiled) with "
+               f"{client_count} clients.", paxos_model(cfg), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -228,16 +279,18 @@ def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
     """ABD (models/linearizable_register.py) over the network named by
     the second argument (default unordered non-duplicating), through
     its compiled encoding."""
-    from .actor import Network
     from .models.linearizable_register import AbdModelCfg, abd_model
 
     client_count = int(args[0]) if args else 2
+    cfg = AbdModelCfg(client_count=client_count)
+    network = _network(args, 1)
+    if sub == "check":
+        _check("Model checking a linearizable register with "
+               f"{client_count} clients.", abd_model(cfg, network), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
-    network = (Network.from_name(args[1]) if len(args) > 1
-               else Network.new_unordered_nonduplicating())
-    cfg = AbdModelCfg(client_count=client_count)
     print(
         f"Model checking a linearizable register with {client_count} "
         f"clients on the {_where(flags)} wave engine (compiled actor "
@@ -267,11 +320,18 @@ def increment_checker(thread_count: int, locked: bool, flags="cuda"):
 
 def _increment(sub: str, args: list[str], flags: RunFlags,
                locked: bool = False) -> None:
+    from .models.increment import Increment, IncrementLock
+
     thread_count = int(args[0]) if args else (3 if locked else 2)
+    name = "increment_lock" if locked else "increment"
+    if sub == "check":
+        model = (IncrementLock if locked else Increment)(thread_count)
+        _check(f"Model checking {name} with {thread_count} threads.",
+               model, flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
-    name = "increment_lock" if locked else "increment"
     print(
         f"Model checking {name} with {thread_count} threads on the "
         f"{_where(flags)} wave engine."
@@ -300,6 +360,12 @@ def register_checker(n_clients: int, flags="cuda"):
 
 def _register(sub: str, args: list[str], flags: RunFlags) -> None:
     n_clients = int(args[0]) if args else 3
+    if sub == "check":
+        from .models.nclient_register import NClientRegSys
+
+        _check(f"Checking the write-once register with {n_clients} "
+               "clients.", NClientRegSys(n_clients=n_clients), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -327,6 +393,17 @@ def single_copy_checker(client_count: int, flags="cuda"):
 
 def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
     client_count = int(args[0]) if args else 2
+    if sub == "check":
+        from .models.single_copy_register import (
+            SingleCopyRegisterCfg,
+            single_copy_register_model,
+        )
+
+        _check(f"Model checking a single-copy register with {client_count} "
+               "clients.", single_copy_register_model(
+                   SingleCopyRegisterCfg(client_count=client_count),
+                   _network(args, 1)), flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -365,6 +442,10 @@ def _usage() -> None:
           "[CLIENTS 1-8] [--symmetry] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch single-copy-register check-gpu "
           "[CLIENTS] [--device cuda|cpu]")
+    print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
+          + "} check [COUNT] [NETWORK]")
+    print("       check runs the host depth-first search (NETWORK: paxos, "
+          "single-copy-register and linearizable-register)")
     print("       --symmetry on 2pc/register check-gpu runs the device "
           "symmetry reduction (canonical-form fingerprints before dedup, "
           "ops/canonical.py; 2pc rm=5: 8,832 -> 314 states); --ample-set "

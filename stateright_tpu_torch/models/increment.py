@@ -6,8 +6,9 @@ perform a non-atomic read-then-write increment of a shared counter.
 Without a lock the final count can drop updates (the "fin" invariant
 fails — this model is itself a race detector); with a lock both "fin"
 and "mutex" hold. Class and field names match the JAX package's, so
-host fingerprints and encoded paths are identical. The symmetry
-representative is left out (symmetry reduction is not ported yet).
+host fingerprints and encoded paths are identical. The host
+symmetry representative sorts the threads (the host DFS's
+``.symmetry()``; the encodings declare no device rewrite spec).
 
 The device encodings are :mod:`stateright_tpu_torch.models.increment_tpu`.
 """
@@ -31,6 +32,10 @@ class IncrementState:
     i: int  # shared counter
     lock: bool
     s: Tuple[ProcState, ...]
+
+    def representative(self) -> "IncrementState":
+        # Threads are interchangeable: sort them (increment_lock.rs:35-45).
+        return replace(self, s=tuple(sorted(self.s, key=lambda p: (p.t, p.pc))))
 
 
 class IncrementLock(Model):

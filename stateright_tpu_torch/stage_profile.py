@@ -6,6 +6,8 @@
     python -m stateright_tpu_torch.stage_profile abd 2 3 ordered
     python -m stateright_tpu_torch.stage_profile --dense paxos 4
     python -m stateright_tpu_torch.stage_profile --symmetry 9
+    python -m stateright_tpu_torch.stage_profile --simulation 9
+    python -m stateright_tpu_torch.stage_profile --simulation paxos 4
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
@@ -15,7 +17,11 @@ before the clock starts. ``--dense`` runs the same checker on the dense
 wave (``spawn_sortmerge(sparse=False)``). ``--symmetry`` and
 ``--ample-set`` arm the reductions of the 2pc run, as the CLI flags do;
 with ``--symmetry`` it also reports the canonicalizer's own cost (see
-:func:`_canonicalizer_cost`).
+:func:`_canonicalizer_cost`). ``--simulation`` profiles the device
+simulation instead, at ``chip_smoke.py``'s configurations
+(:data:`SIM_CFG`: 2pc rm=9, 262,144 walks of 64 steps, 4 rounds, paths
+on; paxos 4, 16,384 walks of 32 steps, 1 round, paths off), and adds
+the device operations a walk step.
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -104,10 +110,35 @@ def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
 WARM = {"2pc": 5, "2pc-actors": 5, "paxos": 2, "abd": 1}
 
 
-def _check(model: str, n: int, extra: list, sparse=None, flags=None):
+#: the simulation runs of chip_smoke.py: model -> walk configuration
+SIM_CFG = {
+    "2pc": dict(n_walks=262_144, max_steps=64, rounds=4),
+    "paxos": dict(n_walks=16_384, max_steps=32, rounds=1,
+                  track_paths=False),
+}
+
+
+def _sim_checker(model: str, n: int, cfg: dict):
+    """The device simulation of 2pc rm=``n`` or Paxos with ``n``
+    clients, seed 0, on the card."""
+    if model == "paxos":
+        from .models.paxos import PaxosModelCfg, paxos_model
+
+        m = paxos_model(PaxosModelCfg(client_count=n, server_count=3))
+    else:
+        from .models.two_phase_commit import TwoPhaseSys
+
+        m = TwoPhaseSys(rm_count=n)
+    return m.checker().spawn_device_simulation(seed=0, device="cuda",
+                                                **cfg)
+
+
+def _check(model: str, n: int, extra: list, sparse=None, flags=None,
+           make=None):
     """One run, timed to the device's end (the encoding is built
-    before the clock starts)."""
-    c = _checker(model, n, extra, sparse, flags)
+    before the clock starts); ``make()`` builds the checker instead of
+    the CLI's."""
+    c = make() if make else _checker(model, n, extra, sparse, flags)
     t0 = time.monotonic()
     c.join()
     torch.cuda.synchronize()
@@ -160,6 +191,9 @@ def main(argv=None) -> int:
     from .cli import RunFlags
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    sim = "--simulation" in argv
+    if sim:
+        argv.remove("--simulation")
     sparse = None
     if "--dense" in argv:
         argv.remove("--dense")
@@ -182,22 +216,30 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    _check(model, min(n, WARM[model]), extra, sparse, flags)
-    checker, wall = _check(model, n, extra, sparse, flags)
+    make = warm = None
+    if sim:
+        cfg = SIM_CFG[model]
+        make = lambda: _sim_checker(model, n, cfg)  # noqa: E731
+        warm = lambda: _sim_checker(  # noqa: E731
+            model, min(n, WARM[model]), dict(cfg, n_walks=1024))
+    _check(model, min(n, WARM[model]), extra, sparse, flags, warm)
+    checker, wall = _check(model, n, extra, sparse, flags, make)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: the host ops of a dense Paxos run are
     # millions of events, more than the profiler digests in minutes
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced, traced_wall = _check(model, n, extra, sparse, flags)
+        traced, traced_wall = _check(model, n, extra, sparse, flags, make)
     kernels = {}
+    launches = 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue  # host ops; their kernels are listed on their own
         kernels[ev.key] = kernels.get(ev.key, 0.0) + (
             ev.self_device_time_total / 1e3
         )
+        launches += ev.count
     stages = {}
     for name, ms in kernels.items():
         stage = _stage(name)
@@ -209,6 +251,28 @@ def main(argv=None) -> int:
     canon = (_canonicalizer_cost(
         lambda: _check(model, n, extra, sparse, flags)[0])
         if flags.symmetry else None)
+    if sim:
+        steps = traced.rounds * traced.max_steps
+        print(json.dumps({
+            "card": card,
+            "model": f"simulation {model} {n}",
+            "walks": traced.n_walks, "max_steps": traced.max_steps,
+            "rounds": traced.rounds, "track_paths": traced.track_paths,
+            "states": checker.state_count(),
+            "depth": checker.max_depth(),
+            "discovered": sorted(checker.discovered_property_names()),
+            "wall_s": wall,
+            "traced_wall_s": traced_wall,
+            "device_busy_ms": busy_ms,
+            "idle_share_of_traced_wall": 1 - busy_ms / (traced_wall * 1e3),
+            "device_ops": launches,
+            # each round evaluates its final states once more
+            "device_ops_per_walk_step": launches / steps,
+            "walk_steps_per_s": traced.n_walks * steps / wall,
+            "stages_ms": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": dict(top),
+        }, indent=1))
+        return 0
     print(json.dumps({
         "card": card,
         "model": " ".join([model, str(n), *extra]

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: importing it and running its CLI
 (the 2pc and Paxos lanes, the three compiled lanes, and the increment,
 increment-lock, register and single-copy-register lanes, at their
-smallest size, and the 2pc and register lanes with the reductions on)
-loads neither jax nor anything of the JAX package, and
-no source file of the port (nor chip_smoke.py) imports either."""
+smallest size, the 2pc and register lanes with the reductions on, and
+the host DFS's ``2pc check 2``), a device simulation and a hybrid race
+on the CPU loads neither jax nor anything of the JAX package, and no
+source file of the port (nor chip_smoke.py) imports either."""
 
 import ast
 import os
@@ -39,6 +40,16 @@ def test_import_and_cli_load_no_jax():
         " '--device', 'cpu'])\n"
         "main(['register', 'check-gpu', '3', '--symmetry', '--device',"
         " 'cpu'])\n"
+        "main(['2pc', 'check', '2'])\n"
+        "from stateright_tpu_torch.models.two_phase_commit import"
+        " TwoPhaseSys\n"
+        "sim = TwoPhaseSys(2).checker().spawn_device_simulation("
+        "n_walks=64, max_steps=8, rounds=2, device='cpu').join()\n"
+        "print('SIM', sim.state_count(),"
+        " sorted(sim.discovered_property_names()))\n"
+        "hy = TwoPhaseSys(2).checker().spawn_hybrid(device='cpu').join()\n"
+        "print('HYBRID', hy.unique_state_count(),"
+        " sorted(hy.discovered_property_names()))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -61,6 +72,10 @@ def test_import_and_cli_load_no_jax():
                  "Done. states=270, unique=76, depth=11",
                  "Done. states=26, unique=13, depth=7"):
         assert done in out.stdout, done
+    assert "Checking two phase commit with 2 resource managers.\n" \
+        "Done. states=" in out.stdout
+    assert "SIM 1088 ['abort agreement', 'commit agreement']" in out.stdout
+    assert "HYBRID 56 ['abort agreement', 'commit agreement']" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
@@ -68,6 +83,10 @@ def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "stateright_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("checkers/dfs.py", "checkers/hybrid.py",
+                   "checkers/tpu_simulation.py", "visitor.py"):
+        assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
