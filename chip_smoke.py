@@ -99,11 +99,32 @@ it exits non-zero and prints no result. Phases, each ending in
    winner; the last is followed by the engine alone, and both walls are
    printed. When the device wins, both kernels must have launched.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18 and 20) prints its
-``sec=``, states/s, waves, peak device memory above its start, the
-engine's ``metrics`` (with the dense chunk count of a dense run and the
-canonical hits: candidates whose canonical form differed) and the
-launch count of each kernel in that run.
+21. the hash insert kernel (``hash_insert``, ``csrc/hashset.cu``)
+   against its plain version on the card, at 2pc rm=9's widest wave
+   (16,395,948 keys with in-batch duplicates drawn from a pool) into an
+   empty 2^25-slot table and into a half-full one: ``is_new`` bit-equal,
+   every ``table[slot[i]] == key[i]``, the occupied keys set-equal, two
+   kernel runs equal; and a table too small for its batch, where both
+   report overflow. Then its time (each launch from the same table, L2
+   cold), its byte bound (8-byte probes, and 32-byte sectors beside it)
+   and the plain version's time; no PyTorch call inserts into a hash
+   table, so it has no library time;
+22. the hash wave engine (``spawn_hash``): ``hash 2pc rm=5`` and ``hash
+   paxos 2c/3s`` with paths on the card and on the CPU (every field
+   equal, paths replayed), the main path ``hash 2pc rm=9`` (paths on,
+   2^25 slots: 10,340,352 unique, its ``states=``, depth and names
+   equal to phase 4's sort-merge run, paths replayed), ``hash paxos
+   check 4`` (paths off, 2^23 slots: 2,372,188) and ``host bfs 2pc
+   rm=5`` (``spawn_bfs``, the hash engine's oracle: 8,832 and the same
+   names); then the insert kernel against its plain version and timed
+   at each hash path's widest wave (``metrics["insert_shape"]``).
+
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20 and 22) prints
+its ``sec=``, states/s, waves, peak device memory above its start, the
+engine's ``metrics`` (with the dense chunk count of a dense run, the
+canonical hits: candidates whose canonical form differed, and a hash
+run's table occupancy) and the launch count of each kernel in that
+run.
 
 It prints one JSON line of kernel records (``launches`` and the
 comparison at each path's shapes, ``at_path_shapes``, per path — the
@@ -128,6 +149,10 @@ import traceback
 HBM_BYTES_PER_SEC = 3.35e12
 SCALAR_OPS_PER_SEC = 67e12
 SOURCE = "stateright_tpu_torch/csrc/merge_path.cu"
+HASH_SOURCE = "stateright_tpu_torch/csrc/hashset.cu"
+#: the kernels each engine's main path must launch
+MERGE_KERNELS = ("member_sorted", "merge_sorted")
+HASH_KERNELS = ("hash_insert",)
 FAILED: list = []
 #: unique count and discovered names of the hand-encoded runs, which the
 #: compiled runs of the same spaces are held to
@@ -165,7 +190,7 @@ def card_line() -> str:
 
 @phase("build")
 def build():
-    from stateright_tpu_torch.ops import cuda_build, merge
+    from stateright_tpu_torch.ops import cuda_build, hashset, merge
 
     t0 = time.monotonic()
     # one nvcc per source, all started together
@@ -174,6 +199,7 @@ def build():
     for name, job in pending.items():
         cuda_build.finish_build(name, job)
     merge._lib()
+    hashset._lib()
     print(f"kernel build: {time.monotonic() - t0:.3f}s "
           f"(nvcc {cuda_build.BUILD_SECONDS})", flush=True)
 
@@ -444,9 +470,11 @@ def kernels():
     return rec, calls
 
 
-#: kernel-name part of each wrapper's kernel
-KERNEL_NAMES = {"member_sorted": "member_tile_kernel",
-                "merge_sorted": "merge_tile_kernel"}
+#: kernel-name parts of each wrapper's kernels
+KERNEL_NAMES = {"member_sorted": ("member_tile_kernel",),
+                "merge_sorted": ("merge_tile_kernel",),
+                "hash_insert": ("probe_kernel", "claim_kernel",
+                                "winner_kernel")}
 
 
 @phase("device ops a call")
@@ -456,7 +484,7 @@ def device_ops(calls) -> dict:
     (a second session in one process can come back empty, and a
     session can slow the kernels timed after it). The kernels are told
     apart by name; any other device operation (a memset, a copy) is
-    printed and counted against both calls."""
+    printed and counted against every call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -470,9 +498,11 @@ def device_ops(calls) -> dict:
            if ev.device_type == DeviceType.CUDA}
     print(f"  device ops of one call each: {ops}", flush=True)
     other = sum(n for key, n in ops.items()
-                if not any(k in key for k in KERNEL_NAMES.values()))
-    out = {name: other + sum(n for key, n in ops.items() if part in key)
-           for name, part in KERNEL_NAMES.items()}
+                if not any(k in key for parts in KERNEL_NAMES.values()
+                           for k in parts))
+    out = {name: other + sum(n for key, n in ops.items()
+                             if any(part in key for part in parts))
+           for name, parts in KERNEL_NAMES.items() if name in calls}
     assert all(n >= 1 for n in out.values()), out
     return out
 
@@ -525,6 +555,7 @@ def rm9():
     assert run["names"] == {"abort agreement", "commit agreement"}
     HAND["2pc rm=9"] = (run["unique"], run["names"])
     HAND["2pc rm=9 states"] = run["states"]
+    HAND["2pc rm=9 depth"] = run["depth"]
     for name, path in checker.discoveries().items():
         assert _replays(model, path, model.property_by_name(name)), name
     return run
@@ -542,17 +573,19 @@ def _mem_base() -> int:
 
 
 def _zero_launches():
-    from stateright_tpu_torch.ops import merge
+    from stateright_tpu_torch.ops import hashset, merge
 
     merge.member_cuda.launches = 0
     merge.merge_cuda.launches = 0
+    hashset.insert_cuda.launches = 0
 
 
 def _read_launches() -> dict:
-    from stateright_tpu_torch.ops import merge
+    from stateright_tpu_torch.ops import hashset, merge
 
     return {"member_sorted": merge.member_cuda.launches,
-            "merge_sorted": merge.merge_cuda.launches}
+            "merge_sorted": merge.merge_cuda.launches,
+            "hash_insert": hashset.insert_cuda.launches}
 
 
 @phase("paxos 2c")
@@ -584,12 +617,13 @@ def paxos2():
         assert path.encode() == cpu.discovery(name).encode(), name
 
 
-def run_main(checker, print_lines: int | None = None) -> dict:
+def run_main(checker, print_lines: int | None = None,
+             kernels=MERGE_KERNELS) -> dict:
     """Run ``checker`` once with the report a user sees, the launch
     counts zeroed just before and read just after; print the report
     (its first ``print_lines`` lines), ``sec=``, rates, waves, the peak
     device memory above the run's start, the engine's ``metrics`` and
-    the launches."""
+    the launches. Each of ``kernels`` must have launched."""
     import torch
 
     from stateright_tpu_torch import WriteReporter
@@ -611,11 +645,12 @@ def run_main(checker, print_lines: int | None = None) -> dict:
           f"launches={launches} "
           f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
           flush=True)
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in kernels), launches
     return dict(launches=launches, metrics=checker.metrics, unique=unique,
                 sec=sec, names=checker.discovered_property_names(),
                 states=checker.state_count(), depth=checker.max_depth(),
-                fps=checker.discovery_fingerprints())
+                fps=checker.discovery_fingerprints(),
+                capacity=checker.capacity)
 
 
 def paxos_main(clients: int, unique_want: int):
@@ -1249,7 +1284,7 @@ def hybrid_run(builder, **kw) -> dict:
           f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
           flush=True)
     if hy.winner == "device":
-        assert all(n > 0 for n in launches.values()), launches
+        assert all(launches[k] > 0 for k in MERGE_KERNELS), launches
     return dict(launches=launches, metrics=dev.metrics, sec=sec,
                 unique=hy.unique_state_count(), names=names,
                 winner=hy.winner)
@@ -1304,6 +1339,325 @@ def hybrid_paxos4():
     return run
 
 
+# -- the hash wave engine and its insert kernel ------------------------------
+
+#: 2pc rm=9's widest wave under the hash engine: the keys one insert
+#: takes (the engine's ``metrics["insert_shape"]``), into 2^25 slots
+HASH_KEYS = 16_395_948
+HASH_SLOTS = 1 << 25
+
+
+def _probe_reads(keys, slot, over, active, mask: int, rounds: int) -> int:
+    """Table reads the insert's probes take: the depth at which each
+    active row met its slot plus one (``rounds`` for a row that
+    overflowed)."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset
+
+    idx = hashset._slot_hash(keys, mask)
+    found = idx == slot
+    reads = torch.ones_like(idx)
+    for d in range(1, rounds):
+        idx = (idx + d) & mask
+        reads += ~found
+        found |= idx == slot
+    reads = torch.where(over, rounds, reads)
+    return int(reads.sum() if active is None else reads[active].sum())
+
+
+def _hash_bound(keys, slot, is_new, over, active, mask: int,
+                rounds: int) -> dict:
+    """The insert's bound from this call's data: each active row's key
+    read once (8 B) and ``active`` (1 B a row, when given), ``slot`` (8
+    B), ``is_new`` and ``overflow`` (1 B each) written once, one 8-byte
+    table read a probe and one 8-byte write a new key; the same with
+    each random access a 32-byte sector beside it."""
+    n = keys.numel()
+    live = n if active is None else int(active.sum())
+    reads = _probe_reads(keys, slot, over, active, mask, rounds)
+    inserts = int(is_new.sum())
+    ops = 8 * live + 4 * reads
+    rows = 8 * live + 10 * n + (0 if active is None else n)
+    b8 = _bound_ms(rows + 8 * (reads + inserts), ops)
+    b32 = _bound_ms(rows + 32 * (reads + inserts), ops)
+    return dict(bound_ms=b8[0], bound_by=b8[1], bound_ms_32b_sectors=b32[0],
+                probe_reads=reads, inserts=inserts)
+
+
+def _time_reset_ms(fn, reset, reps=10) -> float:
+    """Mean device time of ``fn`` with ``reset()`` before each launch,
+    outside the timed events: it restores the table the call starts
+    from, and its write (a whole table, past L2's 50 MB) leaves L2 cold."""
+    import torch
+
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    reset()
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    for start, end in pairs:
+        reset()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def _hash_case(label, pre, keys, rounds, fits=True, active=None) -> dict:
+    """The kernel and the plain version, each from a copy of the table
+    ``pre`` (packed keys), on ``keys`` where ``active`` (every row when
+    None); held to each other, and timed when ``fits``. Returns the
+    comparison (and the times)."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset
+
+    def run(insert):
+        table = hashset.DeviceHashSet(pre.clone())
+        return (table, *insert(table, keys, active, rounds))
+
+    tk, new_k, over_k, slot_k = run(hashset.insert_cuda)
+    tp, new_p, over_p, slot_p = run(hashset.insert_plain)
+    _, new_k2, _, _ = run(hashset.insert_cuda)
+    torch.cuda.synchronize()
+    ok = ~over_k if active is None else ~over_k & active
+    slot_err = int((tk.keys[slot_k[ok]] != keys[ok]).sum())
+    if active is not None:  # inactive rows: slot 0, never new or overflowed
+        slot_err += int((slot_k[~active] != 0).sum()
+                        + (new_k | over_k)[~active].sum())
+    out = dict(label=label, keys=keys.numel(), slots=pre.numel(),
+               occupied_before=int((pre != hashset.EMPTY).sum()),
+               new=int(new_k.sum()), overflow=int(over_k.sum()),
+               plain_overflow=int(over_p.sum()), slot_err=slot_err)
+    print(f"  {label}: {out}", flush=True)
+    assert slot_err == 0, out
+    if not fits:  # placements differ where keys overflow; both report it
+        assert out["overflow"] and out["plain_overflow"], out
+        return out
+    assert not out["overflow"] and not out["plain_overflow"], out
+    out["max_abs_err"] = max(_err(new_k, new_p), _err(new_k, new_k2))
+    assert out["max_abs_err"] == 0, "is_new differs"
+    assert torch.equal(torch.sort(tk.keys).values,
+                       torch.sort(tp.keys).values), "tables differ as sets"
+    table = hashset.DeviceHashSet(pre.clone())
+    reset = lambda: table.keys.copy_(pre)  # noqa: E731
+    out["ms"] = _time_reset_ms(
+        lambda: hashset.insert_cuda(table, keys, active, rounds), reset)
+    out["plain_ms"] = _time_reset_ms(
+        lambda: hashset.insert_plain(table, keys, active, rounds), reset, 3)
+    out.update(_hash_bound(keys, slot_k, new_k, over_k, active,
+                           pre.numel() - 1, rounds))
+    out["library_ms"] = None  # no PyTorch call inserts into a hash table
+    out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
+    print(f"  {label}: kernel {out['ms']:.4f} ms ({out['pct_of_bound']:.1f}%"
+          f" of bound), plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}; 32-byte sectors "
+          f"{out['bound_ms_32b_sectors']:.4f} ms), {out['probe_reads']} "
+          f"probe reads", flush=True)
+    return out
+
+
+def _distinct_keys(n, gen, device):
+    """n distinct random packed keys (64-bit draws, never the empty
+    slot; a repeat is dropped and redrawn)."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset
+    from stateright_tpu_torch.ops.fingerprint import pack_keys
+
+    out = torch.zeros(0, dtype=torch.int64, device=device)
+    while out.numel() < n:
+        m = n - out.numel()
+        lo = torch.randint(0, 1 << 32, (m,), generator=gen, device=device)
+        hi = torch.randint(0, 1 << 32, (m,), generator=gen, device=device)
+        out = torch.unique(torch.cat([out, pack_keys(lo, hi)]))
+        out = out[out != hashset.EMPTY]
+    perm = torch.randperm(out.numel(), generator=gen, device=device)
+    return out[perm[:n]]
+
+
+def _draw(pool, n, gen):
+    import torch
+
+    idx = torch.randint(0, pool.numel(), (n,), generator=gen,
+                        device=pool.device)
+    return pool[idx]
+
+
+def _filled(keys, slots: int):
+    """A table of ``slots`` holding ``keys`` (placed by the kernel)."""
+    from stateright_tpu_torch.ops import hashset
+
+    table = hashset.DeviceHashSet.empty(slots, keys.device)
+    _, over, _ = hashset.insert_cuda(table, keys, None, 32)
+    assert not bool(over.any()), "prefill overflowed"
+    return table.keys
+
+
+@phase("hash insert kernel")
+def hash_kernel():
+    """The insert kernel against its plain version at 2pc rm=9's widest
+    wave: keys with in-batch duplicates (drawn from a pool of a quarter
+    as many keys) into an empty table, and a batch drawn from the
+    table's own keys and 2^20 fresh ones into a half-full table (a tenth
+    of its rows inactive); then a table too small for its batch, and an
+    empty batch (no launch)."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    empty = torch.full((HASH_SLOTS,), hashset.EMPTY, dtype=torch.int64,
+                       device=dev)
+    pool = _distinct_keys(HASH_KEYS // 4, gen, dev)
+    keys = _draw(pool, HASH_KEYS, gen)
+    keys[:5] = torch.iinfo(torch.int64).max  # the all-ones fingerprint
+    cases = {"empty table": _hash_case("empty table", empty, keys, 16)}
+    half = _distinct_keys(HASH_SLOTS // 2 + HASH_SLOTS // 32, gen, dev)
+    pre = _filled(half[:HASH_SLOTS // 2], HASH_SLOTS)
+    active = torch.rand(HASH_KEYS, generator=gen, device=dev) < 0.9
+    cases["half-full table"] = _hash_case(
+        "half-full table", pre, _draw(half, HASH_KEYS, gen), 32,
+        active=active)
+    small = torch.full((256,), hashset.EMPTY, dtype=torch.int64, device=dev)
+    _hash_case("overflow", small, _draw(_distinct_keys(1000, gen, dev), 400,
+                                        gen), 2, fits=False)
+    launched = hashset.insert_cuda.launches
+    none = hashset.insert_cuda(hashset.DeviceHashSet(small.clone()),
+                               keys[:0])
+    assert all(t.numel() == 0 for t in none), "an empty batch returned rows"
+    assert hashset.insert_cuda.launches == launched, "an empty batch launched"
+    rec = dict(cases["empty table"],
+               max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+               half_full=cases["half-full table"])
+    table = hashset.DeviceHashSet(empty.clone())
+    call = lambda: hashset.insert_cuda(table, keys, None, 16)  # noqa: E731
+    call()  # its side arrays exist before the profiled call
+    return rec, call
+
+
+def hash_at(label: str, run: dict):
+    """The phase ``hash insert at <label> shapes``: the kernel against its
+    plain version, and timed, at the widest wave of the hash run
+    ``label``: ``occupied`` keys in the table, a batch of ``keys`` of
+    which ``new`` are fresh and the rest draws from the table and the
+    fresh ones."""
+    return phase(f"hash insert at {label} shapes")(_hash_at)(label, run)
+
+
+def _hash_at(label, run):
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    occ, n, new = run["metrics"]["insert_shape"]
+    keys = _distinct_keys(occ + new, gen, dev)
+    pre = _filled(keys[new:], run["capacity"])
+    batch = torch.cat([keys[:new], _draw(keys, n - new, gen)])
+    batch = batch[torch.randperm(n, generator=gen, device=dev)]
+    return _hash_case(label, pre, batch, 16)
+
+
+def _hash(model, device="cuda", **kw):
+    return model.checker().spawn_hash(device=device, **kw)
+
+
+def hash_card_vs_cpu(model, want: int, **kw) -> dict:
+    """A hash run with paths on the card (``run_main``) and on the CPU:
+    the same counts, depth, discovery fingerprints and paths, each path
+    replayed through the host model."""
+    checker = _hash(model, **kw)
+    run = run_main(checker, print_lines=3, kernels=HASH_KERNELS)
+    t0 = time.monotonic()
+    cpu = _hash(model, "cpu", **kw).join()
+    print(f"  cpu: states={cpu.state_count()} "
+          f"unique={cpu.unique_state_count()} depth={cpu.max_depth()} "
+          f"in {time.monotonic() - t0:.3f}s", flush=True)
+    assert run["unique"] == cpu.unique_state_count() == want, run["unique"]
+    assert (run["states"], run["depth"]) == (cpu.state_count(),
+                                             cpu.max_depth())
+    assert run["names"] == cpu.discovered_property_names(), run["names"]
+    assert run["fps"] == cpu.discovery_fingerprints(), run["fps"]
+    assert run["names"], "no discovery to hold the paths to"
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+    return run
+
+
+@phase("hash 2pc rm=5, card vs CPU")
+def hash_rm5():
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    run = hash_card_vs_cpu(TwoPhaseSys(rm_count=5), 8832, capacity=1 << 15)
+    HAND["hash 2pc rm=5"] = run["names"]
+    return run
+
+
+@phase("hash paxos 2c/3s, card vs CPU")
+def hash_paxos2():
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+
+    model = paxos_model(PaxosModelCfg(client_count=2, server_count=3))
+    return hash_card_vs_cpu(model, 16668, capacity=1 << 16)
+
+
+@phase("hash 2pc rm=9 (main path)")
+def hash_rm9():
+    """The library entry point ``spawn_hash`` at 2pc rm=9, paths on,
+    2^25 slots: held to the sort-merge run of this call."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = _hash(model, capacity=HASH_SLOTS)
+    run = run_main(checker, print_lines=1, kernels=HASH_KERNELS)
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert "2pc rm=9" in HAND, "the sort-merge 2pc rm=9 phase did not pass"
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert (run["states"], run["depth"]) == (
+        HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"]), run
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    return run
+
+
+@phase("hash paxos check 4")
+def hash_paxos4():
+    """``paxos check 4`` through ``spawn_hash``, paths off, 2^23 slots:
+    the dense Paxos step, host-bound."""
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+
+    model = paxos_model(PaxosModelCfg(client_count=4, server_count=3))
+    run = run_main(_hash(model, capacity=1 << 23, track_paths=False),
+                   kernels=HASH_KERNELS)
+    assert run["unique"] == 2_372_188, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    return run
+
+
+@phase("host bfs 2pc rm=5")
+def host_bfs_rm5():
+    """The host BFS, the hash engine's oracle: 8,832 unique and the
+    names of the hash run of this call."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    t0 = time.monotonic()
+    c = TwoPhaseSys(rm_count=5).checker().spawn_bfs().join()
+    sec = time.monotonic() - t0
+    names = set(c.discoveries())
+    print(f"  states={c.state_count()} unique={c.unique_state_count()} "
+          f"depth={c.max_depth()} discovered={sorted(names)} "
+          f"sec={sec:.3f} states/s={c.state_count() / sec:.0f}", flush=True)
+    assert c.unique_state_count() == 8832, c.unique_state_count()
+    assert names == HAND.get("hash 2pc rm=5"), names
+
+
 def main() -> int:
     import torch
 
@@ -1322,6 +1676,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     build()
     rec, calls = (kernels() if not FAILED else None) or (None, None)
+    hash_rec, hash_call = (hash_kernel() if not FAILED else None) or (
+        None, None)
     rm5()
     runs = {"2pc rm=9": rm9()}
     paxos2()
@@ -1344,6 +1700,9 @@ def main() -> int:
     runs["2pc rm=9 --ample-set"] = rm9_ample()
     runs["2pc rm=9 --symmetry --ample-set"] = rm9_sym_ample()
     runs["register 8 --symmetry"] = register8_sym()
+    hashes = {"hash 2pc rm=5": hash_rm5(), "hash paxos 2c/3s": hash_paxos2(),
+              "hash 2pc rm=9": hash_rm9(), "hash paxos 4": hash_paxos4()}
+    host_bfs_rm5()
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -1358,11 +1717,15 @@ def main() -> int:
     # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])
           for path, run in runs.items()}
+    hash_at_paths = {path: run and hash_at(path, run)
+                     for path, run in hashes.items()}
     launches = {path: run and run["launches"]
-                for path, run in {**runs, **lanes, **sims,
-                                  **hybrids}.items()}
-    per_call = device_ops(calls) if calls else None
-    if (FAILED or rec is None or not all(at.values()) or per_call is None
+                for path, run in {**runs, **lanes, **sims, **hybrids,
+                                  **hashes}.items()}
+    per_call = (device_ops({**calls, "hash_insert": hash_call})
+                if calls and hash_call else None)
+    if (FAILED or rec is None or hash_rec is None or not all(at.values())
+            or not all(hash_at_paths.values()) or per_call is None
             or not all(launches.values())):
         print(f"chip_smoke: failed phases: {FAILED}", file=sys.stderr)
         return 1
@@ -1382,6 +1745,21 @@ def main() -> int:
             "launches_per_call": per_call[name],
             "at_path_shapes": {path: a[name] for path, a in at.items()},
         })
+    records.append({
+        "name": "hash_insert", "route": "cuda", "source": HASH_SOURCE,
+        # not a Pallas kernel: the XLA while_loop of _insert_jax
+        "replaces": "stateright_tpu/ops/hashset.py:197",
+        "launches": {path: n["hash_insert"] for path, n in launches.items()},
+        "max_abs_err": max([hash_rec["max_abs_err"]]
+                           + [a["max_abs_err"]
+                              for a in hash_at_paths.values()]),
+        **{k: hash_rec[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "pct_of_bound", "bound_ms_32b_sectors", "keys", "slots",
+            "half_full")},
+        "launches_per_call": per_call["hash_insert"],
+        "at_path_shapes": hash_at_paths,
+    })
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

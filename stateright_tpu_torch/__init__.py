@@ -14,10 +14,12 @@ visited-set membership and merge as CUDA kernels
 the write-once register and the single-copy register; the actor
 framework, the linearizability tester and the actor→encoding compiler;
 device symmetry reduction and the static ample-set filter
-(``ops/canonical.py``, gated by ``soundness.py``); the host
-depth-first search (``spawn_dfs``), the device simulation
-(``spawn_device_simulation``) and the hybrid racer of the two
-(``spawn_hybrid``). ``python -m stateright_tpu_torch`` runs them
+(``ops/canonical.py``, gated by ``soundness.py``); the hash wave engine
+(``spawn_hash``, the JAX ``spawn_tpu``), its open-addressing insert a
+CUDA kernel (``csrc/hashset.cu``); the host checkers (``spawn_bfs``,
+``spawn_dfs``, ``spawn_on_demand``, ``spawn_simulation``), the device
+simulation (``spawn_device_simulation``) and the hybrid racer of the
+DFS and the sort-merge engine (``spawn_hybrid``). ``python -m stateright_tpu_torch`` runs them
 (``2pc``, ``paxos``, ``increment``, ``increment-lock``, ``register``,
 ``single-copy-register``, ``2pc-actors``, ``paxos-compiled``,
 ``linearizable-register``, each ``check-gpu N`` on the device or

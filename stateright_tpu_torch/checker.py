@@ -7,7 +7,8 @@ result interface (src/checker.rs:273-557): counts, discoveries as
 replayable :class:`~stateright_tpu_torch.path.Path` objects,
 reporting and the assertion helpers. The search runs synchronously on
 first demand (``join`` or any accessor); the hybrid racer runs its host
-side in a thread of its own (checkers/hybrid.py).
+side in a thread of its own (checkers/hybrid.py), and ``threads(n)``
+gives the host BFS n worker threads.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ class CheckerBuilder:
         self._symmetry: Optional[Callable[[State], State]] = None
         self._target_state_count: Optional[int] = None
         self._target_max_depth: Optional[int] = None
+        self._threads: int = 1
         self._unsound_ok: bool = False
         self._visitor: Optional[CheckerVisitor] = None
 
@@ -53,7 +55,13 @@ class CheckerBuilder:
         ``representative`` method (checker.rs:217-222). The wave engine
         canonicalizes through the encoding's ``device_rewrite_spec()``
         instead, and refuses an encoding that declares none."""
-        self._symmetry = lambda state: state.representative()
+        return self.symmetry_fn(lambda state: state.representative())
+
+    def symmetry_fn(self, f: Callable[[State], State]) -> "CheckerBuilder":
+        """Enable symmetry reduction with an explicit representative
+        function (checker.rs:225-232); the host DFS and simulation
+        honour it."""
+        self._symmetry = f
         return self
 
     def target_state_count(self, count: int) -> "CheckerBuilder":
@@ -69,17 +77,58 @@ class CheckerBuilder:
         self._target_max_depth = depth
         return self
 
+    def threads(self, n: int) -> "CheckerBuilder":
+        """Worker threads for the host BFS (checker.rs:253-258):
+        ``spawn_bfs`` runs n workers over the shared pending deque in
+        1,500-state blocks. Counts and the discovered property SET match
+        the sequential run; which state discovers a property can differ
+        from run to run. CPython's GIL serializes pure-Python model
+        callbacks, so this is parity, not speed."""
+        self._threads = n
+        return self
+
     def visitor(self, v) -> "CheckerBuilder":
         """Attach a visitor called with every evaluated state's path
-        (checker.rs:261-266); the host DFS calls it."""
+        (checker.rs:261-266); the host checkers call it."""
         self._visitor = as_visitor(v)
         return self
+
+    def spawn_bfs(self) -> "Checker":
+        """Spawn the host breadth-first search (checkers/bfs.py), the
+        wave engines' oracle."""
+        from .checkers.bfs import BfsChecker
+
+        return BfsChecker(self)
 
     def spawn_dfs(self) -> "Checker":
         """Spawn the host depth-first search (checkers/dfs.py)."""
         from .checkers.dfs import DfsChecker
 
         return DfsChecker(self)
+
+    def spawn_on_demand(self) -> "Checker":
+        """Spawn the on-demand checker: a BFS that expands a state only
+        when asked (checkers/on_demand.py)."""
+        from .checkers.on_demand import OnDemandChecker
+
+        return OnDemandChecker(self)
+
+    def spawn_simulation(self, seed: int = 0, chooser=None) -> "Checker":
+        """Spawn the host simulation: seeded random traces
+        (checkers/simulation.py)."""
+        from .checkers.simulation import SimulationChecker, UniformChooser
+
+        return SimulationChecker(self, chooser or UniformChooser(), seed)
+
+    def spawn_hash(self, **kwargs) -> "Checker":
+        """Spawn the hash wave engine on a device — the port of the JAX
+        package's ``spawn_tpu``: the visited set is an open-addressing
+        table, inserted into by the CUDA ``hash_insert`` kernel. It runs
+        on the CUDA device unless ``device="cpu"`` is passed (see
+        checkers/tpu.py)."""
+        from .checkers.tpu import TpuBfsChecker
+
+        return TpuBfsChecker(self, **kwargs)
 
     def spawn_device_simulation(self, **kwargs) -> "Checker":
         """Spawn the device simulation checker — the port of the JAX

@@ -1,14 +1,19 @@
-"""The reduction refusals every checker of the port raises.
+"""What the port's checkers share: the reduction refusals and the
+parent-trace walk.
 
-A copy of the refusal half of the JAX package's ``checkers/common.py``
+A copy of the JAX package's ``checkers/common.py``: the refusals
 (:func:`reduction_refusal`, :func:`symmetry_refusal`,
-:func:`soundness_refusal`), with its wording; the supported engines
-and modules named are the port's own.
+:func:`soundness_refusal`) with its wording, the supported engines and
+modules named being the port's own; and :class:`ParentTraceMixin`, the
+child→parent fingerprint forest walk of the host BFS and on-demand
+checkers (bfs.rs:28-29, 371-400), without its telemetry spans.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+from ..path import Path
 
 
 def reduction_refusal(reduction: str, engine: str,
@@ -29,8 +34,10 @@ def symmetry_refusal(engine: str,
     if missing:
         parts.append(f"missing capability: {missing}")
     parts.append(
-        "supported: the sort-merge engine (spawn_sortmerge) when the "
-        "encoding declares device_rewrite_spec() "
+        "supported: spawn_dfs / spawn_simulation on the host (as in "
+        "the reference: dfs.rs:300-311, simulation.rs:252-256), and "
+        "the sort-merge engine (spawn_sortmerge) when the encoding "
+        "declares device_rewrite_spec() "
         "(stateright_tpu_torch/ops/canonical.py)"
     )
     return reduction_refusal("symmetry", engine, parts)
@@ -50,3 +57,27 @@ def soundness_refusal(engine: str, reduction: str, obligation: str,
         "(stateright_tpu_torch/soundness.py)",
     ]
     return reduction_refusal(reduction, engine, parts)
+
+
+class ParentTraceMixin:
+    """Requires ``self.generated: dict[int, Optional[int]]``,
+    ``self.model`` and ``self._discoveries``."""
+
+    generated: dict[int, Optional[int]]
+
+    def _reconstruct_fps(self, fp: int) -> list[int]:
+        """Walk parent pointers back to an init state (bfs.rs:371-400)."""
+        fps = [fp]
+        while True:
+            parent = self.generated[fps[-1]]
+            if parent is None:
+                break
+            fps.append(parent)
+        fps.reverse()
+        return fps
+
+    def _discover(self, name: str, fp: int) -> None:
+        if name not in self._discoveries:
+            self._discoveries[name] = Path.from_fingerprints(
+                self.model, self._reconstruct_fps(fp)
+            )

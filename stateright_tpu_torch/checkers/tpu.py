@@ -1,14 +1,41 @@
-"""What the sort-merge wave engine inherits from the JAX package's
-``checkers/tpu.py``: the dense step's flag normalization, frontier
-property evaluation, per-wave discovery recording, the symmetry spec's
-resolution at spawn, and counterexample path reconstruction.
+"""The hash wave engine, and what every wave engine of the port shares.
 
-The frontier is an exact ``[W, n]`` lane-major block (the port sizes
-every wave to its live rows), so there is no row-validity mask here.
+The port of the JAX package's ``checkers/tpu.py``: the dense step's flag
+normalization and expansion, frontier property evaluation, per-wave
+discovery recording, counterexample path reconstruction, and
+:class:`TpuBfsChecker` — ``CheckerBuilder.spawn_hash()``, the JAX
+``spawn_tpu``: the reference's ``spawn_bfs`` as device waves over an
+open-addressing visited table (ops/hashset.py). The sort-merge engine
+(checkers/tpu_sortmerge.py) and the device simulation
+(checkers/tpu_simulation.py) subclass it and replace its ``_run``.
+
+One wave of the hash engine, on the ``[W, n]`` lane-major frontier:
+
+1. frontier fingerprints, property bits and discoveries
+   (:func:`frontier_props_t`, :func:`wave_hits`);
+2. the dense expansion (:func:`dense_candidates`): every valid,
+   in-boundary successor in (frontier row, ascending slot) order — the
+   order the JAX ``expand_frontier`` flattens into — with its source
+   row, in row chunks under a byte budget;
+3. the fold of the candidates and ONE insert into the table
+   (``ops.hashset.insert``, the CUDA ``hash_insert`` kernel on the
+   card): duplicates within the wave resolve inside it, the highest row
+   of a new key winning, so there is no sort;
+4. each winner's parent key written at its table slot (paths on), and
+   the winners, in row order, as the next frontier with their parents'
+   eventually-bits.
+
+The frontier is an exact ``[W, n]`` block (the port sizes every wave to
+its live rows), so there is no row-validity mask, and the port syncs
+every wave where the JAX engine syncs every ``waves_per_sync`` waves
+(its counts do not depend on that). What the JAX buffers guaranteed
+stays: crossing the table, frontier or candidate capacity RAISES, with
+the JAX engine's messages.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -16,6 +43,7 @@ import torch
 
 from ..checker import Checker, CheckerBuilder
 from ..model import Expectation
+from ..occupancy import occupancy_warning
 from ..ops.canonical import canonicalize_t
 from ..ops.fingerprint import (
     clamp_keys,
@@ -24,8 +52,19 @@ from ..ops.fingerprint import (
     key_to_fp,
     pack_keys,
 )
+from ..ops.hashset import EMPTY, DeviceHashSet, insert
 from ..path import Path
+from ..report import ReportData
 from .common import symmetry_refusal
+
+#: waves between two progress reports (the JAX engine's chunk length)
+REPORT_EVERY_WAVES = 64
+
+#: bytes of the ``[W, rows*K]`` int64 successor block one dense chunk
+#: may hold (its step's temporaries come on top): a dense step issues
+#: its torch ops once a chunk, whatever the chunk's rows, so fewer and
+#: larger chunks cost less host time
+DENSE_CHUNK_BYTES = 1 << 32
 
 
 def step_with_trunc(enc, states_t):
@@ -95,18 +134,72 @@ def discovery_update(props, hits, los, his, found: dict) -> None:
             found[p.name] = (packed[2][i] << 32) | packed[1][i]
 
 
+def dense_candidates(enc, frontier_t, trivial_boundary: bool,
+                     chunk_rows: int):
+    """The dense expansion of a non-empty ``[W, n]`` frontier,
+    ``chunk_rows`` rows at a time: ``(succ_t [W, P], rows int64[P],
+    has_succ bool[n], trunc, chunks)`` — the valid, in-boundary
+    successors in (row, ascending slot) order with their source rows,
+    which rows have one, the encoding-bound flag (a ``bool`` tensor: any
+    row's ``trunc``, whatever the boundary says, as in the JAX
+    ``expand_frontier``) and the number of chunks stepped. Each chunk is
+    compacted before the next is stepped, so only one ``[W,
+    chunk_rows*K]`` block lives at a time."""
+    n = frontier_t.shape[1]
+    dev = frontier_t.device
+    succs, rows, has, truncs = [], [], [], []
+    for r0 in range(0, n, chunk_rows):
+        block = frontier_t[:, r0:r0 + chunk_rows]
+        m = block.shape[1]
+        succ, valid, trunc = step_with_trunc(enc, block)
+        row, slot = valid.nonzero(as_tuple=True)  # (row, slot) order
+        cols = succ[:, row, slot]
+        del succ, valid
+        if not trivial_boundary:
+            inb = enc.within_boundary_cols(cols)
+            row, cols = row[inb], cols[:, inb]
+        h = torch.zeros(m, dtype=torch.bool, device=dev)
+        h[row] = True
+        succs.append(cols)
+        rows.append(row + r0)
+        has.append(h)
+        truncs.append(trunc.any())
+    if len(succs) == 1:
+        return succs[0], rows[0], has[0], truncs[0], 1
+    return (torch.cat(succs, dim=1), torch.cat(rows), torch.cat(has),
+            torch.stack(truncs).any(), len(succs))
+
+
 class TpuBfsChecker(Checker):
-    """The result surface the JAX ``TpuBfsChecker`` gives the sort-merge
-    engine: encoding resolution, discovery accessors, and path
-    reconstruction from the device parent log."""
+    """``CheckerBuilder.spawn_hash()`` — the hash wave engine (the JAX
+    ``spawn_tpu``), and the result surface every wave engine of the
+    port inherits: encoding resolution, discovery accessors, and path
+    reconstruction from the device parent log.
+
+    ``capacity`` is the visited table's slot count (a power of two);
+    ``frontier_capacity`` (default ``capacity``) bounds the states one
+    wave may add and ``cand_capacity`` (default: no bound) the valid
+    successors one wave may generate; ``probe_rounds`` is the probe
+    depth past which a key overflows the table. Crossing any of them
+    raises. ``device`` defaults to the CUDA device; pass ``"cpu"`` for
+    the plain-PyTorch path. The JAX ``waves_per_sync`` is not taken:
+    the port syncs every wave, and the JAX counts do not depend on it.
+    The expansion is dense (``step_cols``), as the JAX engine's is, and
+    the engine honours neither symmetry nor a visitor.
+    """
 
     #: the name refusals give the spawn
-    _engine_name = "spawn_sortmerge"
+    _engine_name = "spawn_hash"
+    #: whether visited keys are clamped off the all-ones sentinel (the
+    #: sort-merge engine's sorted arrays pad with it; the table does not)
+    _clamps_keys = False
 
     def __init__(self, builder: CheckerBuilder, encoded=None,
                  capacity: int = 1 << 16,
                  frontier_capacity: Optional[int] = None,
-                 track_paths: bool = True, device=None):
+                 track_paths: bool = True, device=None, *,
+                 cand_capacity: Optional[int] = None,
+                 probe_rounds: int = 16):
         super().__init__(builder)
         if encoded is None:
             to_encoded = getattr(builder.model, "to_encoded", None)
@@ -125,12 +218,20 @@ class TpuBfsChecker(Checker):
         self.sym_spec = None
         if builder._symmetry is not None:
             self.sym_spec = self._resolve_symmetry()
+        if probe_rounds < 1:
+            raise ValueError(f"probe_rounds must be >= 1: {probe_rounds}")
+        if cand_capacity is not None and cand_capacity < 1:
+            raise ValueError(f"cand_capacity must be >= 1: {cand_capacity}")
         self.capacity = capacity
         self.frontier_capacity = frontier_capacity or capacity
+        self.cand_capacity = cand_capacity
+        self.probe_rounds = probe_rounds
         self.track_paths = track_paths
         #: the device every wave runs on: the CUDA device unless the
         #: caller asks for the CPU.
         self.device = torch.device(device if device is not None else "cuda")
+        #: per-run wave metrics, set as the run goes
+        self.metrics: dict = {}
         #: property name -> fingerprint of the discovery state.
         self._discovered_fps: dict[str, int] = {}
         #: the parent log, (child keys, parent keys) as packed int64
@@ -138,25 +239,10 @@ class TpuBfsChecker(Checker):
         self._plog = None
 
     def _resolve_symmetry(self):
-        """The encoding's ``DeviceRewriteSpec``, through the capability
-        refusal and then the gate (soundness.py)."""
-        from ..encoding import device_rewrite_spec
-        from ..soundness import gate_symmetry
-
-        enc = self.encoded
-        spec = device_rewrite_spec(enc)
-        if spec is None:
-            raise symmetry_refusal(
-                self._engine_name,
-                missing=(
-                    f"encoding {type(enc).__name__} declares no "
-                    "device_rewrite_spec() — the vectorized "
-                    "canonicalization needs the strided bit-field "
-                    "layout of the interchangeable limb group"
-                ),
-            )
-        gate_symmetry(enc, self._engine_name, self.unsound_ok)
-        return spec
+        """The hash engine keys its table on raw-state fingerprints with
+        no canonicalization pass (the JAX engine's
+        ``_supports_device_symmetry = False``)."""
+        raise symmetry_refusal(self._engine_name)
 
     def _check_device(self) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -165,14 +251,244 @@ class TpuBfsChecker(Checker):
                 "device='cpu' is passed"
             )
 
+    def _eventually_indices(self, props) -> list:
+        """Indices of the eventually properties; they ride bits of an
+        int64 lane capped at the JAX engines' 32."""
+        evt_idx = [i for i, p in enumerate(props)
+                   if p.expectation == Expectation.EVENTUALLY]
+        if evt_idx and max(evt_idx) >= 32:
+            raise ValueError(
+                "the wave engine supports eventually properties only at "
+                "property indices < 32; reorder properties() so eventually "
+                f"properties come first (got index {max(evt_idx)})"
+            )
+        return evt_idx
+
+    def _init_rows(self) -> np.ndarray:
+        """The init states ``[n0, W]``, deduplicated on the host in
+        ``init_vecs`` order (they are few)."""
+        W = self.encoded.width
+        init = np.asarray(self.encoded.init_vecs(),
+                          dtype=np.uint32).reshape(-1, W)
+        seen, rows = set(), []
+        for row in init:
+            fp = self._vec_fp(row)
+            if fp not in seen:
+                seen.add(fp)
+                rows.append(row)
+        if len(rows) > self.frontier_capacity:
+            raise ValueError(
+                f"frontier capacity {self.frontier_capacity} < "
+                f"{len(rows)} init states"
+            )
+        return np.stack(rows) if rows else np.zeros((0, W), np.uint32)
+
+    def _overflow_message(self, kind: str) -> str:
+        """The JAX engines' overflow messages (``visited``, ``frontier``,
+        ``candidates``, ``encoding``), with the discoveries made before
+        the raise — they stay readable on the checker."""
+        msg = {
+            "visited": (
+                f"visited table overflow (capacity={self.capacity}); "
+                "re-run with a larger capacity"
+            ),
+            "frontier": (
+                f"frontier overflow: a wave produced more than "
+                f"{self.frontier_capacity} new states; re-run with a "
+                "larger frontier_capacity"
+            ),
+            "candidates": (
+                f"candidate-buffer overflow: a wave generated more than "
+                f"{self.cand_capacity} valid successors; re-run with a "
+                "larger cand_capacity (or None to disable compaction)"
+            ),
+            "encoding": (
+                "encoding-bound overflow: a successor was pruned by "
+                "an internal encoding bound (e.g. a compiled envelope "
+                "count reached 128, a declared FIFO queue bound, or "
+                "an un-harvested history transition) — the state "
+                "space would be silently truncated. Bound the model "
+                "(boundary/closure bounds) or use an encoding with "
+                "wider fields."
+            ),
+        }[kind]
+        if self._discovered_fps:
+            msg += (
+                "  Discoveries recorded before truncation (valid "
+                f"counterexamples): {sorted(self._discovered_fps)} — "
+                "read them via discovered_property_names() / "
+                "discovery_fingerprints() after catching this error."
+            )
+        return msg
+
+    # -- the hash wave loop -------------------------------------------------
+
+    def _visited_bytes_per_row(self) -> int:
+        """Device bytes per table slot: the key, the parent key when
+        paths are tracked, and the CUDA insert's two side arrays."""
+        return (8 + (8 if self.track_paths else 0)
+                + (12 if self.device.type == "cuda" else 0))
+
+    def _maybe_warn_occupancy(self, occupancy: float) -> bool:
+        """Open addressing degrades before it overflows; warn early, with
+        the JAX engine's text (occupancy.py). True when it warned."""
+        msg = occupancy_warning(occupancy, self._unique_states,
+                                self.capacity, self._visited_bytes_per_row())
+        if msg is not None:
+            # 5 = the caller of join() or of the accessor that ran it
+            warnings.warn(msg, RuntimeWarning, stacklevel=5)
+        return msg is not None
+
+    def _run(self, reporter=None) -> None:
+        self._check_device()
+        if self.builder._visitor is not None:
+            raise ValueError(
+                "visitors require a host checker (spawn_bfs/spawn_dfs); "
+                "the wave engine keeps full states on the device only"
+            )
+        if not hasattr(self.encoded, "step_cols"):
+            raise ValueError(
+                "the hash engine needs step_cols, which "
+                f"{type(self.encoded).__name__} does not have"
+            )
+        enc = self.encoded
+        props = list(self.model.properties())
+        evt_idx = self._eventually_indices(props)
+        dev = self.device
+        init = self._init_rows()
+        n0 = init.shape[0]
+        front = torch.from_numpy(init.astype(np.int64).T.copy()).to(dev)
+        table = DeviceHashSet.empty(self.capacity, dev)
+        # parent key of each slot's state; EMPTY (the packed (0, 0)) marks
+        # a root, as the JAX engine's parent 0 does
+        parents = torch.full((self.capacity if self.track_paths else 0,),
+                             EMPTY, dtype=torch.int64, device=dev)
+        _, _, over, _ = insert(table, pack_keys(*fingerprint_u32v_t(front)),
+                               None, self.probe_rounds)
+        unique = generated = n0
+        depth = 1
+        self._unique_states, self._total_states = unique, generated
+        self._max_depth = depth
+        if bool(over.any()):
+            raise RuntimeError(self._overflow_message("visited"))
+        ebits = torch.full((n0,), self._eventually_bits_init(),
+                           dtype=torch.int64, device=dev)
+        chunk_rows = max(1, DENSE_CHUNK_BYTES
+                         // (8 * enc.width * enc.max_actions))
+        trivial = enc.trivial_boundary
+        target_states = self.builder._target_state_count
+        target_depth = self.builder._target_max_depth
+        waves = max_cand = 0
+        insert_shape = (0, 0, 0)
+        warned = False
+        done = n0 == 0
+        while not done:
+            cond, eb, f_lo, f_hi = frontier_props_t(enc, props, evt_idx,
+                                                    front, ebits)
+            if target_depth is not None and depth >= target_depth:
+                # the wave at the target depth evaluates its frontier and
+                # expands nothing; its rows are not terminal
+                succ_t, trunc = front[:, :0], None
+                rows = torch.zeros(0, dtype=torch.int64, device=dev)
+                has_succ = torch.ones_like(eb, dtype=torch.bool)
+            else:
+                succ_t, rows, has_succ, trunc, _ = dense_candidates(
+                    enc, front, trivial, chunk_rows)
+            if props:
+                disc = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
+                                 f_lo, f_hi)
+                discovery_update(props, *disc, self._discovered_fps)
+            n_cand = rows.numel()
+            cand_over = (self.cand_capacity is not None
+                         and n_cand > self.cand_capacity)
+            if cand_over:  # the JAX buffer keeps the first cand_capacity
+                succ_t = succ_t[:, :self.cand_capacity]
+                rows = rows[:self.cand_capacity]
+            keys = pack_keys(*fingerprint_u32v_t(succ_t))
+            _, is_new, over, slot = insert(table, keys, None,
+                                           self.probe_rounds)
+            # one transfer: table overflow, winner count, truncation
+            flags = [over.any(), is_new.sum()]
+            if trunc is not None:
+                flags.append(trunc)
+            flags = torch.stack([f.to(torch.int64) for f in flags]).tolist()
+            new_count = flags[1]
+            # the JAX engine's order of verdicts
+            if flags[0]:
+                raise RuntimeError(self._overflow_message("visited"))
+            if new_count > self.frontier_capacity:
+                raise RuntimeError(self._overflow_message("frontier"))
+            if cand_over:
+                raise RuntimeError(self._overflow_message("candidates"))
+            if len(flags) > 2 and flags[2]:
+                raise RuntimeError(self._overflow_message("encoding"))
+
+            new_idx = is_new.nonzero().squeeze(1)  # winners in row order
+            par_row = rows[new_idx]
+            if self.track_paths and new_count:
+                parents[slot[new_idx]] = pack_keys(f_lo, f_hi)[par_row]
+            front = succ_t[:, new_idx]
+            ebits = eb[par_row]
+            generated += n_cand
+            unique += new_count
+            waves += 1
+            if n_cand > max_cand:
+                max_cand = n_cand
+                insert_shape = (unique - new_count, n_cand, new_count)
+
+            all_disc = bool(props) and len(self._discovered_fps) == len(props)
+            target_hit = target_states is not None and unique >= target_states
+            done = new_count == 0 or all_disc or target_hit
+            if not done:
+                depth += 1
+            self._unique_states = unique
+            self._total_states = generated
+            self._max_depth = depth
+            if not done and not warned:  # once a run, where JAX warns a sync
+                warned = self._maybe_warn_occupancy(unique / self.capacity)
+            if (reporter is not None and not done
+                    and waves % REPORT_EVERY_WAVES == 0):
+                reporter.report_checking(ReportData(
+                    total_states=generated, unique_states=unique,
+                    max_depth=depth, duration_sec=self.duration_sec(),
+                    done=False,
+                ))
+        # the widest wave's insert: (occupied slots, keys, new keys)
+        self.metrics = dict(
+            waves=waves, frontier_size=front.shape[1],
+            occupancy=unique / self.capacity,
+            dedup_ratio=1.0 - unique / generated if generated else 0.0,
+            max_wave_candidates=max_cand, insert_shape=insert_shape,
+        )
+        if self.track_paths:
+            # the log stays on the device: each path step is one
+            # device-side lookup
+            logged = table.occupied() & (parents != EMPTY)
+            self._plog = (table.keys[logged], parents[logged])
+            for name, fp in self._discovered_fps.items():
+                self._discoveries[name] = self._reconstruct(fp)
+
     # -- results ----------------------------------------------------------
 
+    def _replayable_discoveries(self) -> None:
+        """Run (or replay) the search. Discoveries made before a run
+        raised stay readable: the error is suppressed on a REPLAY that
+        has them, while a first call still raises, so a caller that
+        skipped ``join()`` cannot take a truncated search for a clean
+        one (the JAX engine's rule)."""
+        already_failed = self._done and self._run_error is not None
+        try:
+            self._ensure_run()
+        except RuntimeError:
+            if not (already_failed and self._discovered_fps):
+                raise
+
     def discovered_property_names(self) -> set:
-        self._ensure_run()
+        self._replayable_discoveries()
         return set(self._discovered_fps)
 
     def discovery_fingerprints(self) -> dict[str, int]:
-        self._ensure_run()
+        self._replayable_discoveries()
         return dict(self._discovered_fps)
 
     def discoveries(self):
@@ -202,15 +518,18 @@ class TpuBfsChecker(Checker):
     # -- reconstruction ----------------------------------------------------
 
     def _vec_fps(self, rows) -> list:
-        """Host fingerprints of encoded rows ``[N, W]``, with the device
-        keys' all-ones clamp (the parent log stores clamped child
-        keys). Under symmetry the rows canonicalize first, with the
-        device's own math, so replay meets the keys the device wrote."""
+        """Host fingerprints of encoded rows ``[N, W]``, as the engine's
+        keys hold them: clamped where the engine clamps (the parent log
+        stores its child keys). Under symmetry the rows canonicalize
+        first, with the device's own math, so replay meets the keys the
+        device wrote."""
         block = torch.from_numpy(np.asarray(rows, np.int64).reshape(
             -1, self.encoded.width).T.copy())
         if self.sym_spec is not None:
             block = canonicalize_t(self.sym_spec, block)
-        keys = clamp_keys(pack_keys(*fingerprint_u32v_t(block)))
+        keys = pack_keys(*fingerprint_u32v_t(block))
+        if self._clamps_keys:
+            keys = clamp_keys(keys)
         return [key_to_fp(k) for k in keys.tolist()]
 
     def _vec_fp(self, row) -> int:

@@ -47,9 +47,12 @@ from ..checker import CheckerBuilder
 from ..model import Expectation
 from ..ops.fingerprint import fingerprint_u32v_t
 from ..report import Reporter
-from .common import symmetry_refusal
-from .tpu import TpuBfsChecker, _props_and_ebits, step_with_trunc
-from .tpu_sortmerge import DENSE_CHUNK_BYTES
+from .tpu import (
+    DENSE_CHUNK_BYTES,
+    TpuBfsChecker,
+    _props_and_ebits,
+    step_with_trunc,
+)
 
 _M32 = 0xFFFFFFFF
 
@@ -148,19 +151,6 @@ class TpuSimulationChecker(TpuBfsChecker):
         self.max_steps = max_steps
         self.rounds = rounds
         self.seed = seed
-
-    def _resolve_symmetry(self):
-        """Walks fingerprint concrete states: no canonicalization pass
-        honours ``CheckerBuilder.symmetry()``."""
-        raise symmetry_refusal(self._engine_name)
-
-    def _vec_fps(self, rows) -> list:
-        """Host fingerprints of encoded rows ``[N, W]``: the raw fold,
-        as the walks' trace rings record it (no key clamp)."""
-        block = torch.from_numpy(np.asarray(rows, np.int64).reshape(
-            -1, self.encoded.width).T.copy())
-        lo, hi = fingerprint_u32v_t(block)
-        return [(h << 32) | lo_ for lo_, h in zip(lo.tolist(), hi.tolist())]
 
     # -- the walk ----------------------------------------------------------
 

@@ -77,7 +77,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..model import Expectation
 from ..ops.bitmask import mask_words, popcount_words, words_to_mask
 from ..ops.canonical import canonical_hits, canonicalize_t
 from ..ops.fingerprint import (
@@ -88,11 +87,14 @@ from ..ops.fingerprint import (
 )
 from ..ops.merge import compact_winners_keys, member_keys, merge_keys
 from ..report import ReportData
+from .common import symmetry_refusal
 from .tpu import (
+    DENSE_CHUNK_BYTES,
+    REPORT_EVERY_WAVES,
     TpuBfsChecker,
+    dense_candidates,
     discovery_update,
     frontier_props_t,
-    step_with_trunc,
     wave_hits,
 )
 
@@ -112,16 +114,6 @@ class WaveState:
     generated: int = 0
     #: parent-log blocks: (parent keys, child keys), int64 each
     plog: list = field(default_factory=list)
-
-
-#: waves between two progress reports (the JAX engine's chunk length)
-REPORT_EVERY_WAVES = 64
-
-#: bytes of the ``[W, rows*K]`` int64 successor block one dense chunk
-#: may hold (its step's temporaries come on top): a dense step issues
-#: its torch ops once a chunk, whatever the chunk's rows, so fewer and
-#: larger chunks cost less host time
-DENSE_CHUNK_BYTES = 1 << 32
 
 
 def frontier_enabled_bits(enc, frontier_t, ample_words=None):
@@ -189,42 +181,6 @@ def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool,
     return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov, hits
 
 
-def dense_candidates(enc, frontier_t, trivial_boundary: bool,
-                     chunk_rows: int):
-    """The dense expansion of a non-empty ``[W, n]`` frontier,
-    ``chunk_rows`` rows at a time: ``(succ_t [W, P], rows int64[P],
-    has_succ bool[n], trunc, chunks)`` — the valid, in-boundary
-    successors in (row, ascending slot) order with their source rows,
-    which rows have one, the encoding-bound flag (a ``bool`` tensor: any
-    row's ``trunc``, whatever the boundary says, as in the JAX
-    ``expand_frontier``) and the number of chunks stepped. Each chunk is
-    compacted before the next is stepped, so only one ``[W,
-    chunk_rows*K]`` block lives at a time."""
-    n = frontier_t.shape[1]
-    dev = frontier_t.device
-    succs, rows, has, truncs = [], [], [], []
-    for r0 in range(0, n, chunk_rows):
-        block = frontier_t[:, r0:r0 + chunk_rows]
-        m = block.shape[1]
-        succ, valid, trunc = step_with_trunc(enc, block)
-        row, slot = valid.nonzero(as_tuple=True)  # (row, slot) order
-        cols = succ[:, row, slot]
-        del succ, valid
-        if not trivial_boundary:
-            inb = enc.within_boundary_cols(cols)
-            row, cols = row[inb], cols[:, inb]
-        h = torch.zeros(m, dtype=torch.bool, device=dev)
-        h[row] = True
-        succs.append(cols)
-        rows.append(row + r0)
-        has.append(h)
-        truncs.append(trunc.any())
-    if len(succs) == 1:
-        return succs[0], rows[0], has[0], truncs[0], 1
-    return (torch.cat(succs, dim=1), torch.cat(rows), torch.cat(has),
-            torch.stack(truncs).any(), len(succs))
-
-
 class SortMergeTpuBfsChecker(TpuBfsChecker):
     """``CheckerBuilder.spawn_sortmerge()``.
 
@@ -246,6 +202,9 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     ``CheckerBuilder.unsound_ok()``).
     """
 
+    _engine_name = "spawn_sortmerge"
+    _clamps_keys = True
+
     def __init__(self, builder, encoded=None, capacity: int = 1 << 16,
                  frontier_capacity: Optional[int] = None,
                  track_paths: bool = True, device=None,
@@ -266,13 +225,33 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 f"needs {' and '.join(missing)}, which "
                 f"{type(self.encoded).__name__} does not have"
             )
-        self.metrics: dict = {}
         self._start: Optional[WaveState] = None
         #: optional ``threading.Event``: when set, the run returns at the
         #: top of its next wave with partial counts and ``cancelled``
         #: True (the hybrid racer's losing side; see checkers/hybrid.py)
         self.cancel_event = None
         self.cancelled = False
+
+    def _resolve_symmetry(self):
+        """The encoding's ``DeviceRewriteSpec``, through the capability
+        refusal and then the gate (soundness.py)."""
+        from ..encoding import device_rewrite_spec
+        from ..soundness import gate_symmetry
+
+        enc = self.encoded
+        spec = device_rewrite_spec(enc)
+        if spec is None:
+            raise symmetry_refusal(
+                self._engine_name,
+                missing=(
+                    f"encoding {type(enc).__name__} declares no "
+                    "device_rewrite_spec() — the vectorized "
+                    "canonicalization needs the strided bit-field "
+                    "layout of the interchangeable limb group"
+                ),
+            )
+        gate_symmetry(enc, self._engine_name, self.unsound_ok)
+        return spec
 
     def _use_sparse(self) -> bool:
         if self.sparse is not None:
@@ -321,25 +300,10 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     # -- the wave loop ------------------------------------------------------
 
     def seed_state(self) -> WaveState:
-        enc = self.encoded
-        W = enc.width
-        init = np.asarray(enc.init_vecs(), dtype=np.uint32).reshape(-1, W)
-        seen, rows = set(), []
-        for row in init:  # dedup the (few) init states host-side
-            fp = self._vec_fp(row)
-            if fp not in seen:
-                seen.add(fp)
-                rows.append(row)
-        n0 = len(rows)
-        if n0 > self.frontier_capacity:
-            raise ValueError(
-                f"frontier capacity {self.frontier_capacity} < {n0} init "
-                "states"
-            )
-        front = torch.from_numpy(
-            np.stack(rows).astype(np.int64).T.copy() if rows
-            else np.zeros((W, 0), np.int64)
-        ).to(self.device)
+        init = self._init_rows()
+        n0 = init.shape[0]
+        front = torch.from_numpy(init.astype(np.int64).T.copy()).to(
+            self.device)
         keys, _ = successor_keys(front, self.sym_spec)
         ebits = torch.full((n0,), self._eventually_bits_init(),
                            dtype=torch.int64, device=self.device)
@@ -353,14 +317,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         self._start = None
         enc = self.encoded
         props = list(self.model.properties())
-        evt_idx = [i for i, p in enumerate(props)
-                   if p.expectation == Expectation.EVENTUALLY]
-        if evt_idx and max(evt_idx) >= 32:
-            raise ValueError(
-                "the wave engine supports eventually properties only at "
-                "property indices < 32; reorder properties() so eventually "
-                f"properties come first (got index {max(evt_idx)})"
-            )
+        evt_idx = self._eventually_indices(props)
         K = enc.max_actions
         trivial = enc.trivial_boundary
         sym = self.sym_spec
@@ -509,31 +466,3 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         else:  # one transfer for the count and the flag
             n_cand, tripped = torch.stack([ok.sum(), eov.long()]).tolist()
         return succ_t, keys, rows, has_succ, n_cand, tripped, hits
-
-    def _overflow_message(self, kind: str) -> str:
-        if kind == "encoding":
-            msg = (
-                "encoding-bound overflow: a successor was pruned by "
-                "an internal encoding bound (e.g. a compiled envelope "
-                "count reached 128, a declared FIFO queue bound, or "
-                "an un-harvested history transition) — the state "
-                "space would be silently truncated. Bound the model "
-                "(boundary/closure bounds) or use an encoding with "
-                "wider fields."
-            )
-            if self._discovered_fps:
-                msg += (
-                    "  Discoveries recorded before truncation (valid "
-                    f"counterexamples): {sorted(self._discovered_fps)}"
-                )
-            return msg
-        if kind == "visited":
-            return (
-                f"visited table overflow (capacity={self.capacity}); "
-                "re-run with a larger capacity"
-            )
-        return (
-            f"frontier overflow: a wave produced more than "
-            f"{self.frontier_capacity} new states; re-run with a "
-            "larger frontier_capacity"
-        )

@@ -8,6 +8,8 @@
     python -m stateright_tpu_torch.stage_profile --symmetry 9
     python -m stateright_tpu_torch.stage_profile --simulation 9
     python -m stateright_tpu_torch.stage_profile --simulation paxos 4
+    python -m stateright_tpu_torch.stage_profile --hash 9
+    python -m stateright_tpu_torch.stage_profile --hash paxos 4
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
@@ -21,7 +23,10 @@ with ``--symmetry`` it also reports the canonicalizer's own cost (see
 simulation instead, at ``chip_smoke.py``'s configurations
 (:data:`SIM_CFG`: 2pc rm=9, 262,144 walks of 64 steps, 4 rounds, paths
 on; paxos 4, 16,384 walks of 32 steps, 1 round, paths off), and adds
-the device operations a walk step.
+the device operations a walk step. ``--hash`` profiles the hash wave
+engine (``spawn_hash``) at ``chip_smoke.py``'s configurations
+(:data:`HASH_CFG`: 2pc rm=9 in 2^25 slots, paths on; paxos 4 in 2^23
+slots, paths off) and adds the insert kernel's share.
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -30,8 +35,8 @@ in ``torch.cuda.synchronize()``, then repeats the run under
 every kernel, grouped into stages by kernel name. It prints one JSON
 object: the card's name and power limit, the untraced and traced walls,
 the device busy time and the idle share of the traced wall, the
-per-stage and top per-kernel device times, and the Merge Path kernels'
-share of the device time.
+per-stage and top per-kernel device times, and the shares of the Merge
+Path and hash insert kernels in the device time.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 
 #: kernel-name patterns -> stage, first match wins
 STAGES = (
+    ("hash insert kernels", r"probe_kernel|claim_kernel|winner_kernel"),
     ("member kernel", r"member_tile_kernel"),
     ("merge kernel", r"merge_tile_kernel"),
     ("sort", r"[Ss]ort|[Rr]adix"),
@@ -133,6 +139,24 @@ def _sim_checker(model: str, n: int, cfg: dict):
                                                 **cfg)
 
 
+#: the hash engine's runs of chip_smoke.py: model -> spawn_hash sizes
+HASH_CFG = {"2pc": dict(capacity=1 << 25),
+            "paxos": dict(capacity=1 << 23, track_paths=False)}
+
+
+def _hash_checker(model: str, n: int, cfg: dict):
+    """The hash engine on 2pc rm=``n`` or Paxos with ``n`` clients."""
+    if model == "paxos":
+        from .models.paxos import PaxosModelCfg, paxos_model
+
+        m = paxos_model(PaxosModelCfg(client_count=n, server_count=3))
+    else:
+        from .models.two_phase_commit import TwoPhaseSys
+
+        m = TwoPhaseSys(rm_count=n)
+    return m.checker().spawn_hash(device="cuda", **cfg)
+
+
 def _check(model: str, n: int, extra: list, sparse=None, flags=None,
            make=None):
     """One run, timed to the device's end (the encoding is built
@@ -194,6 +218,9 @@ def main(argv=None) -> int:
     sim = "--simulation" in argv
     if sim:
         argv.remove("--simulation")
+    hashed = "--hash" in argv
+    if hashed:
+        argv.remove("--hash")
     sparse = None
     if "--dense" in argv:
         argv.remove("--dense")
@@ -222,6 +249,11 @@ def main(argv=None) -> int:
         make = lambda: _sim_checker(model, n, cfg)  # noqa: E731
         warm = lambda: _sim_checker(  # noqa: E731
             model, min(n, WARM[model]), dict(cfg, n_walks=1024))
+    elif hashed:
+        cfg = HASH_CFG[model]
+        make = lambda: _hash_checker(model, n, cfg)  # noqa: E731
+        warm = lambda: _hash_checker(  # noqa: E731
+            model, min(n, WARM[model]), dict(cfg, capacity=1 << 16))
     _check(model, min(n, WARM[model]), extra, sparse, flags, warm)
     checker, wall = _check(model, n, extra, sparse, flags, make)
     from torch.autograd import DeviceType
@@ -247,6 +279,7 @@ def main(argv=None) -> int:
     busy_ms = sum(kernels.values())
     merge_path_ms = stages.get("member kernel", 0.0) + stages.get(
         "merge kernel", 0.0)
+    hash_ms = stages.get("hash insert kernels", 0.0)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     canon = (_canonicalizer_cost(
         lambda: _check(model, n, extra, sparse, flags)[0])
@@ -275,7 +308,8 @@ def main(argv=None) -> int:
         return 0
     print(json.dumps({
         "card": card,
-        "model": " ".join([model, str(n), *extra]
+        "model": " ".join((["hash"] if hashed else [])
+                          + [model, str(n), *extra]
                           + (["dense"] if sparse is False else [])
                           + [f"--{k.replace('_', '-')}" for k in on]),
         "n": n,
@@ -288,6 +322,8 @@ def main(argv=None) -> int:
         "idle_share_of_traced_wall": 1 - busy_ms / (traced_wall * 1e3),
         "merge_path_kernels_ms": merge_path_ms,
         "merge_path_share_of_device_time": merge_path_ms / busy_ms,
+        "hash_insert_kernels_ms": hash_ms,
+        "hash_insert_share_of_device_time": hash_ms / busy_ms,
         "metrics": traced.metrics,
         "stages_ms": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(top),

@@ -2,9 +2,10 @@
 (the 2pc and Paxos lanes, the three compiled lanes, and the increment,
 increment-lock, register and single-copy-register lanes, at their
 smallest size, the 2pc and register lanes with the reductions on, and
-the host DFS's ``2pc check 2``), a device simulation and a hybrid race
-on the CPU loads neither jax nor anything of the JAX package, and no
-source file of the port (nor chip_smoke.py) imports either."""
+the host DFS's ``2pc check 2``), a device simulation, a hybrid race, a
+hash engine run and a host BFS on the CPU loads neither jax nor anything
+of the JAX package, and no source file of the port (nor chip_smoke.py)
+imports either."""
 
 import ast
 import os
@@ -50,6 +51,13 @@ def test_import_and_cli_load_no_jax():
         "hy = TwoPhaseSys(2).checker().spawn_hybrid(device='cpu').join()\n"
         "print('HYBRID', hy.unique_state_count(),"
         " sorted(hy.discovered_property_names()))\n"
+        "h = TwoPhaseSys(3).checker().spawn_hash(capacity=1 << 10,"
+        " device='cpu').join()\n"
+        "print('HASH', h.unique_state_count(), h.state_count(),"
+        " sorted(h.discovered_property_names()))\n"
+        "b = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
+        "print('BFS', b.unique_state_count(), b.state_count(),"
+        " sorted(b.discoveries()))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
         " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
         " 'stateright_tpu.')))\n"
@@ -76,6 +84,10 @@ def test_import_and_cli_load_no_jax():
         "Done. states=" in out.stdout
     assert "SIM 1088 ['abort agreement', 'commit agreement']" in out.stdout
     assert "HYBRID 56 ['abort agreement', 'commit agreement']" in out.stdout
+    assert "HASH 288 1146 ['abort agreement', 'commit agreement']" \
+        in out.stdout
+    assert "BFS 288 1146 ['abort agreement', 'commit agreement']" \
+        in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
@@ -85,7 +97,10 @@ def test_no_jax_imports_in_port_sources():
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("checkers/dfs.py", "checkers/hybrid.py",
-                   "checkers/tpu_simulation.py", "visitor.py"):
+                   "checkers/tpu_simulation.py", "visitor.py",
+                   "checkers/bfs.py", "checkers/on_demand.py",
+                   "checkers/simulation.py", "fixtures.py",
+                   "occupancy.py", "ops/hashset.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
