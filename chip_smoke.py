@@ -99,16 +99,21 @@ it exits non-zero and prints no result. Phases, each ending in
    winner; the last is followed by the engine alone, and both walls are
    printed. When the device wins, both kernels must have launched.
 
-21. the hash insert kernel (``hash_insert``, ``csrc/hashset.cu``)
-   against its plain version on the card, at 2pc rm=9's widest wave
-   (16,395,948 keys with in-batch duplicates drawn from a pool) into an
-   empty 2^25-slot table and into a half-full one: ``is_new`` bit-equal,
-   every ``table[slot[i]] == key[i]``, the occupied keys set-equal, two
-   kernel runs equal; and a table too small for its batch, where both
-   report overflow. Then its time (each launch from the same table, L2
-   cold), its byte bound (8-byte probes, and 32-byte sectors beside it)
-   and the plain version's time; no PyTorch call inserts into a hash
-   table, so it has no library time;
+21. the hash insert kernel (``hash_insert``, ``csrc/hashset.cu``: two
+   launches over one ``{key, tag}`` entry array), its registers and
+   spills (``nvcc -Xptxas -v``), and its refusal of an untagged or
+   misaligned table; then against its plain version on the card, at 2pc
+   rm=9's widest wave (16,395,948 keys with in-batch duplicates drawn
+   from a pool) into an empty 2^25-slot table and into a half-full one:
+   ``is_new`` bit-equal, every ``table[slot[i]] == key[i]``, the
+   ``{key, tag}`` entries set-equal, two kernel runs equal; and a table
+   too small for its batch, where both report overflow. Every table is
+   made by ``DeviceHashSet.from_keys`` (its tags held to the tag rule).
+   Then its time (each launch from the same table, restored whole by
+   ``reset``, L2 cold) beside the earlier three-pass kernel's, its byte
+   bound (8-byte probes, and 32-byte sectors beside it) and the plain
+   version's time; no PyTorch call inserts into a hash table, so it has
+   no library time;
 22. the hash wave engine (``spawn_hash``): ``hash 2pc rm=5`` and ``hash
    paxos 2c/3s`` with paths on the card and on the CPU (every field
    equal, paths replayed), the main path ``hash 2pc rm=9`` (paths on,
@@ -150,6 +155,11 @@ HBM_BYTES_PER_SEC = 3.35e12
 SCALAR_OPS_PER_SEC = 67e12
 SOURCE = "stateright_tpu_torch/csrc/merge_path.cu"
 HASH_SOURCE = "stateright_tpu_torch/csrc/hashset.cu"
+#: the earlier three-pass insert kernel's time at each ``hash insert``
+#: shape, ms (PERF.md §6, H100 80GB HBM3 at 700 W), printed beside the
+#: time measured here
+HASH_THREE_PASS_MS = {"empty table": 3.698, "half-full table": 1.713,
+               "hash 2pc rm=9": 2.179, "hash paxos 4": 0.137}
 #: the kernels each engine's main path must launch
 MERGE_KERNELS = ("member_sorted", "merge_sorted")
 HASH_KERNELS = ("hash_insert",)
@@ -473,8 +483,7 @@ def kernels():
 #: kernel-name parts of each wrapper's kernels
 KERNEL_NAMES = {"member_sorted": ("member_tile_kernel",),
                 "merge_sorted": ("merge_tile_kernel",),
-                "hash_insert": ("probe_kernel", "claim_kernel",
-                                "winner_kernel")}
+                "hash_insert": ("probe_claim_kernel", "winner_kernel")}
 
 
 @phase("device ops a call")
@@ -482,18 +491,24 @@ def device_ops(calls) -> dict:
     """Device operations of one call of each wrapper, from ONE
     ``torch.profiler`` session taken after every timing of the script
     (a second session in one process can come back empty, and a
-    session can slow the kernels timed after it). The kernels are told
-    apart by name; any other device operation (a memset, a copy) is
-    printed and counted against every call."""
+    session can slow the kernels timed after it). Its first step runs
+    every call once unrecorded (the tracer's start can miss the first
+    kernel), its second records them. The kernels are told apart by
+    name; any other device operation (a memset, a copy) is printed and
+    counted against every call."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            fn()
-            torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for fn in calls.values():
+                fn()
+                torch.cuda.synchronize()
+            prof.step()
     ops = {ev.key: ev.count for ev in prof.key_averages()
            if ev.device_type == DeviceType.CUDA}
     print(f"  device ops of one call each: {ops}", flush=True)
@@ -504,6 +519,7 @@ def device_ops(calls) -> dict:
                              if any(part in key for part in parts))
            for name, parts in KERNEL_NAMES.items() if name in calls}
     assert all(n >= 1 for n in out.values()), out
+    print(f"  device ops a call: {out}", flush=True)
     return out
 
 
@@ -1406,6 +1422,21 @@ def _time_reset_ms(fn, reset, reps=10) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def _sorted_entries(table):
+    """A tagged table's ``{key, tag}`` entries in lexicographic order."""
+    import torch
+
+    e = table.entries
+    order = torch.argsort(e[:, 1], stable=True)
+    return e[order[torch.argsort(e[order, 0], stable=True)]]
+
+
+def _tag_rule_holds(table) -> bool:
+    """Every full slot's tag 1 (epoch 0) and every empty slot's 0, as
+    ``from_keys`` and ``reset`` leave a table."""
+    return bool((table.entries[:, 1] == table.occupied().long()).all())
+
+
 def _hash_case(label, pre, keys, rounds, fits=True, active=None) -> dict:
     """The kernel and the plain version, each from a copy of the table
     ``pre`` (packed keys), on ``keys`` where ``active`` (every row when
@@ -1416,7 +1447,7 @@ def _hash_case(label, pre, keys, rounds, fits=True, active=None) -> dict:
     from stateright_tpu_torch.ops import hashset
 
     def run(insert):
-        table = hashset.DeviceHashSet(pre.clone())
+        table = hashset.DeviceHashSet.from_keys(pre)
         return (table, *insert(table, keys, active, rounds))
 
     tk, new_k, over_k, slot_k = run(hashset.insert_cuda)
@@ -1440,20 +1471,25 @@ def _hash_case(label, pre, keys, rounds, fits=True, active=None) -> dict:
     assert not out["overflow"] and not out["plain_overflow"], out
     out["max_abs_err"] = max(_err(new_k, new_p), _err(new_k, new_k2))
     assert out["max_abs_err"] == 0, "is_new differs"
-    assert torch.equal(torch.sort(tk.keys).values,
-                       torch.sort(tp.keys).values), "tables differ as sets"
-    table = hashset.DeviceHashSet(pre.clone())
-    reset = lambda: table.keys.copy_(pre)  # noqa: E731
+    assert torch.equal(_sorted_entries(tk), _sorted_entries(tp)), \
+        "tables differ as sets of {key, tag} entries"
+    table = hashset.DeviceHashSet.from_keys(pre)
+    assert _tag_rule_holds(table), "from_keys broke the tag rule"
+    reset = lambda: table.reset(pre)  # noqa: E731
     out["ms"] = _time_reset_ms(
         lambda: hashset.insert_cuda(table, keys, active, rounds), reset)
+    reset()
+    assert _tag_rule_holds(table), "reset broke the tag rule"
     out["plain_ms"] = _time_reset_ms(
         lambda: hashset.insert_plain(table, keys, active, rounds), reset, 3)
     out.update(_hash_bound(keys, slot_k, new_k, over_k, active,
                            pre.numel() - 1, rounds))
     out["library_ms"] = None  # no PyTorch call inserts into a hash table
     out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
+    was = HASH_THREE_PASS_MS.get(label)
+    was = f"; three-pass kernel {was} ms" if was is not None else ""
     print(f"  {label}: kernel {out['ms']:.4f} ms ({out['pct_of_bound']:.1f}%"
-          f" of bound), plain {out['plain_ms']:.4f} ms, bound "
+          f" of bound{was}), plain {out['plain_ms']:.4f} ms, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}; 32-byte sectors "
           f"{out['bound_ms_32b_sectors']:.4f} ms), {out['probe_reads']} "
           f"probe reads", flush=True)
@@ -1494,22 +1530,21 @@ def _filled(keys, slots: int):
     table = hashset.DeviceHashSet.empty(slots, keys.device)
     _, over, _ = hashset.insert_cuda(table, keys, None, 32)
     assert not bool(over.any()), "prefill overflowed"
-    return table.keys
+    return table.keys.clone()
 
 
-@phase("hash insert kernel")
-def hash_kernel():
-    """The insert kernel against its plain version at 2pc rm=9's widest
-    wave: keys with in-batch duplicates (drawn from a pool of a quarter
-    as many keys) into an empty table, and a batch drawn from the
-    table's own keys and 2^20 fresh ones into a half-full table (a tenth
-    of its rows inactive); then a table too small for its batch, and an
-    empty batch (no launch)."""
+def _kernel_inputs(dev):
+    """The ``hash insert kernel`` phase's inputs at 2pc rm=9's widest
+    wave: ``({label: (pre, keys, rounds, active)}, gen)`` — keys with
+    in-batch duplicates (drawn from a pool of a quarter as many keys)
+    into an empty table, and a batch drawn from the table's own keys and
+    2^20 fresh ones into a half-full table (a tenth of its rows
+    inactive); ``pre`` is the table's packed keys, ``gen`` the generator
+    the phase goes on drawing from."""
     import torch
 
     from stateright_tpu_torch.ops import hashset
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261018)
     empty = torch.full((HASH_SLOTS,), hashset.EMPTY, dtype=torch.int64,
@@ -1517,28 +1552,55 @@ def hash_kernel():
     pool = _distinct_keys(HASH_KEYS // 4, gen, dev)
     keys = _draw(pool, HASH_KEYS, gen)
     keys[:5] = torch.iinfo(torch.int64).max  # the all-ones fingerprint
-    cases = {"empty table": _hash_case("empty table", empty, keys, 16)}
     half = _distinct_keys(HASH_SLOTS // 2 + HASH_SLOTS // 32, gen, dev)
     pre = _filled(half[:HASH_SLOTS // 2], HASH_SLOTS)
     active = torch.rand(HASH_KEYS, generator=gen, device=dev) < 0.9
-    cases["half-full table"] = _hash_case(
-        "half-full table", pre, _draw(half, HASH_KEYS, gen), 32,
-        active=active)
+    return {"empty table": (empty, keys, 16, None),
+            "half-full table": (pre, _draw(half, HASH_KEYS, gen), 32,
+                                active)}, gen
+
+
+@phase("hash insert kernel")
+def hash_kernel():
+    """The insert kernel's registers and spills and its refusals; then
+    the kernel against its plain version at the inputs of
+    :func:`_kernel_inputs`, a table too small for its batch, and an
+    empty batch (no launch)."""
+    import torch
+
+    from stateright_tpu_torch.ops import cuda_build, hashset
+
+    print(cuda_build.ptxas_report("hashset.cu"), flush=True)
+    dev = torch.device("cuda")
+    one = torch.ones(1, dtype=torch.int64, device=dev)
+    buf = torch.full((2 * 64 + 1,), hashset.EMPTY, dtype=torch.int64,
+                     device=dev)
+    bad = {"untagged": hashset.DeviceHashSet(buf[:64]),
+           "misaligned": hashset.DeviceHashSet(buf[1::2], buf[1:].view(64, 2))}
+    for what, table in bad.items():
+        try:
+            hashset.insert_cuda(table, one)
+        except ValueError as exc:
+            print(f"  {what} table refused: {exc}", flush=True)
+        else:
+            raise AssertionError(f"an {what} table was taken")
+    inputs, gen = _kernel_inputs(dev)
+    cases = {label: _hash_case(label, pre, keys, rounds, active=active)
+             for label, (pre, keys, rounds, active) in inputs.items()}
     small = torch.full((256,), hashset.EMPTY, dtype=torch.int64, device=dev)
     _hash_case("overflow", small, _draw(_distinct_keys(1000, gen, dev), 400,
                                         gen), 2, fits=False)
     launched = hashset.insert_cuda.launches
-    none = hashset.insert_cuda(hashset.DeviceHashSet(small.clone()),
-                               keys[:0])
+    none = hashset.insert_cuda(hashset.DeviceHashSet.from_keys(small),
+                               inputs["empty table"][1][:0])
     assert all(t.numel() == 0 for t in none), "an empty batch returned rows"
     assert hashset.insert_cuda.launches == launched, "an empty batch launched"
     rec = dict(cases["empty table"],
                max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                half_full=cases["half-full table"])
-    table = hashset.DeviceHashSet(empty.clone())
-    call = lambda: hashset.insert_cuda(table, keys, None, 16)  # noqa: E731
-    call()  # its side arrays exist before the profiled call
-    return rec, call
+    empty, keys = inputs["empty table"][:2]
+    table = hashset.DeviceHashSet.from_keys(empty)
+    return rec, lambda: hashset.insert_cuda(table, keys, None, 16)
 
 
 def hash_at(label: str, run: dict):
@@ -1550,17 +1612,27 @@ def hash_at(label: str, run: dict):
     return phase(f"hash insert at {label} shapes")(_hash_at)(label, run)
 
 
-def _hash_at(label, run):
+def _wave_inputs(shape, capacity: int):
+    """``(pre, batch)`` at a hash run's widest wave ``shape`` (occupied,
+    keys, new; its ``metrics["insert_shape"]``): a table of ``capacity``
+    slots holding ``occupied`` keys, and a batch of ``keys`` rows of
+    which ``new`` are fresh and the rest draws from the table and the
+    fresh ones, in random order."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261019)
-    occ, n, new = run["metrics"]["insert_shape"]
+    occ, n, new = shape
     keys = _distinct_keys(occ + new, gen, dev)
-    pre = _filled(keys[new:], run["capacity"])
+    pre = _filled(keys[new:], capacity)
     batch = torch.cat([keys[:new], _draw(keys, n - new, gen)])
-    batch = batch[torch.randperm(n, generator=gen, device=dev)]
+    return pre, batch[torch.randperm(n, generator=gen, device=dev)]
+
+
+def _hash_at(label, run):
+    pre, batch = _wave_inputs(run["metrics"]["insert_shape"],
+                              run["capacity"])
     return _hash_case(label, pre, batch, 16)
 
 

@@ -325,9 +325,9 @@ class TpuBfsChecker(Checker):
 
     def _visited_bytes_per_row(self) -> int:
         """Device bytes per table slot: the key, the parent key when
-        paths are tracked, and the CUDA insert's two side arrays."""
+        paths are tracked, and the CUDA insert's tag beside each key."""
         return (8 + (8 if self.track_paths else 0)
-                + (12 if self.device.type == "cuda" else 0))
+                + (8 if self.device.type == "cuda" else 0))
 
     def _maybe_warn_occupancy(self, occupancy: float) -> bool:
         """Open addressing degrades before it overflows; warn early, with

@@ -20,19 +20,22 @@ fingerprints are never 0, so no key is ever :data:`EMPTY`.
   gives the JAX ``insert``'s ``table``, ``is_new``, ``overflow`` and
   ``slot`` array for array;
 * a hand-written CUDA kernel (``csrc/hashset.cu``, :func:`insert_cuda`),
-  one thread a row walking the same probe sequence with a 64-bit
-  ``atomicCAS``, then two passes that keep the JAX winner: of the rows
-  holding one key that was absent, the highest reports ``is_new``.
-  Which slot a key lands in may differ from the plain version's (it
-  depends on the order in which DIFFERENT keys claim slots); nothing the
-  engine reports depends on it but overflow in a nearly full table.
+  two launches: one thread a row walks the same probe sequence with a
+  64-bit ``atomicCAS`` and claims the slot of a key new in this call
+  with an ``atomicMax`` on the slot's tag, then the rows of new keys
+  read the tag back, which keeps the JAX winner: of the rows holding
+  one key that was absent, the highest reports ``is_new``. Which slot a
+  key lands in may differ from the plain version's (it depends on the
+  order in which DIFFERENT keys claim slots); nothing the engine reports
+  depends on it but overflow in a nearly full table.
 
 A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel, and the kernel either runs or raises — there is no
 fallback. ``insert_cuda.launches`` counts the kernel's calls.
 
 The table is updated IN PLACE (the JAX op returns a new table): a
-wave's insert into a 2^25-slot table would otherwise copy 268 MB.
+wave's insert into a 2^25-slot table would otherwise copy 268 MB of
+keys (537 MB of entries on the card).
 :func:`insert` still returns the table, so callers read like the JAX
 ones.
 """
@@ -60,23 +63,52 @@ _SOURCE = "hashset.cu"
 @dataclass
 class DeviceHashSet:
     """Table state: ``keys`` holds one packed key a slot (:data:`EMPTY`
-    where free). ``fresh``, ``claim`` and ``epoch`` are the CUDA
-    kernel's side arrays (made at its first call): ``fresh[s]`` is the
-    call number that inserted slot ``s``'s key and ``claim[s]`` the
-    highest ``call << 32 | row + 1`` that holds it, so neither is
-    cleared between calls."""
+    where free).
+
+    A tagged table (every table on a CUDA device) is ``entries``, an
+    int64 ``[capacity, 2]`` array of 16-byte ``{key, tag}`` slots, and
+    ``keys`` is its strided view ``entries[:, 0]``. A tag is the CUDA
+    kernel's claim, ``epoch << 32 | row + 1`` of the highest row of the
+    call ``epoch`` that filled the slot; an empty slot's tag is 0, and
+    must be (csrc/hashset.cu). ``epoch`` counts the calls on the table.
+    On the CPU a table is its key array alone, as JAX's is. Make tables
+    with :meth:`empty` or :meth:`from_keys`, and restore one with
+    :meth:`reset`: each writes every entry whole."""
 
     keys: torch.Tensor
-    fresh: Optional[torch.Tensor] = None
-    claim: Optional[torch.Tensor] = None
+    entries: Optional[torch.Tensor] = None
     epoch: int = 0
 
     @staticmethod
     def empty(capacity: int, device=None) -> "DeviceHashSet":
+        return DeviceHashSet.from_keys(torch.full(
+            (capacity,), EMPTY, dtype=torch.int64, device=device))
+
+    @staticmethod
+    def from_keys(keys: torch.Tensor) -> "DeviceHashSet":
+        """A table holding a copy of ``keys``, one packed key a slot
+        (:data:`EMPTY` where free), tagged by :meth:`reset`'s rule when
+        ``keys`` lie on a CUDA device."""
+        capacity = keys.shape[0]
         if capacity & (capacity - 1):
             raise ValueError(f"capacity must be a power of two: {capacity}")
-        return DeviceHashSet(torch.full((capacity,), EMPTY,
-                                        dtype=torch.int64, device=device))
+        if keys.device.type != "cuda":
+            return DeviceHashSet(keys.clone())
+        entries = torch.empty((capacity, 2), dtype=torch.int64,
+                              device=keys.device)
+        table = DeviceHashSet(entries[:, 0], entries)
+        table.reset(keys)
+        return table
+
+    def reset(self, keys: torch.Tensor) -> None:
+        """Make the table hold ``keys`` again, whole: the keys, then on a
+        tagged table every full slot's tag 1 (epoch 0, row 0) and every
+        empty slot's 0, and the epoch 0, so every call's claims beat the
+        tags."""
+        self.keys.copy_(keys)
+        if self.entries is not None:
+            self.entries[:, 1].copy_(keys != EMPTY)
+        self.epoch = 0
 
     @property
     def capacity(self) -> int:
@@ -165,7 +197,18 @@ def insert_plain(table: DeviceHashSet, keys: torch.Tensor,
         exhausted = pending & (probe >= rounds)
         overflow |= exhausted
         pending = pending & ~exhausted
+    if table.entries is not None:  # tag as the kernel does: the winner
+        epoch = _next_epoch(table)
+        table.entries[slot[inserted], 1] = (epoch << 32) | row1[inserted]
     return inserted, overflow | pending, slot
+
+
+def _next_epoch(table: DeviceHashSet) -> int:
+    """Count one more call on ``table`` (tags pack the epoch in 31 bits)."""
+    if table.epoch >= (1 << 31) - 1:
+        raise RuntimeError("hash table epoch exhausted (2^31 - 1 calls)")
+    table.epoch += 1
+    return table.epoch
 
 
 # -- the CUDA kernel ---------------------------------------------------------
@@ -179,7 +222,7 @@ def _lib() -> ctypes.CDLL:
         fn = lib.stpu_hash_insert
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # keys, active, n
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # table, fresh, claim
+            ctypes.c_void_p,  # entries
             ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # mask, rounds, epoch
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # slot, is_new, overflow
             ctypes.c_void_p,  # stream
@@ -197,6 +240,20 @@ def _check_cuda(table: DeviceHashSet, keys: torch.Tensor,
         raise ValueError(
             "the CUDA hash insert needs the table and keys on one CUDA "
             f"device, got {[str(t.device) for t in tensors]}"
+        )
+    ent = table.entries
+    if (ent is None or ent.dtype != torch.int64
+            or ent.shape != (table.capacity, 2) or not ent.is_contiguous()
+            or table.keys.data_ptr() != ent.data_ptr()):
+        raise ValueError(
+            "the CUDA hash insert takes a tagged table (DeviceHashSet.empty "
+            "or from_keys on the device): contiguous int64 {key, tag} "
+            "entries of shape [capacity, 2] under its keys"
+        )
+    if ent.data_ptr() % 16:
+        raise ValueError(
+            f"the table's entries must be 16-byte aligned, got address "
+            f"{ent.data_ptr():#x}"
         )
     if (keys.dtype != torch.int64 or keys.dim() != 1
             or not keys.is_contiguous()):
@@ -225,7 +282,7 @@ def insert_cuda(table: DeviceHashSet, keys: torch.Tensor,
                 rounds: int = PROBE_ROUNDS
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA insert (see the module docstring): ``(is_new, overflow,
-    slot)``, the table updated in place, three kernels on the current
+    slot)``, the table updated in place, two kernels on the current
     stream and no sync."""
     _check_cuda(table, keys, active, rounds)
     n = keys.numel()
@@ -236,22 +293,14 @@ def insert_cuda(table: DeviceHashSet, keys: torch.Tensor,
     slot = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return is_new, overflow, slot
-    if table.fresh is None:
-        table.fresh = torch.zeros(table.capacity, dtype=torch.int32,
-                                  device=dev)
-        table.claim = torch.zeros(table.capacity, dtype=torch.int64,
-                                  device=dev)
-    if table.epoch >= (1 << 31) - 1:
-        raise RuntimeError("hash table epoch exhausted (2^31 - 1 calls)")
-    table.epoch += 1
+    epoch = _next_epoch(table)
     fn = _lib().stpu_hash_insert
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(keys.data_ptr(),
                  None if active is None else active.data_ptr(), n,
-                 table.keys.data_ptr(), table.fresh.data_ptr(),
-                 table.claim.data_ptr(), table.capacity - 1, rounds,
-                 table.epoch, slot.data_ptr(), is_new.data_ptr(),
+                 table.entries.data_ptr(), table.capacity - 1, rounds,
+                 epoch, slot.data_ptr(), is_new.data_ptr(),
                  overflow.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"stpu_hash_insert launch failed: CUDA error {err}")

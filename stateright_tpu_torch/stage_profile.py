@@ -51,7 +51,7 @@ import torch
 
 #: kernel-name patterns -> stage, first match wins
 STAGES = (
-    ("hash insert kernels", r"probe_kernel|claim_kernel|winner_kernel"),
+    ("hash insert kernels", r"probe_claim_kernel|winner_kernel"),
     ("member kernel", r"member_tile_kernel"),
     ("merge kernel", r"merge_tile_kernel"),
     ("sort", r"[Ss]ort|[Rr]adix"),

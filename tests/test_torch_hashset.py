@@ -8,7 +8,9 @@ table where keys overflow, and the edges (no rows, inactive rows, a
 batch of all-ones keys); the highest row of a duplicated new key wins;
 ``_slot_hash``, ``sort_unique`` and ``contains`` are bit-equal to JAX.
 The CUDA kernel is held to the plain version on the card by
-chip_smoke.py."""
+chip_smoke.py; here its two kernels are emulated line for line over
+random interleavings of the rows' memory actions and held to the plain
+version, and ``from_keys`` / ``reset`` to the tag rule they need."""
 
 import numpy as np
 import pytest
@@ -192,3 +194,209 @@ def test_cuda_impl_on_cpu_tensors_raises():
         phs.insert_cuda(table, keys)
     assert phs.insert_cuda.launches == 0
     assert not table.occupied().any()
+
+
+# -- the CUDA kernel's protocol, emulated on the CPU -------------------------
+#
+# csrc/hashset.cu runs only on the card; these emulate its two kernels
+# line for line, each row a generator that yields before every action on
+# device memory (the entry's two words read at two moments, the CAS of
+# the key, the atomicMax of the tag, and the winner's tag read), stepped
+# in a random interleaving, so that rows read a slot between its
+# inserter's CAS and the inserter's atomicMax.
+
+
+def _probe_claim_row(i, key, idx, live, entries, mask, rounds, epoch, out,
+                     seen):
+    """``probe_claim_kernel`` for row ``i``; ``entries`` a list of
+    ``[key, tag]`` (the table's 16-byte entries), ``idx`` its slot hash."""
+    at, over, candidate = 0, False, False
+    if live:
+        mine = (epoch << 32) | (i + 1)
+        probe = 0
+        while True:
+            yield  # the entry's key word (its tag word below)
+            cur = entries[idx][0]
+            yield
+            tag = entries[idx][1]
+            if cur == phs.EMPTY:
+                yield  # atomicCAS of the key word
+                cur = entries[idx][0]
+                if cur == phs.EMPTY:
+                    entries[idx][0] = key
+                    cur = key  # this row inserted it
+                tag = 0  # empty at this call's read: filled in this call
+            elif cur == key and tag == 0:
+                seen["untagged"] += 1  # read before the inserter's atomicMax
+            if cur == key:
+                at = idx
+                candidate = (tag == 0 or tag >> 32 == epoch) and tag < mine
+                if candidate:
+                    yield  # atomicMax of the tag
+                    entries[idx][1] = max(entries[idx][1], mine)
+                break
+            probe += 1
+            if probe >= rounds:
+                over = True
+                break
+            idx = (idx + probe) & mask
+    out["slot"][i], out["overflow"][i], out["is_new"][i] = at, over, candidate
+
+
+def _winner_row(i, entries, epoch, out):
+    """``winner_kernel`` for row ``i``."""
+    if not out["is_new"][i]:
+        return
+    yield  # the tag read
+    out["is_new"][i] = entries[out["slot"][i]][1] == (epoch << 32) | (i + 1)
+
+
+def _interleave(rows, rng):
+    """Step the row generators to their ends, one action of a random
+    row at a time (a kernel: no row waits for another)."""
+    live = list(rows)
+    while live:
+        j = int(rng.integers(len(live)))
+        try:
+            next(live[j])
+        except StopIteration:
+            live[j] = live[-1]
+            live.pop()
+
+
+def _emulated_insert(table, keys, active, rounds, rng, seen):
+    """``stpu_hash_insert`` on a tagged table: the two launches, each
+    interleaved; ``(is_new, overflow, slot)``, the table updated."""
+    n = keys.shape[0]
+    epoch = phs._next_epoch(table)
+    mask = table.capacity - 1
+    entries = table.entries.tolist()
+    out = {"slot": [0] * n, "overflow": [False] * n, "is_new": [False] * n}
+    idx = phs._slot_hash(keys, mask).tolist()
+    live = [True] * n if active is None else active.tolist()
+    _interleave([_probe_claim_row(i, k, idx[i], live[i], entries, mask,
+                                  rounds, epoch, out, seen)
+                 for i, k in enumerate(keys.tolist())], rng)
+    _interleave([_winner_row(i, entries, epoch, out) for i in range(n)], rng)
+    table.entries.copy_(torch.tensor(entries, dtype=torch.int64))
+    return (torch.tensor(out["is_new"]), torch.tensor(out["overflow"]),
+            torch.tensor(out["slot"], dtype=torch.int64))
+
+
+def _highest_rows(before, table, keys, active):
+    """is_new as rule (a) has it: for each key the call put in the table,
+    its highest active row."""
+    added = set(table.keys.tolist()) - set(before.tolist())
+    want = torch.zeros(keys.shape[0], dtype=torch.bool)
+    last = {}
+    for i, (k, a) in enumerate(zip(keys.tolist(), active.tolist())):
+        if a and k in added:
+            last[k] = i
+    want[list(last.values())] = True
+    return want
+
+
+def _tagged_table(keys):
+    """A tagged table holding ``keys`` on the CPU, built as
+    ``DeviceHashSet.from_keys`` builds one on a CUDA device: the entry
+    array, then :meth:`DeviceHashSet.reset`."""
+    entries = torch.empty((keys.shape[0], 2), dtype=torch.int64)
+    table = phs.DeviceHashSet(entries[:, 0], entries)
+    table.reset(keys)
+    return table
+
+
+def _entry_set(table):
+    return sorted(map(tuple, table.entries.tolist()))
+
+
+#: (label, capacity, rounds, pre-filled keys, batches of (n, pool), share
+#: active): the pool's first ``pre`` keys are in the table before the call
+PROTOCOL_CASES = [
+    ("empty table", 256, 24, 0, [(240, 60)], 1.0),
+    ("from_keys table", 512, 24, 120, [(240, 200)], 1.0),
+    ("second call, epoch 2", 256, 24, 0, [(160, 70), (160, 120)], 1.0),
+    ("inactive rows", 256, 24, 40, [(240, 100)], 0.6),
+    ("tight table overflows", 64, 2, 0, [(150, 120)], 1.0),
+]
+
+
+@pytest.mark.parametrize("label,capacity,rounds,pre,batches,share",
+                         PROTOCOL_CASES, ids=[c[0] for c in PROTOCOL_CASES])
+def test_kernel_protocol_matches_insert_plain(label, capacity, rounds, pre,
+                                              batches, share):
+    """The emulated kernel over 20 interleavings: ``is_new`` bit for bit
+    ``insert_plain``'s and the highest row of each key the call added,
+    the tables equal as sets of ``{key, tag}`` entries, and every live
+    row's slot holding its key; in the tight table both report overflow
+    instead, and only placements differ."""
+    rng = np.random.default_rng(20261017)
+    pool = rng.integers(1, 2**32, size=(max(b[1] for b in batches), 2),
+                        dtype=np.uint32)
+    start = phs.DeviceHashSet.empty(capacity)
+    phs.insert(start, _keys(pool[:pre, 0], pool[:pre, 1]))
+    calls = []
+    for n, pool_n in batches:
+        lo, hi = _pool_batch(rng, n, pool[:pool_n])
+        calls.append((_keys(lo, hi), torch.from_numpy(rng.random(n) < share)))
+    fits = label != "tight table overflows"
+    seen = {"untagged": 0}
+    for _ in range(20):
+        plain = _tagged_table(start.keys)
+        kernel = _tagged_table(start.keys)
+        for keys, active in calls:
+            before = kernel.keys.clone()
+            new_p, over_p, _ = phs.insert_plain(plain, keys, active, rounds)
+            new_k, over_k, slot_k = _emulated_insert(kernel, keys, active,
+                                                     rounds, rng, seen)
+            live = active & ~over_k
+            assert torch.equal(kernel.keys[slot_k[live]], keys[live])
+            assert not (slot_k[~live].any() or new_k[~active].any()
+                        or over_k[~active].any())
+            assert torch.equal(new_k, _highest_rows(before, kernel, keys,
+                                                    active))
+            if fits:
+                assert not (over_k.any() or over_p.any())
+                assert torch.equal(new_k, new_p)
+                assert _entry_set(kernel) == _entry_set(plain)
+            else:
+                assert over_k.any() and over_p.any()
+            assert kernel.epoch == plain.epoch
+    # the interleavings did read tags before their inserters' atomicMax
+    assert seen["untagged"] > 0
+
+
+def test_from_keys_and_reset_keep_the_tag_rule():
+    """Tag 0 on every empty slot and a non-zero epoch-0 tag on every full
+    one, from a tagged table's construction (``reset`` into a fresh entry
+    array, as ``from_keys`` does on a CUDA device) and from ``reset``
+    after calls tagged slots with later epochs; a CPU table, from
+    ``empty`` or ``from_keys``, is its key array alone."""
+    rng = np.random.default_rng(5)
+    table = phs.DeviceHashSet.empty(128)
+    lo, hi = _pool_batch(rng, 60, rng.integers(1, 2**32, size=(50, 2),
+                                               dtype=np.uint32))
+    phs.insert(table, _keys(lo, hi))
+    pre = table.keys.clone()
+    assert table.entries is None and table.keys.is_contiguous()
+    copy = phs.DeviceHashSet.from_keys(pre)
+    assert copy.entries is None and torch.equal(copy.keys, pre)
+    assert copy.keys.data_ptr() != pre.data_ptr()
+
+    def rule_holds(t):
+        full = t.keys != phs.EMPTY
+        tag = t.entries[:, 1]
+        return (t.epoch == 0 and bool((tag[~full] == 0).all())
+                and bool((tag[full] != 0).all())
+                and bool(((tag[full] >> 32) == 0).all()))
+
+    tagged = _tagged_table(pre)
+    assert torch.equal(tagged.keys, pre) and rule_holds(tagged)
+    assert tagged.entries.shape == (128, 2) and tagged.entries.is_contiguous()
+    lo2, hi2 = _pool_batch(rng, 80, rng.integers(1, 2**32, size=(40, 2),
+                                                 dtype=np.uint32))
+    for _ in range(2):  # the second call finds every key old
+        phs.insert(tagged, _keys(lo2, hi2))
+    assert tagged.epoch == 2 and (tagged.entries[:, 1] >> 32 == 1).any()
+    tagged.reset(pre)
+    assert torch.equal(tagged.keys, pre) and rule_holds(tagged)
