@@ -75,7 +75,7 @@ it exits non-zero and prints no result. Phases, each ending in
    (1 + 8·9 = 73 orbits); every ``--symmetry`` run is held to the same
    run on the CPU (counts, ``states=``, depth, canonical hits,
    discovery fingerprints and paths, each path replayed);
-15. for every run of phases 4, 6-9, 11, 14 and 20, each kernel against its
+15. for every run of phases 4, 6-9, 11, 14, 20 and 23, each kernel against its
    plain version (exactly) and timed at that run's widest wave's
    shapes, each launch with L2 cold as the engine's calls find it;
 16. the device operations of one call of each kernel, counted in one
@@ -122,9 +122,26 @@ it exits non-zero and prints no result. Phases, each ending in
    check 4`` (paths off, 2^23 slots: 2,372,188) and ``host bfs 2pc
    rm=5`` (``spawn_bfs``, the hash engine's oracle: 8,832 and the same
    names); then the insert kernel against its plain version and timed
-   at each hash path's widest wave (``metrics["insert_shape"]``).
+   at each hash path's widest wave (``metrics["insert_shape"]``);
+23. the tiered visited set (``tier_hot_rows``, tier.py: at most N keys
+   on the card, the rest in sorted runs in host memory): ``2pc rm=9
+   tiered`` (paths on, N = 2^20, about a tenth of the space, at most 2
+   cold runs before a compaction: 10,340,352 unique with phase 4's
+   ``states=``, depth, names and discovery fingerprints, paths
+   replayed, at least two spills, runs compacted, cold + hot rows =
+   unique, both kernels launched — member and merge launch nothing on
+   an empty hot tier), then twice more with paths off, the cold store's
+   ingest on its worker thread and on the wave loop's thread (both
+   walls); ``paxos check 4 tiered`` (the CLI's checker, paths off, N =
+   2^18: 2,372,188 with phase 6's discovery fingerprints); ``2pc rm=5
+   tiered`` (N = 1,024) on the card and on the CPU, every field equal,
+   the tier's too; ``2pc check-gpu 9 --tier-hot-rows=auto`` through the
+   CLI's flags (JAX's 2 GiB budget: dormant, no spill). Each prints
+   ``sec=`` and peak memory beside the resident run's, the memory plan's
+   ``resident_bytes``, the spill and ingest walls and the host time of
+   the cold membership.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20 and 22) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22 and 23) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -572,6 +589,7 @@ def rm9():
     HAND["2pc rm=9"] = (run["unique"], run["names"])
     HAND["2pc rm=9 states"] = run["states"]
     HAND["2pc rm=9 depth"] = run["depth"]
+    HAND["2pc rm=9 fps"] = run["fps"]
     for name, path in checker.discoveries().items():
         assert _replays(model, path, model.property_by_name(name)), name
     return run
@@ -655,18 +673,19 @@ def run_main(checker, print_lines: int | None = None,
     unique = checker.unique_state_count()
     for line in out.getvalue().splitlines()[:print_lines]:
         print(f"  {line[:400]}", flush=True)
+    peak = torch.cuda.max_memory_allocated() - base
     print(f"  {checker.metrics} sec={sec:.3f} "
           f"states/s={checker.state_count() / sec:.0f} "
           f"unique/s={unique / sec:.0f} waves={checker.metrics['waves']} "
-          f"launches={launches} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated() - base}",
-          flush=True)
+          f"launches={launches} peak_mem_bytes={peak}", flush=True)
     assert all(launches[k] > 0 for k in kernels), launches
     return dict(launches=launches, metrics=checker.metrics, unique=unique,
                 sec=sec, names=checker.discovered_property_names(),
                 states=checker.state_count(), depth=checker.max_depth(),
                 fps=checker.discovery_fingerprints(),
-                capacity=checker.capacity)
+                capacity=checker.capacity, peak_mem_bytes=peak,
+                plan_resident_bytes=(checker.memory_plan or {}).get(
+                    "resident_bytes"))
 
 
 def paxos_main(clients: int, unique_want: int):
@@ -1730,6 +1749,184 @@ def host_bfs_rm5():
     assert names == HAND.get("hash 2pc rm=5"), names
 
 
+# -- the tiered visited set (tier.py) ----------------------------------------
+
+#: hot-tier ceilings of the tiered runs: about a tenth of each space, so
+#: the runs spill often
+TIER_HOT_2PC9 = 1 << 20
+TIER_HOT_PAXOS4 = 1 << 18
+#: cold runs kept before a compaction in the 2pc rm=9 tiered runs: it
+#: spills 6 times at 2^20 (an H100 run), so a fan-in of 2 compacts twice
+#: (the default 8 never would)
+TIER_MAX_RUNS_2PC9 = 2
+
+
+def tier_report(run: dict, resident: dict | None) -> None:
+    """Print a tiered run's tier metrics beside the resident run of the
+    same configuration in this call: ``sec=``, peak device memory above
+    the run's start, the resident-buffer plan beside it, the launches,
+    the spill and ingest walls and the host time of the cold
+    membership."""
+    m = run["metrics"]
+    tier = {k: m.get(k) for k in (
+        "tier_spills", "cold_rows", "hot_rows", "hot_ceiling_rows",
+        "cold_runs", "spill_wall_sec", "ingest_sec", "ingest_wait_sec",
+        "cold_member_sec")}
+    print(f"  tier: {tier}", flush=True)
+    print(f"  tiered: sec={run['sec']:.3f} peak_mem_bytes="
+          f"{run['peak_mem_bytes']} plan resident_bytes="
+          f"{run['plan_resident_bytes']} launches={run['launches']}",
+          flush=True)
+    if resident:
+        print(f"  resident: sec={resident['sec']:.3f} peak_mem_bytes="
+              f"{resident['peak_mem_bytes']} plan resident_bytes="
+              f"{resident['plan_resident_bytes']} "
+              f"launches={resident['launches']}", flush=True)
+
+
+@phase("2pc rm=9 tiered (main path)")
+def rm9_tiered(resident: dict | None):
+    """``2pc rm=9`` with paths through ``spawn_sortmerge(...,
+    tier_hot_rows=2**20, tier_max_runs=2)`` at the CLI's sizes: the
+    resident run's counts, names and discovery fingerprints (phase 4),
+    paths that replay, at least two spills, compaction, the tiers
+    partitioning the visited set, both Merge Path kernels launched;
+    then :func:`ingest_walls`."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = model.checker().spawn_sortmerge(
+        tier_hot_rows=TIER_HOT_2PC9, tier_max_runs=TIER_MAX_RUNS_2PC9,
+        **twopc_sizes(9))
+    run = run_main(checker, print_lines=1)
+    m = run["metrics"]
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert "2pc rm=9" in HAND, "the resident 2pc rm=9 phase did not pass"
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert (run["states"], run["depth"], run["fps"]) == (
+        HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"],
+        HAND["2pc rm=9 fps"]), run
+    assert m["tier_spills"] >= 2, m
+    assert m["cold_runs"] < m["tier_spills"], m  # compacted
+    assert m["cold_rows"] + m["hot_rows"] == run["unique"], m
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    tier_report(run, resident)
+    run["ingest_walls"] = ingest_walls(model, m)
+    return run
+
+
+def ingest_walls(model, m: dict) -> dict:
+    """The tiered 2pc rm=9 run twice more, paths off: the cold store's
+    ingest on its worker thread (as the engine runs it), then on the
+    wave loop's own thread; each run's wall and tier walls. The worker
+    shares the interpreter lock with the wave loop."""
+    import functools
+
+    import torch
+
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.tier import ColdStore
+
+    out = {}
+    for mode in ("worker thread", "wave loop's thread"):
+        patched = ColdStore.ingest
+        if mode != "worker thread":
+            ColdStore.ingest = functools.partialmethod(patched,
+                                                       asynchronous=False)
+        try:
+            c = model.checker().spawn_sortmerge(
+                tier_hot_rows=TIER_HOT_2PC9,
+                tier_max_runs=TIER_MAX_RUNS_2PC9, track_paths=False,
+                **twopc_sizes(9))
+            t0 = time.monotonic()
+            c.join()
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+        finally:
+            ColdStore.ingest = patched
+        cm = c.metrics
+        assert c.unique_state_count() == 10_340_352
+        assert (cm["tier_spills"], cm["cold_rows"]) == (
+            m["tier_spills"], m["cold_rows"]), cm
+        out[mode] = dict(sec=sec, **{k: cm[k] for k in (
+            "ingest_sec", "ingest_wait_sec", "spill_wall_sec",
+            "cold_member_sec")})
+        print(f"  ingest on the {mode} (paths off): {out[mode]}",
+              flush=True)
+    return out
+
+
+@phase("paxos check 4 tiered (main path)")
+def paxos4_tiered(resident: dict | None):
+    """``paxos check 4`` through the CLI's checker and sizes with
+    ``--tier-hot-rows=2**18``, paths off: 2,372,188 with phase 6's
+    discovery fingerprints."""
+    from stateright_tpu_torch.cli import RunFlags, paxos_checker
+
+    run = run_main(paxos_checker(4, RunFlags(tier_hot_rows=TIER_HOT_PAXOS4)))
+    m = run["metrics"]
+    assert run["unique"] == 2_372_188, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    assert run["fps"] == HAND.get("paxos 4c fps"), run["fps"]
+    assert m["tier_spills"] >= 2, m
+    assert m["cold_rows"] + m["hot_rows"] == run["unique"], m
+    tier_report(run, resident)
+    return run
+
+
+@phase("2pc rm=5 tiered, card vs CPU")
+def rm5_tiered():
+    """``2pc rm=5`` with paths at a 1,024-key hot tier on the card and on
+    the CPU: every field equal, the tier's too."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        c = model.checker().spawn_sortmerge(
+            capacity=1 << 15, frontier_capacity=1 << 13, device=device,
+            tier_hot_rows=1024).join()
+        runs[device] = c
+        print(f"  {device}: states={c.state_count()} "
+              f"unique={c.unique_state_count()} depth={c.max_depth()} "
+              f"tier_spills={c.metrics['tier_spills']} "
+              f"cold_rows={c.metrics['cold_rows']} "
+              f"hot_rows={c.metrics['hot_rows']}", flush=True)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu.unique_state_count() == 8832, gpu.unique_state_count()
+    assert gpu.metrics["tier_spills"] >= 2, gpu.metrics
+    for f in ("tier_spills", "cold_rows", "hot_rows", "waves",
+              "member_shape", "merge_shape"):
+        assert gpu.metrics[f] == cpu.metrics[f], f
+    assert (gpu.state_count(), gpu.max_depth()) == (
+        cpu.state_count(), cpu.max_depth())
+    assert gpu.discovery_fingerprints() == cpu.discovery_fingerprints()
+    for name, path in gpu.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+        assert path.encode() == cpu.discovery(name).encode(), name
+
+
+@phase("2pc check-gpu 9 --tier-hot-rows=auto")
+def rm9_tier_auto():
+    """The CLI's flags (``--tier-hot-rows=auto``) at 2pc rm=9: JAX's 2 GiB
+    budget fits the whole visited ladder at these sizes, so the tier
+    stays dormant — no spill, the resident count."""
+    from stateright_tpu_torch.cli import _pop_flags, twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    flags, rest = _pop_flags(["--tier-hot-rows=auto"])
+    assert rest == [] and flags.tier_hot_rows == "auto", flags
+    sizes = twopc_sizes(9)
+    c = flags.spawn(TwoPhaseSys(rm_count=9), symmetric=True, **sizes)
+    run = run_main(c, print_lines=1)
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert run["metrics"]["hot_ceiling_rows"] == sizes["capacity"]
+    assert "tier_spills" not in run["metrics"], run["metrics"]
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1775,6 +1972,11 @@ def main() -> int:
     hashes = {"hash 2pc rm=5": hash_rm5(), "hash paxos 2c/3s": hash_paxos2(),
               "hash 2pc rm=9": hash_rm9(), "hash paxos 4": hash_paxos4()}
     host_bfs_rm5()
+    tiered = {"2pc rm=9 tiered": rm9_tiered(runs["2pc rm=9"]),
+              "paxos 4c tiered": paxos4_tiered(runs["paxos 4c"])}
+    rm5_tiered()
+    tiered["2pc rm=9 --tier-hot-rows=auto"] = rm9_tier_auto()
+    runs.update(tiered)
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}

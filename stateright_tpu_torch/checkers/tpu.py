@@ -235,8 +235,13 @@ class TpuBfsChecker(Checker):
         #: property name -> fingerprint of the discovery state.
         self._discovered_fps: dict[str, int] = {}
         #: the parent log, (child keys, parent keys) as packed int64
-        #: tensors on the run's device, once the run has finished.
+        #: tensors on the run's device, once the run has finished — or,
+        #: after a tiered run, int64 numpy arrays in host memory sorted
+        #: by child key.
         self._plog = None
+        #: the resident-buffer ledger of the last run (memplan.py): see
+        #: :meth:`_memory_plan_of`
+        self.memory_plan: Optional[dict] = None
 
     def _resolve_symmetry(self):
         """The hash engine keys its table on raw-state fingerprints with
@@ -329,11 +334,45 @@ class TpuBfsChecker(Checker):
         return (8 + (8 if self.track_paths else 0)
                 + (8 if self.device.type == "cuda" else 0))
 
+    def _memory_projection(self) -> dict:
+        """The table at the next capacity step (open addressing degrades
+        past probe pressure, and the remedy is doubling): the JAX
+        engine's ``capacity_x2`` pricing."""
+        nxt = 2 * self.capacity
+        return dict(kind="capacity_x2", next_rows=int(nxt),
+                    next_visited_bytes=int(nxt * self._visited_bytes_per_row()))
+
+    def _memory_plan_of(self, resident: dict, staging: dict,
+                        host: Optional[dict] = None) -> dict:
+        """The resident-buffer ledger (memplan.py) of a finished run:
+        ``resident`` — the tensors the engine keeps on the device between
+        waves, as they are at the end of the run; ``staging`` — the
+        widest wave's candidate block and keys, ``(shape, dtype)``
+        each; ``host`` — what a tiered run keeps in host memory
+        instead. Priced per device (``n_shards`` 1), with the capacity
+        projection."""
+        from .. import memplan
+
+        res = memplan.plan_entries(resident)
+        stg = memplan.plan_entries(staging)
+        resident_bytes = memplan.plan_total(res)
+        staging_bytes = memplan.plan_total(stg)
+        plan = dict(engine=type(self).__name__, device=str(self.device),
+                    n_shards=1, resident=res, resident_bytes=resident_bytes,
+                    staging=stg, staging_bytes=staging_bytes,
+                    total_bytes=resident_bytes + staging_bytes,
+                    projection=self._memory_projection())
+        if host:
+            plan["host"] = memplan.plan_entries(host)
+            plan["host_bytes"] = memplan.plan_total(plan["host"])
+        return plan
+
     def _maybe_warn_occupancy(self, occupancy: float) -> bool:
         """Open addressing degrades before it overflows; warn early, with
         the JAX engine's text (occupancy.py). True when it warned."""
-        msg = occupancy_warning(occupancy, self._unique_states,
-                                self.capacity, self._visited_bytes_per_row())
+        msg = occupancy_warning(occupancy, used=self._unique_states,
+                                capacity=self.capacity,
+                                bytes_per_row=self._visited_bytes_per_row())
         if msg is not None:
             # 5 = the caller of join() or of the accessor that ran it
             warnings.warn(msg, RuntimeWarning, stacklevel=5)
@@ -453,6 +492,16 @@ class TpuBfsChecker(Checker):
                     max_depth=depth, duration_sec=self.duration_sec(),
                     done=False,
                 ))
+        W = enc.width
+        #: the tensors the run kept between waves, as it ended
+        self._final = dict(table=table, parents=parents, frontier=front,
+                           ebits=ebits)
+        self.memory_plan = self._memory_plan_of(
+            dict(table=table.keys if table.entries is None
+                 else table.entries, parents=parents, frontier=front,
+                 ebits=ebits),
+            dict(candidates=((W, max_cand), np.int64),
+                 candidate_keys=((max_cand,), np.int64)))
         # the widest wave's insert: (occupied slots, keys, new keys)
         self.metrics = dict(
             waves=waves, frontier_size=front.shape[1],
@@ -536,10 +585,17 @@ class TpuBfsChecker(Checker):
         return self._vec_fps(row)[0]
 
     def _parent_of(self, fp: int) -> Optional[int]:
-        """One parent-log lookup, on the log's device (roots are absent
-        from the log)."""
+        """One parent-log lookup, on the log's device, or by binary
+        search in a tiered run's host log (roots are absent from the
+        log)."""
         children, parents = self._plog
-        hit = (children == fp_to_key(fp)).nonzero()
+        key = fp_to_key(fp)
+        if isinstance(children, np.ndarray):
+            i = int(np.searchsorted(children, key))
+            if i == children.size or children[i] != key:
+                return None
+            return key_to_fp(int(parents[i]))
+        hit = (children == key).nonzero()
         if hit.numel() == 0:
             return None
         return key_to_fp(int(parents[hit[0, 0]]))

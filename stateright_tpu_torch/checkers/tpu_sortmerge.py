@@ -1,11 +1,12 @@
 """The sort-merge wave engine, eager on a device.
 
-The port of ``stateright_tpu.checkers.tpu_sortmerge`` (its single-device,
-untiered path, sparse and dense). The visited set is a SORTED array of
-packed int64 fingerprint keys (ops/fingerprint.py ``pack_keys``), kept
-sorted by merging each wave's winners into it; the parent forest is an
-append-only log of (parent, child) keys that stays on the device and is
-searched there, one lookup per step, when a path is reconstructed.
+The port of ``stateright_tpu.checkers.tpu_sortmerge`` (its single-device
+path, sparse and dense, resident or tiered). The visited set is a SORTED
+array of packed int64 fingerprint keys (ops/fingerprint.py
+``pack_keys``), kept sorted by merging each wave's winners into it; the
+parent forest is an append-only log of (parent, child) keys that, in a
+resident run, stays on the device and is searched there, one lookup per
+step, when a path is reconstructed.
 
 One wave, on the ``[W, n]`` lane-major frontier:
 
@@ -48,6 +49,20 @@ soundness.py:
   host-constant ample words are ANDed into every row's enabled words
   before the pair peel and the per-row count.
 
+The tiered visited set (``tier_hot_rows``, tier.py) caps the device
+keys at a hot ceiling and keeps the rest as sorted runs in host memory.
+Once the hot keys pass ``limit = min(ceiling, max(capacity -
+frontier_capacity, 1))`` at the top of a wave, the whole hot prefix
+spills to the host, and from then on each wave's hot-new winners are
+provisional: their keys are downloaded at the wave's sync, tested
+against the cold runs on the host, and only the survivors are
+committed. The spill test runs on the hot count BEFORE the wave's
+survivors merge in (what the JAX engine's deferred commit sees at its
+sync), so the spill schedule, ``tier_spills``, ``cold_rows`` and
+``hot_rows`` equal the JAX engine's at ``waves_per_sync=1``. A tiered
+run's parent log goes to host memory wave by wave; paths are walked
+there.
+
 ``target_state_count`` / ``target_max_depth`` stop the loop as in the
 JAX engine: after the wave that brings the visited count to the target,
 or with a wave at the target depth that evaluates properties but
@@ -71,6 +86,7 @@ order.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -87,6 +103,7 @@ from ..ops.fingerprint import (
 )
 from ..ops.merge import compact_winners_keys, member_keys, merge_keys
 from ..report import ReportData
+from ..tier import ColdStore
 from .common import symmetry_refusal
 from .tpu import (
     DENSE_CHUNK_BYTES,
@@ -114,6 +131,10 @@ class WaveState:
     generated: int = 0
     #: parent-log blocks: (parent keys, child keys), int64 each
     plog: list = field(default_factory=list)
+    #: the cold tier of a tiered run (tier.py): visited keys in host
+    #: memory, disjoint from ``vkeys``; None while the visited set is
+    #: wholly on the device
+    cold: Optional[ColdStore] = None
 
 
 def frontier_enabled_bits(enc, frontier_t, ample_words=None):
@@ -181,6 +202,75 @@ def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool,
     return succ_t, torch.where(ok, keys, SENTINEL_KEY), ok, eov, hits
 
 
+def host_parent_log(blocks) -> tuple:
+    """``(children, parents)``: a tiered run's host parent-log blocks as
+    int64 numpy arrays sorted by child key (each child is logged once),
+    so a path step is one binary search."""
+    if not blocks:
+        empty = np.zeros(0, np.int64)
+        return empty, empty
+    parents = np.concatenate([p for p, _ in blocks])
+    children = np.concatenate([c for _, c in blocks])
+    order = np.argsort(children, kind="stable")
+    return children[order], parents[order]
+
+
+class HotColdTier:
+    """The host side of a tiered run (tier.py): the cold store, the hot
+    count past which the hot prefix spills (``limit``), the host parent
+    log, and the walls of the spills, of waiting for the ingest worker
+    and of the cold membership searches."""
+
+    def __init__(self, cold: ColdStore, ceiling: Optional[int], limit: int):
+        self.cold = cold
+        self.ceiling = ceiling
+        self.limit = limit
+        #: (parent keys, child keys) int64 numpy blocks, wave by wave
+        self.plog: list = []
+        self.spill_sec = 0.0
+        self.ingest_wait_sec = 0.0
+        self.member_sec = 0.0
+
+    def spill(self, st: WaveState) -> None:
+        """Move the whole sorted hot prefix to the cold store (ingest on
+        the worker thread) and leave the device tier empty."""
+        t0 = time.monotonic()
+        self.cold.ingest([st.vkeys.cpu().numpy()])
+        st.vkeys = st.vkeys[:0]
+        self.spill_sec += time.monotonic() - t0
+
+    def drop_cold_members(self, is_new: torch.Tensor,
+                          s_key: torch.Tensor) -> int:
+        """Clear, in place, the ``is_new`` rows whose keys the cold runs
+        hold; return the count of rows left (the wave's truly new
+        keys). The provisional keys go to the host at the wave's one
+        sync."""
+        idx = is_new.nonzero().squeeze(1)
+        q = s_key[idx].cpu().numpy()
+        t0 = time.monotonic()
+        self.cold.sync()
+        t1 = time.monotonic()
+        hit = self.cold.member(0, q)
+        self.ingest_wait_sec += t1 - t0
+        self.member_sec += time.monotonic() - t1
+        n_hit = int(hit.sum())
+        if n_hit:
+            is_new[idx[torch.from_numpy(hit).to(idx.device)]] = False
+        return q.size - n_hit
+
+    def metrics(self, hot_rows: int) -> dict:
+        """The JAX engine's tier metrics, with the walls."""
+        self.cold.sync()
+        s = self.cold.summary()
+        return dict(tier_spills=s["spills"], cold_rows=s["cold_rows_total"],
+                    cold_bytes=s["cold_bytes_total"], hot_rows=hot_rows,
+                    hot_ceiling_rows=self.ceiling, cold_runs=s["runs"],
+                    ingest_sec=s["ingest_sec"],
+                    spill_wall_sec=round(self.spill_sec, 6),
+                    ingest_wait_sec=round(self.ingest_wait_sec, 6),
+                    cold_member_sec=round(self.member_sec, 6))
+
+
 class SortMergeTpuBfsChecker(TpuBfsChecker):
     """``CheckerBuilder.spawn_sortmerge()``.
 
@@ -200,6 +290,16 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     the run refuses, when it starts, on the dense wave, without a mask,
     or with a mask the gate does not certify (unless
     ``CheckerBuilder.unsound_ok()``).
+
+    ``tier_hot_rows`` arms the tiered visited set (tier.py): None (the
+    default) keeps every visited key on the device; an int ``>= 1`` is
+    the hot tier's ceiling in keys; ``"auto"`` takes the ceiling from
+    ``memplan.decide_hot_rows`` against ``tier_budget_bytes`` (2 GiB
+    when None, the JAX engine's default), priced over the visited
+    classes ``v_min`` times powers of ``v_ladder_step`` (the JAX
+    engine's ladder; the port sizes its waves exactly and has none).
+    ``tier_max_runs`` bounds the cold runs before they are compacted
+    into one. Once active, ``capacity`` bounds the hot tier only.
     """
 
     _engine_name = "spawn_sortmerge"
@@ -210,12 +310,24 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                  track_paths: bool = True, device=None,
                  sparse: Optional[bool] = None,
                  dense_chunk_bytes: int = DENSE_CHUNK_BYTES,
-                 ample_set: bool = False):
+                 ample_set: bool = False, tier_hot_rows=None,
+                 tier_budget_bytes: Optional[int] = None,
+                 tier_max_runs: int = 8, v_min: int = 1 << 19,
+                 v_ladder_step: int = 2):
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, device)
         self.sparse = sparse
         self.ample_set = bool(ample_set)
         self.dense_chunk_bytes = dense_chunk_bytes
+        if tier_hot_rows not in (None, "auto") and int(tier_hot_rows) < 1:
+            raise ValueError(f"tier_hot_rows must be >= 1: {tier_hot_rows}")
+        self.tier_hot_rows = tier_hot_rows
+        self.tier_budget_bytes = tier_budget_bytes
+        self.tier_max_runs = tier_max_runs
+        self.v_min = v_min
+        self.v_ladder_step = v_ladder_step
+        #: the hot-tier ceiling the last run resolved (None: untiered)
+        self._tier_hot_ceiling = None
         need = (("enabled_bits_cols", "step_slot_cols")
                 if self._use_sparse() else ("step_cols",))
         missing = [m for m in need if not hasattr(self.encoded, m)]
@@ -226,6 +338,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 f"{type(self.encoded).__name__} does not have"
             )
         self._start: Optional[WaveState] = None
+        #: the state the last run ended in
+        self._final: Optional[WaveState] = None
         #: optional ``threading.Event``: when set, the run returns at the
         #: top of its next wave with partial counts and ``cancelled``
         #: True (the hybrid racer's losing side; see checkers/hybrid.py)
@@ -310,11 +424,69 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         return WaveState(vkeys=torch.sort(keys).values, frontier=front,
                          ebits=ebits, generated=n0)
 
+    def _tier_ceiling(self) -> Optional[int]:
+        """The hot-tier ceiling in keys, None when the tier is off:
+        ``"auto"`` through ``memplan.decide_hot_rows`` (the JAX engine's
+        ``_tier_ceiling``)."""
+        if self.tier_hot_rows is None:
+            return None
+        if self.tier_hot_rows == "auto":
+            from ..memplan import decide_hot_rows
+
+            return decide_hot_rows(
+                self.capacity, self.v_min, self.v_ladder_step,
+                self.frontier_capacity, self.tier_budget_bytes or (1 << 31))
+        return min(int(self.tier_hot_rows), self.capacity)
+
+    def _tier_limit(self, ceiling: Optional[int]) -> int:
+        """The hot count past which the hot prefix spills: the ceiling,
+        kept a frontier's worth below the capacity."""
+        C = self.capacity
+        return min(ceiling if ceiling else C,
+                   max(C - self.frontier_capacity, 1))
+
+    def _tier_activate(self, st: WaveState,
+                       ceiling: Optional[int]) -> HotColdTier:
+        """Enter the tiered loop: the parent log so far goes to the host
+        and, past the limit, the hot prefix spills (the JAX engine's
+        activation)."""
+        if st.cold is None:
+            st.cold = ColdStore(max_runs=self.tier_max_runs)
+        elif st.cold.n_shards != 1:
+            raise ValueError(
+                f"the single-device engine takes a 1-shard cold store, got "
+                f"{st.cold.n_shards} shards: repartitioned(1) it first")
+        tier = HotColdTier(st.cold, ceiling, self._tier_limit(ceiling))
+        tier.plog = [(p.cpu().numpy(), c.cpu().numpy()) for p, c in st.plog]
+        st.plog = []
+        if st.vkeys.numel() > tier.limit:
+            tier.spill(st)
+        return tier
+
     def _run(self, reporter=None) -> None:
         self._check_device()
         ample_words = self._resolve_ample_words()
         st = self._start if self._start is not None else self.seed_state()
         self._start = None
+        ceiling = self._tier_hot_ceiling = self._tier_ceiling()
+        if st.vkeys.numel() > self.capacity:
+            raise RuntimeError(self._overflow_message("visited"))
+        self._unique_states = st.vkeys.numel() + (
+            0 if st.cold is None else st.cold.rows())
+        self._total_states = st.generated
+        self._max_depth = st.depth
+        tier = None
+        try:
+            if st.cold is not None:  # a start state with cold runs
+                tier = self._tier_activate(st, ceiling)
+            self._waves(st, ceiling, tier, ample_words, reporter)
+        finally:
+            # the ingest worker ends with the run, whatever ends it
+            if st.cold is not None:
+                st.cold.sync()
+
+    def _waves(self, st: WaveState, ceiling, tier, ample_words,
+               reporter) -> None:
         enc = self.encoded
         props = list(self.model.properties())
         evt_idx = self._eventually_indices(props)
@@ -327,11 +499,6 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         waves = max_cand = max_new = 0
         member_shape = merge_shape = (0, 0)
         done = st.frontier.shape[1] == 0
-        if st.vkeys.numel() > self.capacity:
-            raise RuntimeError(self._overflow_message("visited"))
-        self._unique_states = st.vkeys.numel()
-        self._total_states = st.generated
-        self._max_depth = st.depth
         sparse = self._use_sparse()
         chunk_rows = max(1, self.dense_chunk_bytes // (8 * enc.width * K))
         chunks = max_chunks = 0
@@ -340,6 +507,9 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             if cancel is not None and cancel.is_set():
                 self.cancelled = True
                 break
+            if (tier is None and ceiling is not None
+                    and st.vkeys.numel() > self._tier_limit(ceiling)):
+                tier = self._tier_activate(st, ceiling)
             front = st.frontier
             cond, eb, f_lo, f_hi = frontier_props_t(
                 enc, props, evt_idx, front, st.ebits, sym
@@ -376,10 +546,21 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             prev_same = torch.zeros_like(s_key, dtype=torch.bool)
             prev_same[1:] = s_key[1:] == s_key[:-1]
             fresh = (s_key != SENTINEL_KEY) & ~prev_same
+            hot_rows = st.vkeys.numel()
             is_new = fresh & ~member_keys(st.vkeys, s_key)
-            new_count = int(is_new.sum())
-            unique = st.vkeys.numel() + new_count
-            if unique > self.capacity:
+            if tier is None:
+                new_count = int(is_new.sum())
+                spill = False
+                over = hot_rows + new_count
+            else:
+                # the hot-new rows are provisional until the cold runs
+                # clear them; the spill test reads the hot count before
+                # this wave's survivors merge in
+                new_count = tier.drop_cold_members(is_new, s_key)
+                spill = hot_rows > tier.limit
+                over = (0 if spill else hot_rows) + new_count
+            unique = self._unique_states + new_count
+            if over > self.capacity:
                 raise RuntimeError(self._overflow_message("visited"))
             if new_count > self.frontier_capacity:
                 raise RuntimeError(self._overflow_message("frontier"))
@@ -387,19 +568,28 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                                                  new_count)
             par_row = rows[nf_pos]
             if self.track_paths and new_count:
-                st.plog.append((pack_keys(f_lo, f_hi)[par_row], w_key))
+                block = (pack_keys(f_lo, f_hi)[par_row], w_key)
+                if tier is None:
+                    st.plog.append(block)
+                else:
+                    tier.plog.append(tuple(t.cpu().numpy() for t in block))
+            if spill:
+                tier.spill(st)
+            merge_rows = st.vkeys.numel()
             if new_count:
                 st.vkeys = merge_keys(st.vkeys, w_key)
             st.frontier = succ_t[:, nf_pos]
             st.ebits = eb[par_row]
             st.generated += n_cand
             waves += 1
-            if keys.numel() > max_cand:
-                max_cand = keys.numel()
-                member_shape = (unique - new_count, max_cand)
-            if new_count > max_new:
-                max_new = new_count
-                merge_shape = (unique - new_count, new_count)
+            # the kernels' widest calls (a call on an empty hot tier
+            # launches nothing)
+            if hot_rows and keys.numel() > member_shape[1]:
+                member_shape = (hot_rows, keys.numel())
+            if merge_rows and new_count > merge_shape[1]:
+                merge_shape = (merge_rows, new_count)
+            max_cand = max(max_cand, keys.numel())
+            max_new = max(max_new, new_count)
 
             all_disc = bool(props) and len(self._discovered_fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
@@ -418,9 +608,9 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                     duration_sec=self.duration_sec(),
                     done=False,
                 ))
-        # the widest waves: the member kernel's query count and the
+        # the widest calls: the member kernel's query count and the
         # merge kernel's winner count at their largest, each with the
-        # visited-set size it met there: (Na, Nq) and (Na, Nb)
+        # (hot) visited-set size it met there: (Na, Nq) and (Na, Nb)
         self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
                             max_wave_new=max_new, member_shape=member_shape,
                             merge_shape=merge_shape,
@@ -430,17 +620,72 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             self.metrics.update(dense_chunks=chunks,
                                 max_wave_chunks=max_chunks,
                                 chunk_rows=chunk_rows)
+        if ceiling is not None:
+            self.metrics["hot_ceiling_rows"] = ceiling
+        if tier is not None:
+            self.metrics.update(tier.metrics(st.vkeys.numel()))
         self._final = st
         if self.track_paths and not self.cancelled:
-            # the log stays on the device: each path step is one
-            # device-side lookup, and nothing of it is downloaded
-            empty = st.vkeys.new_zeros(0)
-            self._plog = (
-                torch.cat([c for _, c in st.plog]) if st.plog else empty,
-                torch.cat([p for p, _ in st.plog]) if st.plog else empty,
-            )
+            if tier is None:
+                # the log stays on the device: each path step is one
+                # device-side lookup, and nothing of it is downloaded
+                empty = st.vkeys.new_zeros(0)
+                self._plog = (
+                    torch.cat([c for _, c in st.plog]) if st.plog else empty,
+                    torch.cat([p for p, _ in st.plog]) if st.plog else empty,
+                )
+            else:
+                self._plog = host_parent_log(tier.plog)
             for name, fp in self._discovered_fps.items():
                 self._discoveries[name] = self._reconstruct(fp)
+        self.memory_plan = self._sortmerge_memory_plan(
+            st, max_cand, tier is not None)
+
+    def _visited_bytes_per_row(self) -> int:
+        """Device bytes per visited state of a resident run: the key in
+        ``vkeys``, and the parent and child keys of the parent log when
+        paths are tracked (the JAX engine's 8 + 16)."""
+        return 8 + (16 if self.track_paths else 0)
+
+    def _memory_projection(self) -> dict:
+        """The keys and merge scratch at the next visited class (``v_min``
+        times powers of ``v_ladder_step`` up to ``capacity``, past it the
+        next capacity step): the JAX engine's ``next_v_class`` pricing
+        over the visited count (the hot count in a tiered run)."""
+        rows = (self._final.vkeys.numel() if self._final is not None
+                else self._unique_states)
+        ladder = [min(self.v_min, self.capacity)]
+        while ladder[-1] < self.capacity:
+            ladder.append(min(ladder[-1] * self.v_ladder_step,
+                              self.capacity))
+        idx = sum(1 for v in ladder[:-1] if max(rows, 1) > v)
+        nxt = (ladder[idx + 1] if idx + 1 < len(ladder)
+               else self.capacity * self.v_ladder_step)
+        F = self.frontier_capacity
+        return dict(kind="next_v_class", current_rows=int(ladder[idx]),
+                    next_rows=int(nxt),
+                    next_vkeys_bytes=int((nxt + F) * 8),
+                    next_merge_scratch_bytes=int((nxt + F) * 8))
+
+    def _sortmerge_memory_plan(self, st: WaveState, max_cand: int,
+                               tiered: bool) -> dict:
+        """The ledger of the tensors kept between waves, at the end of
+        the run (the parent log on the device only in a resident run),
+        and the widest wave's candidate staging."""
+        resident = dict(vkeys=st.vkeys, frontier=st.frontier,
+                        ebits=st.ebits)
+        host = {}
+        if self.track_paths and self._plog is not None:
+            names = ("plog_child", "plog_parent")
+            (host if tiered else resident).update(zip(names, self._plog))
+        if tiered:
+            host["cold_keys"] = ((st.cold.rows(),), np.int64)
+        W = self.encoded.width
+        staging = dict(candidates=((W, max_cand), np.int64),
+                       candidate_keys=((max_cand,), np.int64),
+                       sorted_keys=((max_cand,), np.int64),
+                       sorted_pos=((max_cand,), np.int64))
+        return self._memory_plan_of(resident, staging, host)
 
     def _expand_sparse(self, front, K: int, trivial: bool, ample_words):
         """The sparse expansion of one wave: ``(succ_t, keys, rows,

@@ -41,7 +41,13 @@ Three flags arm the reductions, as in the JAX lanes: ``--symmetry`` (the
 ``2pc`` and ``register`` lanes: canonical fingerprints before dedup,
 ops/canonical.py), ``--ample-set`` (any sparse lane whose encoding
 declares an ample mask) and ``--unsound-ok`` (run a spec or mask the
-port's gate, soundness.py, does not certify).
+port's gate, soundness.py, does not certify). ``--tier-hot-rows=N``
+(or ``=auto``) tiers the visited set of any ``check-gpu`` lane: at most
+N keys stay on the device and the rest spill to sorted runs in host
+memory (tier.py); ``auto`` takes N from ``memplan.decide_hot_rows``
+against the JAX lane's 2 GiB budget.
+
+    python -m stateright_tpu_torch 2pc check-gpu 3 --device cpu --tier-hot-rows=32
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ class RunFlags:
     symmetry: bool = False
     ample_set: bool = False
     unsound_ok: bool = False
+    #: the hot-tier ceiling of the tiered visited set: None (off), an
+    #: int >= 1, or "auto"
+    tier_hot_rows: int | str | None = None
 
     def spawn(self, model, symmetric: bool = False, **kw):
         """``model.checker()`` armed with these flags, spawned on the
@@ -78,7 +87,8 @@ class RunFlags:
         if self.unsound_ok:
             builder = builder.unsound_ok()
         return builder.spawn_sortmerge(device=self.device,
-                                       ample_set=self.ample_set, **kw)
+                                       ample_set=self.ample_set,
+                                       tier_hot_rows=self.tier_hot_rows, **kw)
 
 
 def _flags(flags) -> RunFlags:
@@ -88,7 +98,7 @@ def _flags(flags) -> RunFlags:
 
 def _pop_flags(argv: list[str]):
     """``(RunFlags, the other arguments)``."""
-    device, rest, on = "cuda", [], set()
+    device, rest, on, tier = "cuda", [], set(), None
     names = {"--symmetry": "symmetry", "--ample-set": "ample_set",
              "--unsound-ok": "unsound_ok"}
     it = iter(argv)
@@ -99,20 +109,31 @@ def _pop_flags(argv: list[str]):
             device = arg.split("=", 1)[1]
         elif arg in names:
             on.add(names[arg])
+        elif arg.startswith("--tier-hot-rows="):
+            val = arg.split("=", 1)[1]
+            # the JAX lane's check: a ceiling below one row is refused
+            if val != "auto" and int(val) < 1:
+                raise SystemExit(
+                    f"--tier-hot-rows={val}: the hot ceiling must "
+                    "be >= 1 row (or 'auto')"
+                )
+            tier = "auto" if val == "auto" else int(val)
         else:
             rest.append(arg)
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
-    return RunFlags(device, **{n: True for n in on}), rest
+    return RunFlags(device, tier_hot_rows=tier,
+                    **{n: True for n in on}), rest
 
 
 def _check(header: str, model, flags: RunFlags) -> None:
     """The ``check`` subcommand: ``header``, then the host DFS of
     ``model`` with the reference-format report."""
-    if flags.symmetry or flags.ample_set or flags.unsound_ok:
+    if (flags.symmetry or flags.ample_set or flags.unsound_ok
+            or flags.tier_hot_rows is not None):
         raise SystemExit(
-            "--symmetry, --ample-set and --unsound-ok apply to check-gpu; "
-            "check runs the plain host DFS"
+            "--symmetry, --ample-set, --unsound-ok and --tier-hot-rows "
+            "apply to check-gpu; check runs the plain host DFS"
         )
     print(header)
     model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
@@ -442,6 +463,10 @@ def _usage() -> None:
           "[CLIENTS 1-8] [--symmetry] [--device cuda|cpu]")
     print("  python -m stateright_tpu_torch single-copy-register check-gpu "
           "[CLIENTS] [--device cuda|cpu]")
+    print("       every check-gpu lane takes [--tier-hot-rows=N|auto]: at "
+          "most N visited keys stay on the device, the rest spill to "
+          "sorted runs in host memory (tier.py); auto sizes N by the "
+          "memory plan (memplan.decide_hot_rows, 2 GiB budget)")
     print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "

@@ -1,12 +1,18 @@
-"""The hash engine's occupancy warning text.
+"""The one home of occupancy and headroom warning text.
 
-A copy of the JAX package's ``occupancy`` module, cut to its one
-consumer here, the hash engine's visited-table watch (checkers/tpu.py
-``_maybe_warn_occupancy`` — open addressing degrades before it
-overflows, so it warns at 70%), with its byte formatter
-(``memplan.format_bytes``) copied in: the warning reads as the JAX
-one does, "X% full (n/cap) [bytes of bytes]; what breaks past the
-cliff, which knob to turn".
+A copy of the JAX package's ``occupancy`` module. Consumers that watch
+a fixed-capacity device buffer fill up share one warning shape — "X%
+full (n/cap) [bytes of bytes]; what breaks past the cliff, which knob
+to turn":
+
+* the hash engine's visited-table watch (checkers/tpu.py
+  ``_maybe_warn_occupancy`` — open addressing degrades before it
+  overflows, so it warns at :data:`PROBE_PRESSURE_THRESHOLD`);
+* exact-capacity buffers (the sorted visited arrays), where nothing
+  degrades before 100% but one skewed wave past
+  :data:`HEADROOM_THRESHOLD` can overflow.
+
+The byte pricing goes through the one formatter, ``memplan.format_bytes``.
 """
 
 from __future__ import annotations
@@ -17,28 +23,43 @@ from typing import Optional
 #: degrades well before it is full).
 PROBE_PRESSURE_THRESHOLD = 0.7
 
-
-def format_bytes(n) -> str:
-    """Human-readable byte count ('-' for None)."""
-    if n is None:
-        return "-"
-    n = float(n)
-    for unit in ("B", "KB", "MB", "GB"):
-        if abs(n) < 1024.0 or unit == "GB":
-            return (f"{n:,.0f} {unit}" if unit == "B"
-                    else f"{n:,.2f} {unit}")
-        n /= 1024.0
-    return f"{n:,.2f} GB"
+#: headroom threshold for EXACT-capacity buffers (the sorted visited
+#: arrays): nothing degrades before 100%, but past this fill one skewed
+#: wave can overflow.
+HEADROOM_THRESHOLD = 0.8
 
 
-def occupancy_warning(occupancy: float, used: int, capacity: int,
-                      bytes_per_row: int) -> Optional[str]:
-    """The JAX engine's visited-table warning line, or None while
-    ``occupancy`` is at or under :data:`PROBE_PRESSURE_THRESHOLD`: the
-    fill in rows (``used`` of ``capacity``) and priced in bytes."""
-    if occupancy <= PROBE_PRESSURE_THRESHOLD:
+def occupancy_warning(
+    occupancy: float,
+    *,
+    kind: str = "visited table",
+    threshold: float = PROBE_PRESSURE_THRESHOLD,
+    used: Optional[int] = None,
+    capacity: Optional[int] = None,
+    bytes_per_row: Optional[int] = None,
+    consequence: str = (
+        "probe failures become likely past ~85% — consider a larger "
+        "capacity"
+    ),
+) -> Optional[str]:
+    """The warning line, or None while ``occupancy`` is at or under
+    ``threshold``. ``used``/``capacity`` add the counts in rows;
+    ``bytes_per_row`` also prices them in bytes (what the fill weighs
+    and what the full buffer would); ``consequence`` names what breaks
+    and which knob fixes it."""
+    if occupancy <= threshold:
         return None
-    return (f"visited table {occupancy:.0%} full ({used}/{capacity}) "
-            f"[{format_bytes(used * bytes_per_row)} of "
-            f"{format_bytes(capacity * bytes_per_row)}]; probe failures "
-            "become likely past ~85% — consider a larger capacity")
+    detail = (
+        f" ({used}/{capacity})"
+        if used is not None and capacity is not None
+        else ""
+    )
+    if (bytes_per_row is not None and used is not None
+            and capacity is not None):
+        from .memplan import format_bytes
+
+        detail += (
+            f" [{format_bytes(used * bytes_per_row)} of "
+            f"{format_bytes(capacity * bytes_per_row)}]"
+        )
+    return f"{kind} {occupancy:.0%} full{detail}; {consequence}"

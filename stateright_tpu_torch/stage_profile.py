@@ -10,6 +10,8 @@
     python -m stateright_tpu_torch.stage_profile --simulation paxos 4
     python -m stateright_tpu_torch.stage_profile --hash 9
     python -m stateright_tpu_torch.stage_profile --hash paxos 4
+    python -m stateright_tpu_torch.stage_profile --tier 1048576 9
+    python -m stateright_tpu_torch.stage_profile --tier 262144 paxos 4
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
@@ -26,7 +28,11 @@ on; paxos 4, 16,384 walks of 32 steps, 1 round, paths off), and adds
 the device operations a walk step. ``--hash`` profiles the hash wave
 engine (``spawn_hash``) at ``chip_smoke.py``'s configurations
 (:data:`HASH_CFG`: 2pc rm=9 in 2^25 slots, paths on; paxos 4 in 2^23
-slots, paths off) and adds the insert kernel's share.
+slots, paths off) and adds the insert kernel's share. ``--tier N``
+runs the sort-merge checker with the tiered visited set at a hot
+ceiling of N keys (``--tier-hot-rows=N``) and adds the engine's own
+host walls of the tier: the spills, the ingest on the worker thread,
+the waits for it and the cold membership searches (:func:`_tier_split`).
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -79,8 +85,9 @@ def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
 
     from .cli import RunFlags, paxos_checker, twopc_sizes
 
+    flags = flags or RunFlags()
     if model == "paxos":
-        return paxos_checker(n, sparse=sparse)
+        return paxos_checker(n, flags, sparse=sparse)
     if model == "2pc-actors":
         from .models.two_phase_commit_actors import (
             two_phase_sys_actor_model,
@@ -89,7 +96,7 @@ def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
 
         return two_phase_sys_actor_model(n).checker().spawn_sortmerge(
             encoded=two_phase_sys_compiled_encoded(n), **twopc_sizes(n),
-            device="cuda", sparse=sparse)
+            device="cuda", sparse=sparse, tier_hot_rows=flags.tier_hot_rows)
     if model == "abd":
         from .actor import Network
         from .models.linearizable_register import AbdModelCfg, abd_model
@@ -104,10 +111,11 @@ def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
             enc = m.to_encoded()
         return m.checker().spawn_sortmerge(
             encoded=enc, capacity=1 << 21, frontier_capacity=1 << 18,
-            track_paths=False, device="cuda", sparse=sparse)
+            track_paths=False, device="cuda", sparse=sparse,
+            tier_hot_rows=flags.tier_hot_rows)
     from .models.two_phase_commit import TwoPhaseSys
 
-    return (flags or RunFlags()).spawn(
+    return flags.spawn(
         TwoPhaseSys(rm_count=n), symmetric=True, **twopc_sizes(n),
         sparse=sparse)
 
@@ -211,6 +219,21 @@ def _canonicalizer_cost(run) -> dict:
             kernels.items(), key=lambda kv: -kv[1][1])})
 
 
+def _tier_split(metrics: dict, wall: float, busy_ms: float) -> dict:
+    """A tiered run's host walls (the engine's ``metrics``, seconds) and
+    their shares of the traced wall, beside the device busy share."""
+    keys = ("spill_wall_sec", "ingest_sec", "ingest_wait_sec",
+            "cold_member_sec")
+    out = {k: metrics.get(k) for k in ("tier_spills", "cold_rows",
+                                       "hot_rows", "hot_ceiling_rows",
+                                       "cold_runs", *keys)}
+    out["shares_of_traced_wall"] = dict(
+        device_busy=busy_ms / (wall * 1e3),
+        **{k: (metrics[k] / wall if metrics.get(k) is not None else None)
+           for k in keys})
+    return out
+
+
 def main(argv=None) -> int:
     from .cli import RunFlags
 
@@ -226,6 +249,10 @@ def main(argv=None) -> int:
         argv.remove("--dense")
         sparse = False
     on = {}
+    if "--tier" in argv:
+        i = argv.index("--tier")
+        on["tier_hot_rows"] = int(argv[i + 1])
+        del argv[i:i + 2]
     for flag, name in (("--symmetry", "symmetry"),
                        ("--ample-set", "ample_set")):
         if flag in argv:
@@ -311,7 +338,10 @@ def main(argv=None) -> int:
         "model": " ".join((["hash"] if hashed else [])
                           + [model, str(n), *extra]
                           + (["dense"] if sparse is False else [])
-                          + [f"--{k.replace('_', '-')}" for k in on]),
+                          + [f"--{k.replace('_', '-')}={v}"
+                             if v is not True else
+                             f"--{k.replace('_', '-')}"
+                             for k, v in on.items()]),
         "n": n,
         "unique": checker.unique_state_count(),
         "states": checker.state_count(),
@@ -328,6 +358,8 @@ def main(argv=None) -> int:
         "stages_ms": dict(sorted(stages.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(top),
         "canonicalizer": canon,
+        "tier": (_tier_split(traced.metrics, traced_wall, busy_ms)
+                 if flags.tier_hot_rows else None),
     }, indent=1))
     return 0
 
