@@ -75,7 +75,7 @@ it exits non-zero and prints no result. Phases, each ending in
    (1 + 8·9 = 73 orbits); every ``--symmetry`` run is held to the same
    run on the CPU (counts, ``states=``, depth, canonical hits,
    discovery fingerprints and paths, each path replayed);
-15. for every run of phases 4, 6-9, 11, 14, 20 and 23, each kernel against its
+15. for every run of phases 4, 6-9, 11, 14, 20, 23 and 24, each kernel against its
    plain version (exactly) and timed at that run's widest wave's
    shapes, each launch with L2 cold as the engine's calls find it;
 16. the device operations of one call of each kernel, counted in one
@@ -139,9 +139,32 @@ it exits non-zero and prints no result. Phases, each ending in
    CLI's flags (JAX's 2 GiB budget: dormant, no spill). Each prints
    ``sec=`` and peak memory beside the resident run's, the memory plan's
    ``resident_bytes``, the spill and ingest walls and the host time of
-   the cold membership.
+   the cold membership;
+24. checkpoints, resume and supervised recovery (checkpoint.py,
+   faultinject.py), the snapshots in a temporary directory deleted at
+   the end: ``2pc rm=9`` with paths and a snapshot every 4 waves, killed
+   (an injected raise, retries off) at the first snapshot wave past its
+   widest wave and resumed on the card — phase 4's counts, depth,
+   discovery fingerprints and replayed paths, both Merge Path kernels
+   launched, the snapshot bytes and write walls, the resume walls (read
+   and CRC, host, upload), ``sec=`` and peak memory beside phase 4's;
+   ``2pc rm=9`` with a raise mid-wave, recovered in one join (one
+   warning, phase 4's counts); ``--checkpoint-every=auto`` through the
+   CLI's flags (the cadence it picks, ``sec=`` beside phase 4's); ``2pc
+   rm=9`` tiered at phase 23's hot tier, a snapshot every wave, killed
+   at the wave of its second spill and resumed tiered (phase 4's counts,
+   phase 23's spills, cold plus hot rows equal to unique); ``hash 2pc
+   rm=9`` (2^25 slots, paths on) killed at wave 15 and resumed (phase
+   4's counts, the restored table holding the tag rule, the insert
+   kernel launched); ``2pc rm=5`` killed at wave 7 on the card and on
+   the CPU (the two snapshots' buffers equal; each resumed on the other
+   device to the uninterrupted run's fields and paths); and ``2pc
+   check-gpu 9`` in a process of its own killed by ``STPU_FAULTS`` at
+   the same wave (exit 137), then ``--resume`` in another (10,340,352).
+   The resumed sort-merge and hash runs join phases 15 and 22's kernel
+   checks at their widest waves.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22 and 23) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-24) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -160,10 +183,13 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import warnings
 
 #: device-memory rate and scalar peak of an H100 SXM (NVIDIA data
 #: sheet): the bound of a kernel is the larger of bytes / rate and
@@ -1927,6 +1953,346 @@ def rm9_tier_auto():
     return run
 
 
+# -- checkpoints, resume and fault recovery (checkpoint.py) ----------------
+
+#: waves between two snapshots of the 2pc rm=9 runs
+CKPT_EVERY_2PC9 = 4
+#: waves between two snapshots of the hash 2pc rm=9 run (a snapshot holds
+#: the 2^25-slot table: 512 MB of limbs), and the wave it is killed at
+CKPT_EVERY_HASH9 = 8
+CKPT_KILL_HASH9 = 15
+#: the wave of the supervised 2pc rm=9 run that raises mid-wave
+CKPT_FAULT_2PC9 = 21
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _ckpt_kill(checker, wave=None) -> dict:
+    """Run the checkpointing ``checker`` with retries off until a raise
+    armed at wave ``wave``'s boundary (after its snapshot) kills it, or
+    one the caller armed; return its snapshot counters, wall and peak
+    device memory above its start."""
+    import torch
+
+    from stateright_tpu_torch import faultinject
+
+    checker.max_fault_retries = 0
+    base = _mem_base()
+    if wave is not None:
+        faultinject.arm("raise", "chunk_boundary", wave)
+    t0 = time.monotonic()
+    try:
+        checker.join()
+    except faultinject.InjectedFault as exc:
+        print(f"  killed: {exc}", flush=True)
+    else:
+        raise AssertionError("the armed fault did not fire")
+    finally:
+        faultinject.disarm_all()
+    torch.cuda.synchronize()
+    stats = dict(checker._ckpt_stats, sec=time.monotonic() - t0,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    n = stats.get("snapshots", 0)
+    assert n, stats
+    stats["write_sec_per_snapshot"] = stats["snapshot_write_sec"] / n
+    print(f"  killed run: {stats}", flush=True)
+    return stats
+
+
+def _resumed(checker, snap, kernels=MERGE_KERNELS) -> dict:
+    """``checker`` resumed from ``snap`` and run through ``run_main``: the
+    resume's walls (read, CRC, checks and the host work in
+    ``resume_from``; the upload in the run) beside the run's."""
+    t0 = time.monotonic()
+    manifest = checker.resume_from(snap)
+    load = time.monotonic() - t0
+    run = run_main(checker, print_lines=1, kernels=kernels)
+    run["resume"] = dict(
+        wave=manifest["wave"], depth=manifest["depth"],
+        unique=manifest["unique"], snapshot_bytes=manifest["snapshot_bytes"],
+        load_sec=load, host_sec=run["metrics"].get("resume_host_sec"),
+        upload_sec=run["metrics"].get("resume_upload_sec"))
+    print(f"  resume: {run['resume']}", flush=True)
+    return run
+
+
+def _held_to_rm9(model, checker, run: dict) -> None:
+    """A 2pc rm=9 run's counts, depth, names and discovery fingerprints
+    equal phase 4's, and its paths replay."""
+    assert "2pc rm=9" in HAND, "the resident 2pc rm=9 phase did not pass"
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert (run["states"], run["depth"], run["fps"]) == (
+        HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"],
+        HAND["2pc rm=9 fps"]), run
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+
+
+@phase("2pc rm=9 killed and resumed (main path)")
+def rm9_resumed(resident: dict, tmp: str):
+    """``2pc rm=9`` with paths and a snapshot every 4 waves, killed at the
+    first snapshot wave past its widest wave and resumed on the card:
+    phase 4's counts, fingerprints and paths; the snapshot bytes and
+    walls, the resume walls, and ``sec=`` and peak memory beside phase
+    4's."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    sizes = twopc_sizes(9)
+    widest = resident["metrics"]["widest_wave"]
+    kill = next(w for w in range(CKPT_EVERY_2PC9 - 1, 1 << 20,
+                                 CKPT_EVERY_2PC9) if w > widest)
+    print(f"  widest wave {widest}, killed at wave {kill}", flush=True)
+    snap = os.path.join(tmp, "rm9.ckpt")
+    killed = _ckpt_kill(model.checker().spawn_sortmerge(
+        checkpoint_every=CKPT_EVERY_2PC9, checkpoint_path=snap, **sizes),
+        kill)
+    checker = model.checker().spawn_sortmerge(**sizes)
+    run = _resumed(checker, snap)
+    _held_to_rm9(model, checker, run)
+    assert run["resume"]["wave"] == kill + 1, run["resume"]
+    print(f"  resumed sec={run['sec']:.3f} against phase 4's "
+          f"{resident['sec']:.3f}; peak_mem_bytes {run['peak_mem_bytes']} "
+          f"(killed run {killed['peak_mem_bytes']}) against phase 4's "
+          f"{resident['peak_mem_bytes']}", flush=True)
+    run.update(killed=killed, kill_wave=kill, widest_wave=widest)
+    return run
+
+
+@phase("2pc rm=9 supervised recovery")
+def rm9_recovery(tmp: str):
+    """``2pc rm=9`` with a snapshot every 4 waves and a raise mid-wave:
+    one recovery warning, phase 4's counts and fingerprints in one
+    join."""
+    from stateright_tpu_torch import faultinject
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = model.checker().spawn_sortmerge(
+        checkpoint_every=CKPT_EVERY_2PC9,
+        checkpoint_path=os.path.join(tmp, "recovery.ckpt"), **twopc_sizes(9))
+    checker.retry_backoff_sec = 0.01
+    faultinject.arm("raise", "mid_chunk", CKPT_FAULT_2PC9)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = run_main(checker, print_lines=1)
+    finally:
+        faultinject.disarm_all()
+    rec = [str(w.message) for w in caught
+           if "supervised recovery" in str(w.message)]
+    print(f"  {rec}", flush=True)
+    assert len(rec) == 1, rec
+    assert run["metrics"]["fault_recoveries"] == 1, run["metrics"]
+    _held_to_rm9(model, checker, run)
+    return run
+
+
+@phase("2pc check-gpu 9 --checkpoint-every=auto")
+def rm9_auto(resident: dict, tmp: str):
+    """The CLI's ``--checkpoint-every=auto`` at 2pc rm=9: the cadence
+    ``auto_cadence`` picks from the measured walls, and ``sec=`` beside
+    phase 4's (the snapshots' overhead)."""
+    from stateright_tpu_torch.cli import _pop_flags, twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    flags, rest = _pop_flags(["--checkpoint-every=auto",
+                              f"--checkpoint-path={tmp}/auto.ckpt"])
+    assert rest == [] and flags.checkpoint_every == "auto", flags
+    model = TwoPhaseSys(rm_count=9)
+    checker = flags.spawn(model, symmetric=True, **twopc_sizes(9))
+    run = run_main(checker, print_lines=1)
+    m = run["metrics"]
+    print(f"  auto cadence: every {m['checkpoint_every']} waves, "
+          f"{m.get('snapshots', 0)} snapshots, write "
+          f"{m.get('snapshot_write_sec', 0.0):.3f}s; sec={run['sec']:.3f} "
+          f"against phase 4's {resident['sec']:.3f}", flush=True)
+    _held_to_rm9(model, checker, run)
+    return run
+
+
+@phase("2pc rm=9 tiered killed and resumed")
+def rm9_tiered_resumed(tiered: dict | None, tmp: str):
+    """``2pc rm=9`` at phase 23's 2^20-key hot tier with a snapshot every
+    wave, killed at the boundary of the wave of its second spill, resumed
+    tiered: phase 4's counts and fingerprints, phase 23's spills, and
+    cold plus hot rows equal to unique."""
+    from stateright_tpu_torch import faultinject
+    from stateright_tpu_torch.checkers.tpu_sortmerge import HotColdTier
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    sizes = twopc_sizes(9)
+    snap = os.path.join(tmp, "tiered.ckpt")
+    spilled = []
+    real = HotColdTier.spill
+
+    def spill(self, st):
+        spilled.append(st.waves)
+        if len(spilled) == 2:  # killed at this wave's boundary
+            faultinject.arm("raise", "chunk_boundary", st.waves)
+        real(self, st)
+
+    HotColdTier.spill = spill
+    try:
+        killed = _ckpt_kill(model.checker().spawn_sortmerge(
+            tier_hot_rows=TIER_HOT_2PC9, tier_max_runs=TIER_MAX_RUNS_2PC9,
+            checkpoint_every=1, checkpoint_path=snap, **sizes))
+    finally:
+        HotColdTier.spill = real
+    print(f"  spills at waves {spilled}", flush=True)
+    checker = model.checker().spawn_sortmerge(
+        tier_hot_rows=TIER_HOT_2PC9, tier_max_runs=TIER_MAX_RUNS_2PC9,
+        **sizes)
+    run = _resumed(checker, snap)
+    m = run["metrics"]
+    _held_to_rm9(model, checker, run)
+    assert m["cold_rows"] + m["hot_rows"] == run["unique"], m
+    if tiered:
+        assert m["tier_spills"] == tiered["metrics"]["tier_spills"], m
+    run.update(killed=killed, spill_waves=spilled)
+    tier_report(run, tiered)
+    return run
+
+
+@phase("hash 2pc rm=9 killed and resumed (main path)")
+def hash_rm9_resumed(tmp: str):
+    """``hash 2pc rm=9`` (paths on, 2^25 slots) with a snapshot every 8
+    waves, killed at wave 15 and resumed: 10,340,352 with phase 4's
+    ``states=``, depth and names; the table the resume builds holds the
+    tag rule (``DeviceHashSet.from_keys``), and the insert kernel
+    launches in the resumed run."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.ops.hashset import DeviceHashSet
+
+    model = TwoPhaseSys(rm_count=9)
+    snap = os.path.join(tmp, "hash9.ckpt")
+    killed = _ckpt_kill(_hash(model, capacity=HASH_SLOTS,
+                              checkpoint_every=CKPT_EVERY_HASH9,
+                              checkpoint_path=snap), CKPT_KILL_HASH9)
+    built = []
+    real = DeviceHashSet.from_keys
+
+    def from_keys(keys):
+        table = real(keys)
+        built.append(_tag_rule_holds(table))
+        return table
+
+    DeviceHashSet.from_keys = staticmethod(from_keys)
+    try:
+        checker = _hash(model, capacity=HASH_SLOTS)
+        run = _resumed(checker, snap, kernels=HASH_KERNELS)
+    finally:
+        DeviceHashSet.from_keys = staticmethod(real)
+    print(f"  restored table holds the tag rule: {built}", flush=True)
+    assert built == [True], built
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert (run["states"], run["depth"]) == (
+        HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"]), run
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    run["killed"] = killed
+    return run
+
+
+@phase("checkpoints, card vs CPU")
+def ckpt_card_vs_cpu(tmp: str):
+    """``2pc rm=5`` with paths killed at wave 7 on the card and on the
+    CPU: the two snapshots hold equal buffers; the card's resumes on the
+    CPU and the CPU's on the card, each to the uninterrupted run's
+    counts, fingerprints and paths."""
+    import numpy as np
+
+    from stateright_tpu_torch.checkpoint import load_snapshot
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+
+    def spawn(device, **kw):
+        return model.checker().spawn_sortmerge(
+            capacity=1 << 15, frontier_capacity=1 << 13, device=device, **kw)
+
+    base = spawn("cpu").join()
+    snaps = {}
+    for device in ("cuda", "cpu"):
+        snaps[device] = os.path.join(tmp, f"rm5_{device}.ckpt")
+        _ckpt_kill(spawn(device, checkpoint_every=1,
+                         checkpoint_path=snaps[device]), 7)
+    a, b = (load_snapshot(snaps[d])[1] for d in ("cuda", "cpu"))
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        c = spawn(dst)
+        c.resume_from(snaps[src])
+        c.join()
+        print(f"  {src} snapshot on {dst}: states={c.state_count()} "
+              f"unique={c.unique_state_count()} depth={c.max_depth()}",
+              flush=True)
+        assert (c.unique_state_count(), c.state_count(), c.max_depth(),
+                c.discovery_fingerprints()) == (
+            base.unique_state_count(), base.state_count(),
+            base.max_depth(), base.discovery_fingerprints()), (src, dst)
+        for name, path in c.discoveries().items():
+            assert path.encode() == base.discovery(name).encode(), name
+            assert _replays(model, path, model.property_by_name(name)), name
+    assert base.unique_state_count() == 8832
+
+
+@phase("2pc check-gpu 9 killed by STPU_FAULTS, then --resume")
+def rm9_cli_kill(kill_wave: int, tmp: str):
+    """The CLI in a process of its own, killed by ``STPU_FAULTS`` at a
+    snapshot wave's boundary (exit 137), then ``--resume`` in another:
+    10,340,352."""
+    snap = os.path.join(tmp, "cli.ckpt")
+    args = [sys.executable, "-m", "stateright_tpu_torch", "2pc",
+            "check-gpu", "9", f"--checkpoint-every={CKPT_EVERY_2PC9}",
+            f"--checkpoint-path={snap}"]
+    env = dict(os.environ, STPU_FAULTS=f"kill@chunk_boundary:{kill_wave}")
+    t0 = time.monotonic()
+    p = subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    print(f"  killed process: exit {p.returncode} in "
+          f"{time.monotonic() - t0:.3f}s", flush=True)
+    assert p.returncode == 137, (p.returncode, p.stderr[-2000:])
+    env.pop("STPU_FAULTS")
+    t0 = time.monotonic()
+    p = subprocess.run(args[:-2] + ["--resume", f"--checkpoint-path={snap}"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.startswith(("resuming from", "Done."))]
+    print(f"  resumed process: exit {p.returncode} in "
+          f"{time.monotonic() - t0:.3f}s: {lines}", flush=True)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert lines and lines[0].startswith("resuming from"), lines
+    assert any("unique=10340352," in ln for ln in lines), lines
+
+
+def checkpoint_phases(resident, tiered) -> tuple:
+    """Phase 24: ``(runs, hashes, others)`` of the checkpoint paths, their
+    snapshots in a temporary directory deleted at the end."""
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-ckpt-") as tmp:
+        main_run = rm9_resumed(resident, tmp) if resident else None
+        runs = {"2pc rm=9 resumed": main_run}
+        others = {"2pc rm=9 supervised recovery": rm9_recovery(tmp),
+                  "2pc rm=9 --checkpoint-every=auto": rm9_auto(resident,
+                                                               tmp),
+                  "2pc rm=9 tiered resumed": rm9_tiered_resumed(tiered, tmp)}
+        hashes = {"hash 2pc rm=9 resumed": hash_rm9_resumed(tmp)}
+        ckpt_card_vs_cpu(tmp)
+        if main_run:
+            rm9_cli_kill(main_run["kill_wave"], tmp)
+        else:
+            FAILED.append("2pc check-gpu 9 killed by STPU_FAULTS, then "
+                          "--resume")
+    return runs, hashes, others
+
+
 def main() -> int:
     import torch
 
@@ -1977,6 +2343,10 @@ def main() -> int:
     rm5_tiered()
     tiered["2pc rm=9 --tier-hot-rows=auto"] = rm9_tier_auto()
     runs.update(tiered)
+    ckpt_runs, ckpt_hashes, ckpts = checkpoint_phases(
+        runs["2pc rm=9"], tiered["2pc rm=9 tiered"])
+    runs.update(ckpt_runs)
+    hashes.update(ckpt_hashes)
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -1995,7 +2365,7 @@ def main() -> int:
                      for path, run in hashes.items()}
     launches = {path: run and run["launches"]
                 for path, run in {**runs, **lanes, **sims, **hybrids,
-                                  **hashes}.items()}
+                                  **hashes, **ckpts}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

@@ -50,8 +50,16 @@ dense step (:meth:`~CompiledActorEncoding.step_cols`, the JAX
 ``step_vec``: every slot of every state from the per-slot transition
 tables, with its count- and queue-bound ``trunc`` flag). The engine
 runs the sparse one unless asked for ``sparse=False``. ``optimize=False``
-(the naive sparse emission, an ablation baseline) and the symmetry and
-ample-set declarations (ROADMAP item 11) raise ``NotImplementedError``.
+(the naive sparse emission, an ablation baseline) raises
+``NotImplementedError``. The symmetry and ample-set declarations
+(``device_rewrite_spec``, ``ample_mask``) are taken, with the JAX
+package's validation, and the engines gate them (soundness.py).
+
+The encoding's identity (:meth:`CompiledActorEncoding.cache_key`, which
+a snapshot's encoding fingerprint reads, checkpoint.py) is the port's
+own: it hashes the spec functions, and the port's are not the JAX
+package's, so a compiled snapshot resumes only in the package that
+wrote it.
 
 **Limits** (checked, as in the JAX package): ordered (FIFO) networks
 need per-channel queue bounds — harvested (``closure="reachable"``) or
@@ -447,6 +455,50 @@ class CompiledActorEncoding(EncodedModelBase):
                     f"encoding's {self.max_actions}-slot mask needs "
                     f"{mask_words(self.max_actions)}"
                 )
+
+    def cache_key(self):
+        """This compilation's identity: the JAX ``cache_key``'s fields
+        under a tag of its own (``"torch-actor-compile"``). The property
+        and boundary specs enter by their bytecode and captured values
+        (a captured function by its own), so two compilations with
+        different specs never share an identity;
+        a JAX compilation's specs are other functions, so its identity is
+        another (a JAX compiled snapshot is stale here)."""
+        def code_fp(code):
+            # a nested code object enters by its bytecode, not its repr
+            # (which holds an address)
+            return (code.co_code, tuple(
+                code_fp(c) if hasattr(c, "co_code") else repr(c)
+                for c in code.co_consts))
+
+        def spec_fp(fn, depth=0):
+            # a captured function enters by its own code, so the identity
+            # is the same in every process
+            if fn is None:
+                return None
+            code = getattr(fn, "__code__", None)
+            if code is None or depth > 4:
+                return repr(fn)
+            cells = tuple(
+                spec_fp(c.cell_contents, depth + 1)
+                if callable(c.cell_contents) else repr(c.cell_contents)
+                for c in (fn.__closure__ or ()))
+            return (code_fp(code), cells)
+
+        return (
+            "torch-actor-compile", self.n, self.dup, self.lossy,
+            self.max_crashes,
+            tuple(tuple(stable_hash(s) for s in S) for S in self.S),
+            tuple(stable_hash(e) for e in self.E),
+            tuple(stable_hash(h) for h in self.H),
+            tuple((name, spec_fp(fn))
+                  for name, fn in sorted(self.property_specs.items())),
+            spec_fp(self.boundary_spec),
+            repr(self._spec) if self._spec is not None else None,
+            tuple(self._ample_mask) if self._ample_mask else None,
+            tuple(sorted((int(c[0]), int(c[1]), self.ch_q[c])
+                         for c in self.channels)) if self.ordered else None,
+        )
 
     def device_rewrite_spec(self):
         """The declared symmetry spec (compile_actor_model's

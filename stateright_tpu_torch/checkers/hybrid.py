@@ -57,12 +57,18 @@ class HybridChecker(Checker):
         #: both sides of the last race, ``{"host": ..., "device": ...}``
         #: (the loser with its partial counts and ``cancelled`` set)
         self.engines: dict = {}
+        #: the staged snapshot (:meth:`resume_from`): the DEVICE side
+        #: resumes from it and the host DFS starts fresh (it has no
+        #: snapshot), so both sides still explore the same space
+        self._resume_path = None
+        self._resume_kw: dict = {}
 
     def resume_from(self, path: str, **kw) -> None:
-        raise NotImplementedError(
-            "hybrid resume_from: device checkpoints are not ported yet "
-            "(ROADMAP item 16)"
-        )
+        """Stage a sort-merge snapshot for the next run's device side
+        (checkpoint.resume_from; it is validated when the race builds
+        its device checker)."""
+        self._resume_path = path
+        self._resume_kw = kw
 
     def _device(self):
         """The device side, its device checked and its kernels built."""
@@ -71,6 +77,8 @@ class HybridChecker(Checker):
 
         device = SortMergeTpuBfsChecker(self.builder, **self._device_kwargs)
         device._check_device()
+        if self._resume_path is not None:
+            device.resume_from(self._resume_path, **self._resume_kw)
         if device.device.type == "cuda":
             merge._lib()
         return device

@@ -35,12 +35,15 @@ the JAX engine's messages.
 
 from __future__ import annotations
 
+import threading
+import time
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import checkpoint, faultinject
 from ..checker import Checker, CheckerBuilder
 from ..model import Expectation
 from ..occupancy import occupancy_warning
@@ -199,7 +202,8 @@ class TpuBfsChecker(Checker):
                  frontier_capacity: Optional[int] = None,
                  track_paths: bool = True, device=None, *,
                  cand_capacity: Optional[int] = None,
-                 probe_rounds: int = 16):
+                 probe_rounds: int = 16, checkpoint_every=None,
+                 checkpoint_path: Optional[str] = None):
         super().__init__(builder)
         if encoded is None:
             to_encoded = getattr(builder.model, "to_encoded", None)
@@ -242,6 +246,191 @@ class TpuBfsChecker(Checker):
         #: the resident-buffer ledger of the last run (memplan.py): see
         #: :meth:`_memory_plan_of`
         self.memory_plan: Optional[dict] = None
+        self._init_durability(checkpoint_every, checkpoint_path)
+
+    # -- checkpoints and supervision (checkpoint.py) ------------------------
+
+    def _init_durability(self, checkpoint_every, checkpoint_path) -> None:
+        """The JAX engines' checkpoint, supervision and watchdog
+        settings (JAX ``checkers/tpu.py``), with their defaults."""
+        if checkpoint_every not in (None, "auto") and checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1: {checkpoint_every}")
+        #: a snapshot every N waves (``"auto"``: the cadence
+        #: ``checkpoint.auto_cadence`` derives from the measured snapshot
+        #: and wave walls, every wave until both exist); None: off
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_path = checkpoint_path or (
+            checkpoint.DEFAULT_PATH if checkpoint_every else None)
+        #: the supervisor's retry budget and backoff base
+        self.max_fault_retries = 3
+        self.retry_backoff_sec = 0.5
+        #: the watchdog: None (off) or the factor of the rolling maximum
+        #: wave wall a wave may take, clamped to [floor, cap]; the grace
+        #: covers the first wave (kernel builds)
+        self.watchdog_factor = None
+        self.watchdog_floor_sec = 2.0
+        self.watchdog_cap_sec = 600.0
+        self.watchdog_grace_sec = 300.0
+        self._wd_roll_max = None
+        self._ckpt_auto_every = 1
+        #: (manifest, staged state) from :meth:`resume_from`, consumed by
+        #: the next attempt
+        self._resume = None
+        self._resume_path = None
+        self._resume_allow_sha = False
+        self._last_snapshot = None
+        #: the run started from a caller's state (``start_from``), which
+        #: a retry without a snapshot cannot return to
+        self._started_from_state = False
+        #: the checkpoint and recovery counters that ride ``metrics``
+        self._ckpt_stats: dict = {}
+        #: the current attempt's token: a wave thread the watchdog
+        #: abandoned finds it changed and stops before its sync, and the
+        #: host thread publishes nothing of an abandoned attempt
+        self._attempt_token = None
+
+    def _run(self, reporter=None) -> None:
+        """One run, supervised (checkpoint.supervised_run)."""
+        checkpoint.supervised_run(self, reporter)
+
+    def resume_from(self, path: str, allow_sha_mismatch: bool = False
+                    ) -> dict:
+        """Stage the snapshot at ``path`` for the next run, which
+        continues from it (checkpoint.resume_from); returns its manifest.
+        Raises the named ``Snapshot*`` errors."""
+        return checkpoint.resume_from(self, path,
+                                      allow_sha_mismatch=allow_sha_mismatch)
+
+    def _checkpoint_family(self) -> str:
+        return "hash"
+
+    def _reset_for_resume(self) -> None:
+        """Drop a failed attempt's partial results before a retry;
+        discoveries come back from the snapshot's lanes."""
+        self._discovered_fps = {}
+        self._discoveries.clear()
+        self._total_states = self._unique_states = self._max_depth = 0
+        self.metrics = {}
+        self._plog = None
+        self.memory_plan = None
+
+    def _degrade_memory_lean(self) -> bool:
+        """The supervisor's hook after two OOMs: the hash engine has no
+        leaner mode (False)."""
+        return False
+
+    def _ckpt_cadence(self) -> int:
+        if self.checkpoint_every == "auto":
+            return self._ckpt_auto_every
+        return int(self.checkpoint_every)
+
+    def _begin_attempt(self) -> object:
+        """A new attempt's token (see ``_attempt_token``)."""
+        self._attempt_token = token = object()
+        self._ckpt_stats.setdefault("fault_recoveries", 0)
+        return token
+
+    def _abandoned(self, token) -> bool:
+        return self._attempt_token is not token
+
+    def _publish(self, token, fps: dict, unique: int, total: int,
+                 depth: int) -> None:
+        """Write an attempt's discoveries and counters to the checker, on
+        the host thread after each wave, unless the watchdog abandoned
+        the attempt. A wave writes only its attempt's own locals: a wave
+        thread the watchdog gave up on may still finish its sync while
+        the retry runs, and nothing it finds may reach the retry."""
+        if self._abandoned(token):
+            return
+        self._discovered_fps.update(fps)
+        self._unique_states, self._total_states = unique, total
+        self._max_depth = depth
+
+    def _guarded_wave(self, thunk, w: int):
+        """Run one wave's issue and sync: inline, or with
+        ``watchdog_factor`` set on a daemon worker thread that the host
+        waits on at most the derived deadline, raising
+        ``checkpoint.WatchdogTimeout`` past it (the thread is abandoned:
+        a CUDA sync cannot be cancelled)."""
+        if not self.watchdog_factor:
+            return thunk()
+        deadline = checkpoint.watchdog_deadline(
+            self._wd_roll_max, self.watchdog_factor,
+            floor_sec=self.watchdog_floor_sec, cap_sec=self.watchdog_cap_sec,
+            first_grace_sec=self.watchdog_grace_sec)
+        box: dict = {}
+        done = threading.Event()
+
+        def run():
+            try:
+                box["out"] = thunk()
+            except BaseException as exc:  # raised on the host side
+                box["exc"] = exc
+            finally:
+                done.set()
+
+        t0 = time.monotonic()
+        threading.Thread(target=run, daemon=True,
+                         name=f"stpu-torch-watchdog-wave{w}").start()
+        if not done.wait(deadline):
+            self._attempt_token = None  # the wave thread is abandoned
+            raise checkpoint.WatchdogTimeout(w, deadline, dict(
+                chunk=int(w), deadline_sec=round(deadline, 3),
+                rolling_max_chunk_sec=self._wd_roll_max,
+                factor=float(self.watchdog_factor),
+                waited_sec=round(time.monotonic() - t0, 3)))
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
+
+    def _wave_done(self, w: int, wave_sec: float, done: bool,
+                   buffers_fn) -> None:
+        """After wave ``w`` of this attempt (its sync done): feed the
+        watchdog, write the snapshot when the cadence asks (never on the
+        last wave), then fire the ``chunk_boundary`` fault site — JAX's
+        order, so a kill there leaves the snapshot committed.
+        ``buffers_fn()`` gives ``(buffers, tier block)``."""
+        if self.watchdog_factor and (self._wd_roll_max is None
+                                     or wave_sec > self._wd_roll_max):
+            self._wd_roll_max = wave_sec
+        if (self.checkpoint_every and not done
+                and (w + 1) % self._ckpt_cadence() == 0):
+            t0 = time.monotonic()
+            buffers, tier_block = buffers_fn()
+            capture_sec = time.monotonic() - t0
+            manifest = checkpoint.write_snapshot(
+                self, buffers, self.checkpoint_path, chunk=w,
+                tier_block=tier_block)
+            snap_sec = time.monotonic() - t0
+            stats = self._ckpt_stats
+            stats["snapshots"] = stats.get("snapshots", 0) + 1
+            stats["snapshot_bytes"] = manifest["snapshot_bytes"]
+            stats["snapshot_bytes_total"] = (
+                stats.get("snapshot_bytes_total", 0)
+                + manifest["snapshot_bytes"])
+            # the whole write, and of it the download and limb split
+            stats["snapshot_write_sec"] = round(
+                stats.get("snapshot_write_sec", 0.0) + snap_sec, 6)
+            stats["snapshot_capture_sec"] = round(
+                stats.get("snapshot_capture_sec", 0.0) + capture_sec, 6)
+            stats["snapshot_write_max_sec"] = round(
+                max(stats.get("snapshot_write_max_sec", 0.0), snap_sec), 6)
+            if self.checkpoint_every == "auto":
+                self._ckpt_auto_every = checkpoint.auto_cadence(
+                    snap_sec, wave_sec)
+        faultinject.fire("chunk_boundary", w)
+
+    def _ckpt_metrics(self) -> dict:
+        """The checkpoint counters for ``metrics``: none on a run that
+        neither checkpointed, resumed nor recovered."""
+        stats = dict(self._ckpt_stats)
+        if not (self.checkpoint_every or self._resume_path
+                or stats.get("fault_recoveries")):
+            return {}
+        if self.checkpoint_every:
+            stats["checkpoint_every"] = self._ckpt_cadence()
+        return stats
 
     def _resolve_symmetry(self):
         """The hash engine keys its table on raw-state fingerprints with
@@ -288,10 +477,12 @@ class TpuBfsChecker(Checker):
             )
         return np.stack(rows) if rows else np.zeros((0, W), np.uint32)
 
-    def _overflow_message(self, kind: str) -> str:
+    def _overflow_message(self, kind: str, fps: Optional[dict] = None
+                          ) -> str:
         """The JAX engines' overflow messages (``visited``, ``frontier``,
         ``candidates``, ``encoding``), with the discoveries made before
-        the raise — they stay readable on the checker."""
+        the raise (``fps``, the attempt's own, default the checker's) —
+        they stay readable on the checker."""
         msg = {
             "visited": (
                 f"visited table overflow (capacity={self.capacity}); "
@@ -317,10 +508,11 @@ class TpuBfsChecker(Checker):
                 "wider fields."
             ),
         }[kind]
-        if self._discovered_fps:
+        found = self._discovered_fps if fps is None else fps
+        if found:
             msg += (
                 "  Discoveries recorded before truncation (valid "
-                f"counterexamples): {sorted(self._discovered_fps)} — "
+                f"counterexamples): {sorted(found)} — "
                 "read them via discovered_property_names() / "
                 "discovery_fingerprints() after catching this error."
             )
@@ -378,7 +570,52 @@ class TpuBfsChecker(Checker):
             warnings.warn(msg, RuntimeWarning, stacklevel=5)
         return msg is not None
 
-    def _run(self, reporter=None) -> None:
+    def _hash_start(self):
+        """``(table, parents, frontier, ebits, unique, generated, depth,
+        waves)``: the init states inserted, or a staged snapshot rebuilt
+        (the table through ``DeviceHashSet.from_keys``, which keeps the
+        insert kernel's tag rule)."""
+        dev = self.device
+        resume, self._resume = self._resume, None
+        if resume is not None:
+            t0 = time.monotonic()
+            staged = resume[1]
+            # the tag rule: a restored table is built whole, never copied
+            table = DeviceHashSet.from_keys(
+                torch.from_numpy(staged["keys"]).to(dev))
+            parents = torch.full((0,), EMPTY, dtype=torch.int64, device=dev)
+            if self.track_paths:
+                parents = torch.from_numpy(staged["parents"]).to(dev)
+            front = torch.from_numpy(staged["frontier"]).to(dev)
+            ebits = torch.from_numpy(staged["ebits"]).to(dev)
+            self._discovered_fps.update(staged["discovered"])
+            if front.shape[1] > self.frontier_capacity:
+                raise RuntimeError(self._overflow_message("frontier"))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self._ckpt_stats["resume_upload_sec"] = round(
+                time.monotonic() - t0, 6)
+            return (table, parents, front, ebits, staged["unique"],
+                    staged["generated"], staged["depth"], staged["waves"])
+        init = self._init_rows()
+        n0 = init.shape[0]
+        front = torch.from_numpy(init.astype(np.int64).T.copy()).to(dev)
+        table = DeviceHashSet.empty(self.capacity, dev)
+        # parent key of each slot's state; EMPTY (the packed (0, 0)) marks
+        # a root, as the JAX engine's parent 0 does
+        parents = torch.full((self.capacity if self.track_paths else 0,),
+                             EMPTY, dtype=torch.int64, device=dev)
+        _, _, over, _ = insert(table, pack_keys(*fingerprint_u32v_t(front)),
+                               None, self.probe_rounds)
+        self._unique_states, self._total_states = n0, n0
+        self._max_depth = 1
+        if bool(over.any()):
+            raise RuntimeError(self._overflow_message("visited"))
+        ebits = torch.full((n0,), self._eventually_bits_init(),
+                           dtype=torch.int64, device=dev)
+        return table, parents, front, ebits, n0, n0, 1, 0
+
+    def _run_attempt(self, reporter=None) -> None:
         self._check_device()
         if self.builder._visitor is not None:
             raise ValueError(
@@ -390,38 +627,29 @@ class TpuBfsChecker(Checker):
                 "the hash engine needs step_cols, which "
                 f"{type(self.encoded).__name__} does not have"
             )
+        token = self._begin_attempt()
         enc = self.encoded
         props = list(self.model.properties())
         evt_idx = self._eventually_indices(props)
         dev = self.device
-        init = self._init_rows()
-        n0 = init.shape[0]
-        front = torch.from_numpy(init.astype(np.int64).T.copy()).to(dev)
-        table = DeviceHashSet.empty(self.capacity, dev)
-        # parent key of each slot's state; EMPTY (the packed (0, 0)) marks
-        # a root, as the JAX engine's parent 0 does
-        parents = torch.full((self.capacity if self.track_paths else 0,),
-                             EMPTY, dtype=torch.int64, device=dev)
-        _, _, over, _ = insert(table, pack_keys(*fingerprint_u32v_t(front)),
-                               None, self.probe_rounds)
-        unique = generated = n0
-        depth = 1
+        (table, parents, front, ebits, unique, generated, depth,
+         waves) = self._hash_start()
         self._unique_states, self._total_states = unique, generated
         self._max_depth = depth
-        if bool(over.any()):
-            raise RuntimeError(self._overflow_message("visited"))
-        ebits = torch.full((n0,), self._eventually_bits_init(),
-                           dtype=torch.int64, device=dev)
+        fps = dict(self._discovered_fps)  # this attempt's discoveries
         chunk_rows = max(1, DENSE_CHUNK_BYTES
                          // (8 * enc.width * enc.max_actions))
         trivial = enc.trivial_boundary
         target_states = self.builder._target_state_count
         target_depth = self.builder._target_max_depth
-        waves = max_cand = 0
+        max_cand = 0
         insert_shape = (0, 0, 0)
         warned = False
-        done = n0 == 0
-        while not done:
+        done = front.shape[1] == 0
+
+        def wave(w: int) -> bool:
+            nonlocal front, ebits, unique, generated, depth, waves
+            nonlocal max_cand, insert_shape
             cond, eb, f_lo, f_hi = frontier_props_t(enc, props, evt_idx,
                                                     front, ebits)
             if target_depth is not None and depth >= target_depth:
@@ -433,10 +661,14 @@ class TpuBfsChecker(Checker):
             else:
                 succ_t, rows, has_succ, trunc, _ = dense_candidates(
                     enc, front, trivial, chunk_rows)
+            # the fault site between the wave's issue and its sync
+            faultinject.fire("mid_chunk", w)
+            if self._abandoned(token):
+                raise RuntimeError("wave abandoned by the watchdog")
             if props:
                 disc = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
                                  f_lo, f_hi)
-                discovery_update(props, *disc, self._discovered_fps)
+                discovery_update(props, *disc, fps)
             n_cand = rows.numel()
             cand_over = (self.cand_capacity is not None
                          and n_cand > self.cand_capacity)
@@ -454,13 +686,13 @@ class TpuBfsChecker(Checker):
             new_count = flags[1]
             # the JAX engine's order of verdicts
             if flags[0]:
-                raise RuntimeError(self._overflow_message("visited"))
+                raise RuntimeError(self._overflow_message("visited", fps))
             if new_count > self.frontier_capacity:
-                raise RuntimeError(self._overflow_message("frontier"))
+                raise RuntimeError(self._overflow_message("frontier", fps))
             if cand_over:
-                raise RuntimeError(self._overflow_message("candidates"))
+                raise RuntimeError(self._overflow_message("candidates", fps))
             if len(flags) > 2 and flags[2]:
-                raise RuntimeError(self._overflow_message("encoding"))
+                raise RuntimeError(self._overflow_message("encoding", fps))
 
             new_idx = is_new.nonzero().squeeze(1)  # winners in row order
             par_row = rows[new_idx]
@@ -475,14 +707,27 @@ class TpuBfsChecker(Checker):
                 max_cand = n_cand
                 insert_shape = (unique - new_count, n_cand, new_count)
 
-            all_disc = bool(props) and len(self._discovered_fps) == len(props)
+            all_disc = bool(props) and len(fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
-            done = new_count == 0 or all_disc or target_hit
-            if not done:
+            finished = new_count == 0 or all_disc or target_hit
+            if not finished:
                 depth += 1
-            self._unique_states = unique
-            self._total_states = generated
-            self._max_depth = depth
+            return finished
+
+        def buffers():
+            return checkpoint.hash_buffers(
+                self, table, parents, front, ebits, depth=depth, waves=waves,
+                generated=generated, unique=unique), None
+
+        w = 0
+        while not done:
+            t0 = time.monotonic()
+            try:
+                done = self._guarded_wave(lambda: wave(w), w)
+            finally:
+                self._publish(token, fps, unique, generated, depth)
+            self._wave_done(w, time.monotonic() - t0, done, buffers)
+            w += 1
             if not done and not warned:  # once a run, where JAX warns a sync
                 warned = self._maybe_warn_occupancy(unique / self.capacity)
             if (reporter is not None and not done
@@ -508,6 +753,7 @@ class TpuBfsChecker(Checker):
             occupancy=unique / self.capacity,
             dedup_ratio=1.0 - unique / generated if generated else 0.0,
             max_wave_candidates=max_cand, insert_shape=insert_shape,
+            **self._ckpt_metrics(),
         )
         if self.track_paths:
             # the log stays on the device: each path step is one

@@ -287,6 +287,12 @@ class TpuSimulationChecker(TpuBfsChecker):
             c.walk_depth = torch.ones_like(c.walk_depth)
         return c
 
+    def resume_from(self, path: str, allow_sha_mismatch: bool = False):
+        raise NotImplementedError(
+            "the device simulation keeps no visited set to snapshot: "
+            "checkpoints are the breadth-first engines' (spawn_sortmerge, "
+            "spawn_hash; checkpoint.py)")
+
     def _run(self, reporter: Optional[Reporter] = None) -> None:
         self._check_device()
         enc = self.encoded

@@ -87,12 +87,14 @@ order.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import checkpoint, faultinject
 from ..ops.bitmask import mask_words, popcount_words, words_to_mask
 from ..ops.canonical import canonical_hits, canonicalize_t
 from ..ops.fingerprint import (
@@ -135,6 +137,10 @@ class WaveState:
     #: memory, disjoint from ``vkeys``; None while the visited set is
     #: wholly on the device
     cold: Optional[ColdStore] = None
+    #: waves run so far (a resumed run continues the count)
+    waves: int = 0
+    #: discoveries made before this state (property name -> fingerprint)
+    discovered: dict = field(default_factory=dict)
 
 
 def frontier_enabled_bits(enc, frontier_t, ample_words=None):
@@ -313,9 +319,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                  ample_set: bool = False, tier_hot_rows=None,
                  tier_budget_bytes: Optional[int] = None,
                  tier_max_runs: int = 8, v_min: int = 1 << 19,
-                 v_ladder_step: int = 2):
+                 v_ladder_step: int = 2, checkpoint_every=None,
+                 checkpoint_path: Optional[str] = None):
         super().__init__(builder, encoded, capacity, frontier_capacity,
-                         track_paths, device)
+                         track_paths, device,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_path=checkpoint_path)
         self.sparse = sparse
         self.ample_set = bool(ample_set)
         self.dense_chunk_bytes = dense_chunk_bytes
@@ -411,6 +420,28 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         self._start = state
         return self
 
+    def _checkpoint_family(self) -> str:
+        return "sortmerge"
+
+    def _reset_for_resume(self) -> None:
+        super()._reset_for_resume()
+        self._final = None
+
+    def _degrade_memory_lean(self) -> bool:
+        """The supervisor's hook after two OOMs: halve
+        ``dense_chunk_bytes`` (down to 1 MiB), so the dense wave steps
+        smaller row chunks; the sparse wave has nothing to shrink. True
+        when it changed."""
+        new = max(self.dense_chunk_bytes // 2, 1 << 20)
+        if new >= self.dense_chunk_bytes:
+            return False
+        warnings.warn(
+            f"repeated OOM under supervision: dense_chunk_bytes "
+            f"{self.dense_chunk_bytes} -> {new}", RuntimeWarning,
+            stacklevel=2)
+        self.dense_chunk_bytes = new
+        return True
+
     # -- the wave loop ------------------------------------------------------
 
     def seed_state(self) -> WaveState:
@@ -463,14 +494,29 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             tier.spill(st)
         return tier
 
-    def _run(self, reporter=None) -> None:
+    def _start_state(self) -> WaveState:
+        """The state the attempt starts from: a staged snapshot (uploaded
+        here), a caller's ``start_from`` state, or the init states."""
+        resume, self._resume = self._resume, None
+        if resume is not None:
+            return checkpoint.sortmerge_state(self, resume[1])
+        if self._start is not None:
+            st, self._start = self._start, None
+            self._started_from_state = True
+            return st
+        return self.seed_state()
+
+    def _run_attempt(self, reporter=None) -> None:
         self._check_device()
         ample_words = self._resolve_ample_words()
-        st = self._start if self._start is not None else self.seed_state()
-        self._start = None
+        token = self._begin_attempt()
+        st = self._start_state()
         ceiling = self._tier_hot_ceiling = self._tier_ceiling()
         if st.vkeys.numel() > self.capacity:
             raise RuntimeError(self._overflow_message("visited"))
+        if st.frontier.shape[1] > self.frontier_capacity:
+            raise RuntimeError(self._overflow_message("frontier"))
+        self._discovered_fps.update(st.discovered)
         self._unique_states = st.vkeys.numel() + (
             0 if st.cold is None else st.cold.rows())
         self._total_states = st.generated
@@ -479,14 +525,14 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         try:
             if st.cold is not None:  # a start state with cold runs
                 tier = self._tier_activate(st, ceiling)
-            self._waves(st, ceiling, tier, ample_words, reporter)
+            self._waves(st, ceiling, tier, ample_words, reporter, token)
         finally:
             # the ingest worker ends with the run, whatever ends it
             if st.cold is not None:
                 st.cold.sync()
 
     def _waves(self, st: WaveState, ceiling, tier, ample_words,
-               reporter) -> None:
+               reporter, token) -> None:
         enc = self.encoded
         props = list(self.model.properties())
         evt_idx = self._eventually_indices(props)
@@ -496,20 +542,22 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         target_states = self.builder._target_state_count
         target_depth = self.builder._target_max_depth
         hits_total = torch.zeros((), dtype=torch.int64, device=self.device)
-        waves = max_cand = max_new = 0
+        max_cand = max_new = 0
+        widest_wave = None
         member_shape = merge_shape = (0, 0)
         done = st.frontier.shape[1] == 0
         sparse = self._use_sparse()
         chunk_rows = max(1, self.dense_chunk_bytes // (8 * enc.width * K))
         chunks = max_chunks = 0
         cancel = self.cancel_event
-        while not done:
-            if cancel is not None and cancel.is_set():
-                self.cancelled = True
-                break
-            if (tier is None and ceiling is not None
-                    and st.vkeys.numel() > self._tier_limit(ceiling)):
-                tier = self._tier_activate(st, ceiling)
+        # this attempt's discoveries and unique count: a wave writes only
+        # these, and the host thread publishes them after it
+        fps = dict(self._discovered_fps)
+        unique = self._unique_states
+
+        def wave(w: int) -> bool:
+            nonlocal max_cand, max_new, member_shape, merge_shape
+            nonlocal chunks, max_chunks, widest_wave, unique
             front = st.frontier
             cond, eb, f_lo, f_hi = frontier_props_t(
                 enc, props, evt_idx, front, st.ebits, sym
@@ -532,14 +580,18 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 tripped = bool(eov)
                 chunks += n_chunks
                 max_chunks = max(max_chunks, n_chunks)
+            # the fault site between the wave's issue and its sync
+            faultinject.fire("mid_chunk", w)
+            if self._abandoned(token):
+                raise RuntimeError("wave abandoned by the watchdog")
             if hits is not None:
-                hits_total += hits
+                hits_total.add_(hits)
             if props:
                 disc = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
                                  f_lo, f_hi)
-                discovery_update(props, *disc, self._discovered_fps)
+                discovery_update(props, *disc, fps)
             if tripped:
-                raise RuntimeError(self._overflow_message("encoding"))
+                raise RuntimeError(self._overflow_message("encoding", fps))
 
             # -- merge stage: stable candidate sort, membership, winners
             s_key, s_pos = torch.sort(keys, stable=True)
@@ -559,11 +611,10 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 new_count = tier.drop_cold_members(is_new, s_key)
                 spill = hot_rows > tier.limit
                 over = (0 if spill else hot_rows) + new_count
-            unique = self._unique_states + new_count
             if over > self.capacity:
-                raise RuntimeError(self._overflow_message("visited"))
+                raise RuntimeError(self._overflow_message("visited", fps))
             if new_count > self.frontier_capacity:
-                raise RuntimeError(self._overflow_message("frontier"))
+                raise RuntimeError(self._overflow_message("frontier", fps))
             nf_pos, w_key = compact_winners_keys(is_new, s_pos, s_key,
                                                  new_count)
             par_row = rows[nf_pos]
@@ -581,26 +632,45 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             st.frontier = succ_t[:, nf_pos]
             st.ebits = eb[par_row]
             st.generated += n_cand
-            waves += 1
+            st.waves += 1
             # the kernels' widest calls (a call on an empty hot tier
             # launches nothing)
             if hot_rows and keys.numel() > member_shape[1]:
                 member_shape = (hot_rows, keys.numel())
             if merge_rows and new_count > merge_shape[1]:
                 merge_shape = (merge_rows, new_count)
+            if keys.numel() > max_cand:
+                widest_wave = st.waves - 1
             max_cand = max(max_cand, keys.numel())
             max_new = max(max_new, new_count)
 
-            all_disc = bool(props) and len(self._discovered_fps) == len(props)
+            unique += new_count
+            all_disc = bool(props) and len(fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
-            done = new_count == 0 or all_disc or target_hit
-            if not done:
+            finished = new_count == 0 or all_disc or target_hit
+            if not finished:
                 st.depth += 1
-            self._unique_states = unique
-            self._total_states = st.generated
-            self._max_depth = st.depth
+            return finished
+
+        w = 0
+        while not done:
+            if cancel is not None and cancel.is_set():
+                self.cancelled = True
+                break
+            if (tier is None and ceiling is not None
+                    and st.vkeys.numel() > self._tier_limit(ceiling)):
+                tier = self._tier_activate(st, ceiling)
+            t0 = time.monotonic()
+            try:
+                done = self._guarded_wave(lambda: wave(w), w)
+            finally:
+                self._publish(token, fps, unique, st.generated, st.depth)
+            self._wave_done(w, time.monotonic() - t0, done,
+                            lambda: checkpoint.sortmerge_buffers(self, st,
+                                                                 tier))
+            w += 1
             if (reporter is not None and not done
-                    and waves % REPORT_EVERY_WAVES == 0):
+                    and st.waves % REPORT_EVERY_WAVES == 0):
                 reporter.report_checking(ReportData(
                     total_states=self._total_states,
                     unique_states=self._unique_states,
@@ -611,7 +681,9 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         # the widest calls: the member kernel's query count and the
         # merge kernel's winner count at their largest, each with the
         # (hot) visited-set size it met there: (Na, Nq) and (Na, Nb)
-        self.metrics = dict(waves=waves, max_wave_candidates=max_cand,
+        # widest_wave: the index of the wave with the most candidates
+        self.metrics = dict(waves=st.waves, max_wave_candidates=max_cand,
+                            widest_wave=widest_wave,
                             max_wave_new=max_new, member_shape=member_shape,
                             merge_shape=merge_shape,
                             expansion="sparse" if sparse else "dense",
@@ -624,6 +696,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             self.metrics["hot_ceiling_rows"] = ceiling
         if tier is not None:
             self.metrics.update(tier.metrics(st.vkeys.numel()))
+        self.metrics.update(self._ckpt_metrics())
         self._final = st
         if self.track_paths and not self.cancelled:
             if tier is None:

@@ -48,6 +48,19 @@ memory (tier.py); ``auto`` takes N from ``memplan.decide_hot_rows``
 against the JAX lane's 2 GiB budget.
 
     python -m stateright_tpu_torch 2pc check-gpu 3 --device cpu --tier-hot-rows=32
+
+Every ``check-gpu`` lane checkpoints and resumes as the JAX lanes do
+(checkpoint.py): ``--checkpoint-every=N`` writes a snapshot every N
+waves (``auto``: the cadence that keeps the snapshot walls under 5% of
+the run's) and retries a failed wave from it; ``--checkpoint-path=P``
+names the file (default ``stateright_tpu_torch.ckpt``); ``--resume``
+continues from it (``--resume-any-sha`` also from another commit);
+``--watchdog[=factor]`` bounds each wave's wall at ``factor`` (default
+8) times the slowest wave so far. A run killed mid-way resumes from its
+last snapshot:
+
+    python -m stateright_tpu_torch 2pc check-gpu 9 --checkpoint-every=4
+    python -m stateright_tpu_torch 2pc check-gpu 9 --resume
 """
 
 from __future__ import annotations
@@ -70,6 +83,39 @@ class RunFlags:
     #: the hot-tier ceiling of the tiered visited set: None (off), an
     #: int >= 1, or "auto"
     tier_hot_rows: int | str | None = None
+    #: a snapshot every N waves, or "auto"; None: off
+    checkpoint_every: int | str | None = None
+    #: the snapshot file (None: checkpoint.DEFAULT_PATH)
+    checkpoint_path: str | None = None
+    #: continue from the snapshot at the checkpoint path
+    resume: bool = False
+    #: resume a snapshot written at another git commit
+    resume_any_sha: bool = False
+    #: the watchdog's factor of the slowest wave so far; None: off
+    watchdog: float | None = None
+
+    def durable(self) -> bool:
+        return bool(self.checkpoint_every or self.resume or self.watchdog)
+
+    def apply(self, checker):
+        """Arm ``checker`` with the checkpoint, resume and watchdog flags
+        (JAX ``cli._apply_runtime``) before its first join; on
+        ``--resume``, stage the snapshot and print where it resumes."""
+        from .checkpoint import DEFAULT_PATH
+
+        path = self.checkpoint_path or DEFAULT_PATH
+        if self.watchdog:
+            checker.watchdog_factor = float(self.watchdog)
+        if self.checkpoint_every:
+            checker.checkpoint_every = self.checkpoint_every
+            checker.checkpoint_path = path
+        if self.resume:
+            m = checker.resume_from(path,
+                                    allow_sha_mismatch=self.resume_any_sha)
+            print(f"resuming from {path}: wave {m['wave']}, depth "
+                  f"{m['depth']}, {m['unique']:,} unique states (snapshot "
+                  f"S={m['n_shards']})")
+        return checker
 
     def spawn(self, model, symmetric: bool = False, **kw):
         """``model.checker()`` armed with these flags, spawned on the
@@ -86,9 +132,9 @@ class RunFlags:
             builder = builder.symmetry()
         if self.unsound_ok:
             builder = builder.unsound_ok()
-        return builder.spawn_sortmerge(device=self.device,
-                                       ample_set=self.ample_set,
-                                       tier_hot_rows=self.tier_hot_rows, **kw)
+        return self.apply(builder.spawn_sortmerge(
+            device=self.device, ample_set=self.ample_set,
+            tier_hot_rows=self.tier_hot_rows, **kw))
 
 
 def _flags(flags) -> RunFlags:
@@ -99,11 +145,33 @@ def _flags(flags) -> RunFlags:
 def _pop_flags(argv: list[str]):
     """``(RunFlags, the other arguments)``."""
     device, rest, on, tier = "cuda", [], set(), None
+    durable: dict = {}
     names = {"--symmetry": "symmetry", "--ample-set": "ample_set",
-             "--unsound-ok": "unsound_ok"}
+             "--unsound-ok": "unsound_ok", "--resume": "resume"}
     it = iter(argv)
     for arg in it:
-        if arg == "--device":
+        if arg.startswith("--checkpoint-every="):
+            val = arg.split("=", 1)[1]
+            if val != "auto" and int(val) < 1:
+                raise SystemExit(
+                    f"--checkpoint-every={val}: must be >= 1 (or 'auto')")
+            durable["checkpoint_every"] = "auto" if val == "auto" else int(val)
+        elif arg.startswith("--checkpoint-path="):
+            durable["checkpoint_path"] = arg.split("=", 1)[1]
+        elif arg == "--resume-any-sha":
+            on.update(("resume", "resume_any_sha"))
+        elif arg == "--watchdog" or arg.startswith("--watchdog="):
+            val = arg.split("=", 1)[1] if "=" in arg else "8"
+            if float(val) <= 0:
+                raise SystemExit(f"--watchdog={val}: the factor must be > 0")
+            durable["watchdog"] = float(val)
+        elif (arg == "--degrade-on-fault"
+              or arg.startswith("--straggler-factor")):
+            raise SystemExit(
+                f"{arg.split('=', 1)[0]}: the shard degrade and the "
+                "straggler detector need the multi-GPU engines, which are "
+                "not ported yet (ROADMAP item 15)")
+        elif arg == "--device":
             device = next(it, None)
         elif arg.startswith("--device="):
             device = arg.split("=", 1)[1]
@@ -122,7 +190,7 @@ def _pop_flags(argv: list[str]):
             rest.append(arg)
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
-    return RunFlags(device, tier_hot_rows=tier,
+    return RunFlags(device, tier_hot_rows=tier, **durable,
                     **{n: True for n in on}), rest
 
 
@@ -134,6 +202,11 @@ def _check(header: str, model, flags: RunFlags) -> None:
         raise SystemExit(
             "--symmetry, --ample-set, --unsound-ok and --tier-hot-rows "
             "apply to check-gpu; check runs the plain host DFS"
+        )
+    if flags.durable():
+        raise SystemExit(
+            "--checkpoint-every, --resume and --watchdog apply to check-gpu; "
+            "check runs the plain host DFS"
         )
     print(header)
     model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
@@ -467,6 +540,11 @@ def _usage() -> None:
           "most N visited keys stay on the device, the rest spill to "
           "sorted runs in host memory (tier.py); auto sizes N by the "
           "memory plan (memplan.decide_hot_rows, 2 GiB budget)")
+    print("       every check-gpu lane takes [--checkpoint-every=N|auto] "
+          "[--checkpoint-path=P] [--resume] [--resume-any-sha] "
+          "[--watchdog[=FACTOR]]: a snapshot every N waves "
+          "(checkpoint.py; default path stateright_tpu_torch.ckpt), a "
+          "failed wave retried from it, --resume continues from it")
     print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "

@@ -4,11 +4,16 @@ The JAX engine's carry (``stateright_tpu.checkers.tpu_sortmerge``,
 built by its ``seed()`` and advanced by its chunk program) holds the
 visited keys as ``vkeys uint32[2, C_pad]`` — lo limbs in row 0, hi limbs
 in row 1, a sorted prefix of real keys and an all-ones sentinel tail —
-the frontier as ``uint32[W, F]`` with ``n_frontier`` live columns, and
-per-row eventually-bits ``ebits uint32[F]``. :func:`carry_from_numpy`
+the frontier as ``uint32[W, F]`` with ``n_frontier`` live columns,
+per-row eventually-bits ``ebits uint32[F]``, the parent log as ``plog
+uint32[4, L]`` (parent limbs in lanes 0-1, child limbs in lanes 2-3)
+with ``pl_n`` live columns, and the discovery lanes ``disc_found`` /
+``disc_lo`` / ``disc_hi``, one per property. :func:`carry_from_numpy`
 turns those arrays (as numpy) into the port's
 :class:`~stateright_tpu_torch.checkers.tpu_sortmerge.WaveState`, so a
-run can continue on the port from the JAX engine's mid-depth state.
+run can continue on the port from the JAX engine's mid-depth state. A
+snapshot (checkpoint.py) holds the same arrays, whichever package wrote
+it.
 
 A tiered JAX run keeps the rest of its visited set as cold runs in host
 memory (``stateright_tpu.tier.ColdStore``); :func:`cold_store_from_runs`
@@ -23,24 +28,45 @@ import numpy as np
 import torch
 
 from .checkers.tpu_sortmerge import WaveState
-from .ops.fingerprint import SENTINEL_KEY, pack_keys
-from .tier import ColdStore
+from .ops.fingerprint import SENTINEL_KEY
+from .tier import ColdStore, pack_keys_np
+
+
+def plog_blocks(plog, n: int | None = None) -> tuple:
+    """``(parent keys, child keys)`` int64 numpy arrays of the first
+    ``n`` (default: every) columns of a JAX ``plog uint32[4, L]``."""
+    p = np.asarray(plog, np.uint32)
+    n = p.shape[1] if n is None else int(n)
+    return pack_keys_np(p[0, :n], p[1, :n]), pack_keys_np(p[2, :n], p[3, :n])
 
 
 def carry_from_numpy(vkeys, frontier, n_frontier: int, ebits, *,
                      depth: int = 1, generated: int = 0,
-                     device="cpu", cold: ColdStore | None = None
-                     ) -> WaveState:
+                     device="cpu", cold: ColdStore | None = None,
+                     n_visited: int | None = None, plog=None,
+                     pl_n: int | None = None, host_plog=(),
+                     waves: int = 0, disc=None, props=()) -> WaveState:
     """The port's wave state from a JAX carry's arrays.
 
     ``depth`` and ``generated`` are the carry's ``depth`` and
-    ``gen_lo | gen_hi << 32`` (the ``states=`` counter). The parent log
-    does not carry over: a continued run reconstructs paths only for
-    states it generates itself. ``cold`` is the run's cold tier (see
+    ``gen_lo | gen_hi << 32`` (the ``states=`` counter), ``waves`` its
+    ``waves``. ``n_visited`` bounds the visited prefix (default: up to
+    the first sentinel). ``cold`` is the run's cold tier (see
     :func:`cold_store_from_runs`): a run started from such a state is
-    tiered from its first wave."""
-    vk = torch.from_numpy(np.asarray(vkeys, np.uint32).astype(np.int64))
-    keys = pack_keys(vk[0], vk[1])
+    tiered from its first wave.
+
+    ``plog`` with ``pl_n`` live columns is the parent log, and
+    ``host_plog`` a tiered run's parent-log blocks already in host
+    memory (``(parent keys, child keys)`` int64 pairs); without them a
+    continued run reconstructs paths only for states it generates
+    itself. With ``cold`` the log stays in host memory, as a tiered
+    run keeps it; otherwise it goes to ``device``. ``disc`` is the
+    discovery lanes ``(found, lo, hi)``, indexed like ``props`` (the
+    model's properties); each found lane becomes a discovery."""
+    vk = np.asarray(vkeys, np.uint32)
+    if n_visited is not None:
+        vk = vk[:, :int(n_visited)]
+    keys = torch.from_numpy(pack_keys_np(vk[0], vk[1]))
     keys = keys[keys != SENTINEL_KEY]
     if keys.numel() > 1 and not bool((keys[1:] > keys[:-1]).all()):
         raise ValueError("vkeys must be a strictly sorted prefix of "
@@ -49,13 +75,29 @@ def carry_from_numpy(vkeys, frontier, n_frontier: int, ebits, *,
     front = np.asarray(frontier, np.uint32)[:, :n].astype(np.int64)
     eb = np.asarray(ebits, np.uint32)[:n].astype(np.int64)
     dev = torch.device(device)
+    blocks = [(torch.from_numpy(p), torch.from_numpy(c))
+              for p, c in host_plog]
+    if plog is not None and (pl_n is None or int(pl_n)):
+        blocks.append(tuple(torch.from_numpy(a)
+                            for a in plog_blocks(plog, pl_n)))
+    if cold is None:
+        blocks = [(p.to(dev), c.to(dev)) for p, c in blocks]
+    discovered = {}
+    if disc is not None:
+        found, lo, hi = (np.asarray(a) for a in disc)
+        for i, p in enumerate(props):
+            if bool(found[i]):
+                discovered[p.name] = (int(hi[i]) << 32) | int(lo[i])
     return WaveState(
         vkeys=keys.to(dev),
         frontier=torch.from_numpy(front).to(dev),
         ebits=torch.from_numpy(eb).to(dev),
         depth=int(depth),
         generated=int(generated),
+        plog=blocks,
         cold=cold,
+        waves=int(waves),
+        discovered=discovered,
     )
 
 

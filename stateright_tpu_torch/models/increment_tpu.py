@@ -38,6 +38,11 @@ class _IncrementEncodedBase(EncodedModelBase):
         self.max_actions = thread_count
         self.host_model = host_model
 
+    def cache_key(self):
+        """The JAX encoding's identity, so that a snapshot's encoding
+        fingerprint (checkpoint.py) is equal across the two packages."""
+        return (type(self).__name__, self.n)
+
     # -- host side -------------------------------------------------------
 
     def encode(self, state: IncrementState) -> np.ndarray:

@@ -54,6 +54,11 @@ class NClientRegEncoded(EncodedModelBase):
             read=[slot_mask_host(K, [2 * c + 1]) for c in range(n_clients)],
         )
 
+    def cache_key(self):
+        """The JAX encoding's identity, so that a snapshot's encoding
+        fingerprint (checkpoint.py) is equal across the two packages."""
+        return self.n_clients
+
     # -- device symmetry -------------------------------------------------
 
     def device_rewrite_spec(self):

@@ -298,6 +298,11 @@ class PaxosEncoded(EncodedModelBase):
         self.max_actions = self.K
         self._lin_table = self._build_lin_table()
 
+    def cache_key(self):
+        """The JAX encoding's identity, so that a snapshot's encoding
+        fingerprint (checkpoint.py) is equal across the two packages."""
+        return (self.C, self.S, self.cfg.put_count)
+
     # -- computed-layout accessors ----------------------------------------
 
     def _clane_index(self, j: int = 0) -> int:

@@ -74,6 +74,11 @@ class SingleCopyEncoded(EncodedModelBase):
         self._lin_table = self._build_lin_table()
         self._lin_dev: dict = {}
 
+    def cache_key(self):
+        """The JAX encoding's identity, so that a snapshot's encoding
+        fingerprint (checkpoint.py) is equal across the two packages."""
+        return (self.C,)
+
     # -- universe ----------------------------------------------------------
     # Envelope key: (src, dst, kind, arg) with kind put|get|putok|getok.
 

@@ -74,6 +74,11 @@ class TwoPhaseSysEncoded(EncodedModelBase):
             rcv_prep=[slot_mask_host(K, [2 + 5 * rm]) for rm in range(n)],
         )
 
+    def cache_key(self):
+        """The JAX encoding's identity, so that a snapshot's encoding
+        fingerprint (checkpoint.py) is equal across the two packages."""
+        return self.rm_count
+
     # -- device symmetry / reduction hooks -------------------------------
 
     def device_rewrite_spec(self):

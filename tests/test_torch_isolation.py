@@ -3,7 +3,7 @@
 increment-lock, register and single-copy-register lanes, at their
 smallest size, the 2pc and register lanes with the reductions on, and
 the host DFS's ``2pc check 2``, and ``2pc check-gpu 3`` with a tiered
-visited set), a device simulation, a hybrid race, a hash engine run and
+visited set, and checkpointed and resumed), a device simulation, a hybrid race, a hash engine run and
 a host BFS on the CPU loads neither jax nor anything
 of the JAX package, and no source file of the port (nor chip_smoke.py)
 imports either."""
@@ -45,6 +45,13 @@ def test_import_and_cli_load_no_jax():
         "main(['2pc', 'check', '2'])\n"
         "main(['2pc', 'check-gpu', '3', '--device', 'cpu',"
         " '--tier-hot-rows=32'])\n"
+        "import os, tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    p = '--checkpoint-path=' + os.path.join(d, 'iso.ckpt')\n"
+        "    main(['2pc', 'check-gpu', '3', '--device', 'cpu',"
+        " '--checkpoint-every=4', p])\n"
+        "    main(['2pc', 'check-gpu', '3', '--device', 'cpu', '--resume',"
+        " p])\n"
         "from stateright_tpu_torch.models.two_phase_commit import"
         " TwoPhaseSys\n"
         "sim = TwoPhaseSys(2).checker().spawn_device_simulation("
@@ -83,7 +90,9 @@ def test_import_and_cli_load_no_jax():
                  "Done. states=270, unique=76, depth=11",
                  "Done. states=26, unique=13, depth=7"):
         assert done in out.stdout, done
-    assert "Done. states=1146, unique=288, depth=11" in out.stdout
+    # the tiered run, the checkpointed run and its resume
+    assert out.stdout.count("Done. states=1146, unique=288, depth=11") == 3
+    assert "resuming from" in out.stdout and ": wave 8, depth 9" in out.stdout
     assert "Checking two phase commit with 2 resource managers.\n" \
         "Done. states=" in out.stdout
     assert "SIM 1088 ['abort agreement', 'commit agreement']" in out.stdout
@@ -105,7 +114,7 @@ def test_no_jax_imports_in_port_sources():
                    "checkers/bfs.py", "checkers/on_demand.py",
                    "checkers/simulation.py", "fixtures.py",
                    "occupancy.py", "ops/hashset.py", "memplan.py",
-                   "tier.py"):
+                   "tier.py", "checkpoint.py", "faultinject.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
