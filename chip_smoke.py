@@ -163,8 +163,26 @@ it exits non-zero and prints no result. Phases, each ending in
    the same wave (exit 137), then ``--resume`` in another (10,340,352).
    The resumed sort-merge and hash runs join phases 15 and 22's kernel
    checks at their widest waves.
+25. the sharded engines (parallel/), every shard on this card
+   (``devices=["cuda:0"] * S``; whether peer access is on is printed
+   where there is more than one card): ``2pc rm=9`` sort-merge at S = 4
+   with paths (10,340,352 unique, ``states=`` 123,558,402, depth 29,
+   phase 4's names, each discovery meeting its property; the per-shard
+   unique counts, the rows routed off-shard and the Merge Path
+   launches); ``paxos check 4`` at S = 4, paths off (2,372,188, phase
+   6's names); ``2pc rm=5`` at S = 2 on the card and on the CPU (equal
+   per-shard visited keys, fingerprints and paths); ``hash 2pc rm=9`` at
+   S = 2 (10,340,352, the insert launched); ``2pc rm=9`` at S = 4 with a
+   snapshot every 4 waves, killed past its widest wave and resumed at
+   S = 2 and on the one-device engine (the sharded run's counts); and a
+   persistent fault on shard 1 of ``2pc rm=5`` at S = 4 under
+   ``degrade_on_fault``, finished at S = 3 with 8,832. Each run prints
+   ``sec=`` and peak memory; S shards on one card measure the route,
+   the exchange and S times the launches, not multi-card scaling. The
+   sort-merge runs join the kernel checks at their widest per-shard
+   calls, the hash run the insert's.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-24) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-25) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -2293,6 +2311,245 @@ def checkpoint_phases(resident, tiered) -> tuple:
     return runs, hashes, others
 
 
+# -- phase 25: the sharded engines on one card --------------------------------
+
+#: shards of the sharded main paths, all on the card (``["cuda:0"] * S``)
+SHARDS = 4
+#: waves between two snapshots of the sharded 2pc rm=9 durability run
+CKPT_EVERY_MESH9 = 4
+
+
+def _on_card(S: int) -> list:
+    return ["cuda:0"] * S
+
+
+def peer_access_line() -> str:
+    """Whether each pair of cards reaches the other's memory directly
+    (the exchange copies card to card); one card has no pair."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        return "peer access: one card, no pair"
+    pairs = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+             for a in range(n) for b in range(n) if a != b}
+    return f"peer access: {pairs}"
+
+
+def _mesh_report(run: dict, one: dict | None) -> None:
+    """The sharded run's per-shard unique counts, rows routed off-shard
+    and Merge Path launches, and ``sec=`` and peak memory beside the
+    one-device run's."""
+    m = run["metrics"]
+    print(f"  shards={m['n_shards']} shard_unique={m['shard_unique']} "
+          f"routed_off_shard={m['shuffle_volume']} launches="
+          f"{run['launches']}", flush=True)
+    if one:
+        print(f"  sec={run['sec']:.3f} against the one-device run's "
+              f"{one['sec']:.3f}; peak_mem_bytes {run['peak_mem_bytes']} "
+              f"against {one['peak_mem_bytes']}", flush=True)
+
+
+@phase("2pc rm=9 sharded, S=4 on one card (main path)")
+def rm9_sharded(one: dict | None):
+    """``spawn_sharded_sortmerge`` at 2pc rm=9 with paths, four shards on
+    the card, each a quarter of the CLI's capacities: phase 4's counts,
+    depth and names (the lowest hitting shard wins, so the discovery
+    fingerprints may differ, as in JAX's test), each discovery's state
+    meeting its property."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.stage_profile import sharded_sizes
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = model.checker().spawn_sharded_sortmerge(
+        devices=_on_card(SHARDS), **sharded_sizes(twopc_sizes(9), SHARDS))
+    run = run_main(checker, print_lines=1)
+    _mesh_report(run, one)
+    assert (run["unique"], run["states"], run["depth"]) == (
+        10_340_352, 123_558_402, 29), run
+    assert "2pc rm=9" in HAND, "the one-device 2pc rm=9 phase did not pass"
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    assert sum(run["metrics"]["shard_unique"]) == run["unique"]
+    assert run["metrics"]["shuffle_volume"] > 0
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    HAND["2pc rm=9 sharded"] = run
+    return run
+
+
+@phase("paxos check 4 sharded, S=4 on one card (main path)")
+def paxos4_sharded(one: dict | None):
+    """``paxos check 4`` through ``spawn_sharded_sortmerge``, four shards
+    on the card, paths off as the CLI runs it: 2,372,188 and phase 6's
+    names."""
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.paxos_tpu import STRUCTURAL_SIZES
+    from stateright_tpu_torch.stage_profile import sharded_sizes
+
+    model = paxos_model(PaxosModelCfg(client_count=4, server_count=3))
+    checker = model.checker().spawn_sharded_sortmerge(
+        devices=_on_card(SHARDS), track_paths=False,
+        **sharded_sizes(STRUCTURAL_SIZES[4], SHARDS))
+    run = run_main(checker)
+    _mesh_report(run, one)
+    assert run["unique"] == 2_372_188, run["unique"]
+    assert run["names"] == {"value chosen"}, run["names"]
+    return run
+
+
+@phase("2pc rm=5 sharded S=2, card vs CPU")
+def rm5_sharded_card_vs_cpu():
+    """``2pc rm=5`` with paths at S = 2 on the card and on the CPU: each
+    shard's visited keys, the discovery fingerprints and the paths
+    equal, every path replayed."""
+    import torch
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    sizes = dict(capacity=1 << 14, frontier_capacity=1 << 12)
+    gpu = model.checker().spawn_sharded_sortmerge(devices=_on_card(2),
+                                                  **sizes)
+    run = run_main(gpu, print_lines=1)
+    cpu = model.checker().spawn_sharded_sortmerge(devices=["cpu"] * 2,
+                                                  **sizes).join()
+    assert run["unique"] == 8832, run["unique"]
+    assert (run["states"], run["depth"], run["fps"]) == (
+        cpu.state_count(), cpu.max_depth(), cpu.discovery_fingerprints())
+    for a, b in zip(gpu._final.shards, cpu._final.shards):
+        assert torch.equal(a.vkeys.cpu(), b.vkeys), "visited keys differ"
+    for name, path in gpu.discoveries().items():
+        assert path.encode() == cpu.discovery(name).encode(), name
+        assert _replays(model, path, model.property_by_name(name)), name
+    print(f"  shard_unique={run['metrics']['shard_unique']} equal on both",
+          flush=True)
+    return run
+
+
+@phase("hash 2pc rm=9 sharded, S=2 on one card")
+def hash_rm9_sharded(one: dict | None):
+    """``spawn_sharded_hash`` at 2pc rm=9 with paths, two shards of 2^24
+    slots on the card: 10,340,352 with phase 4's ``states=``, depth and
+    names, the insert kernel launched."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = model.checker().spawn_sharded_hash(
+        devices=_on_card(2), capacity=HASH_SLOTS // 2)
+    run = run_main(checker, print_lines=1, kernels=HASH_KERNELS)
+    _mesh_report(run, one)
+    assert run["unique"] == 10_340_352, run["unique"]
+    assert "2pc rm=9" in HAND, "the one-device 2pc rm=9 phase did not pass"
+    assert (run["states"], run["depth"], run["names"]) == (
+        HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"],
+        HAND["2pc rm=9"][1]), run
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    return run
+
+
+def _held_to_mesh9(model, checker, run: dict) -> None:
+    """A 2pc rm=9 run's counts, depth and names equal the sharded main
+    path's, and its paths replay."""
+    mesh = HAND.get("2pc rm=9 sharded")
+    assert mesh, "the sharded 2pc rm=9 phase did not pass"
+    assert (run["unique"], run["states"], run["depth"], run["names"]) == (
+        mesh["unique"], mesh["states"], mesh["depth"], mesh["names"]), run
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+
+
+@phase("2pc rm=9 S=4 killed, resumed at S=2 and on one device")
+def rm9_mesh_resumed(mesh: dict, tmp: str) -> dict:
+    """The durability half of the JAX package's ``dryrun_multichip``:
+    ``2pc rm=9`` at S = 4 with a snapshot every 4 waves, killed at the
+    first snapshot wave past its widest wave, resumed at S = 2 and on
+    the one-device engine (each a re-shard through the (owner, fp)
+    route) to the sharded run's counts, depth and names."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.stage_profile import sharded_sizes
+
+    model = TwoPhaseSys(rm_count=9)
+    widest = mesh["metrics"]["widest_wave"]
+    kill = next(w for w in range(CKPT_EVERY_MESH9 - 1, 1 << 20,
+                                 CKPT_EVERY_MESH9) if w > widest)
+    print(f"  widest wave {widest}, killed at wave {kill}", flush=True)
+    snap = os.path.join(tmp, "mesh9.ckpt")
+    killed = _ckpt_kill(model.checker().spawn_sharded_sortmerge(
+        devices=_on_card(SHARDS), checkpoint_every=CKPT_EVERY_MESH9,
+        checkpoint_path=snap, **sharded_sizes(twopc_sizes(9), SHARDS)),
+        kill)
+    runs = {"killed": killed}
+    for label, checker in (
+            ("S=2", model.checker().spawn_sharded_sortmerge(
+                devices=_on_card(2), **sharded_sizes(twopc_sizes(9), 2))),
+            ("one device", model.checker().spawn_sortmerge(
+                **twopc_sizes(9)))):
+        run = _resumed(checker, snap)
+        assert run["resume"]["wave"] == kill + 1, run["resume"]
+        _held_to_mesh9(model, checker, run)
+        print(f"  resumed {label}: sec={run['sec']:.3f} peak_mem_bytes "
+              f"{run['peak_mem_bytes']}", flush=True)
+        runs[label] = run
+    return runs
+
+
+@phase("2pc rm=5 S=4 persistent shard fault, degraded to S=3")
+def rm5_mesh_degrade(tmp: str) -> dict:
+    """A persistent fault on shard 1 of ``2pc rm=5`` at S = 4, a snapshot
+    every wave, under ``degrade_on_fault``: the shard is dropped, the
+    snapshot re-shards onto the other three, and the run finishes there
+    with 8,832 (one ``DEGRADING`` warning)."""
+    from stateright_tpu_torch import faultinject
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=5)
+    checker = model.checker().spawn_sharded_sortmerge(
+        devices=_on_card(SHARDS), capacity=1 << 13, frontier_capacity=1 << 11,
+        checkpoint_every=1, checkpoint_path=os.path.join(tmp, "deg.ckpt"))
+    checker.degrade_on_fault = True
+    checker.retry_backoff_sec = 0.01
+    faultinject.arm("shard_fault", "mid_chunk", 3, shard=1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = run_main(checker, print_lines=1)
+    finally:
+        faultinject.disarm_all()
+    deg = [str(w.message) for w in caught if "DEGRADING" in str(w.message)]
+    print(f"  {deg}", flush=True)
+    assert len(deg) == 1 and "(4 -> 3 shards)" in deg[0], deg
+    assert (checker.n_shards, checker._shard_ids) == (3, (0, 2, 3))
+    assert run["unique"] == 8832, run["unique"]
+    for name, path in checker.discoveries().items():
+        assert _replays(model, path, model.property_by_name(name)), name
+    return run
+
+
+def sharded_phases(one_rm9, one_paxos4) -> tuple:
+    """Phase 25: ``(runs, hashes, others)`` of the sharded engines on the
+    card, the snapshots in a temporary directory deleted at the end."""
+    print(peer_access_line(), flush=True)
+    runs = {"2pc rm=9 sharded S=4": rm9_sharded(one_rm9),
+            "paxos 4c sharded S=4": paxos4_sharded(one_paxos4),
+            "2pc rm=5 sharded S=2": rm5_sharded_card_vs_cpu()}
+    hashes = {"hash 2pc rm=9 sharded S=2": hash_rm9_sharded(one_rm9)}
+    others = {}
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-mesh-") as tmp:
+        mesh = runs["2pc rm=9 sharded S=4"]
+        resumed = rm9_mesh_resumed(mesh, tmp) if mesh else None
+        if resumed:
+            runs["2pc rm=9 S=4 resumed at S=2"] = resumed["S=2"]
+            runs["2pc rm=9 S=4 resumed on one device"] = resumed["one device"]
+        else:
+            FAILED.append("2pc rm=9 S=4 killed, resumed at S=2 and on one "
+                          "device")
+        others["2pc rm=5 S=4 degraded to S=3"] = rm5_mesh_degrade(tmp)
+    return runs, hashes, others
+
+
 def main() -> int:
     import torch
 
@@ -2347,6 +2604,10 @@ def main() -> int:
         runs["2pc rm=9"], tiered["2pc rm=9 tiered"])
     runs.update(ckpt_runs)
     hashes.update(ckpt_hashes)
+    mesh_runs, mesh_hashes, meshes = sharded_phases(runs["2pc rm=9"],
+                                                    runs["paxos 4c"])
+    runs.update(mesh_runs)
+    hashes.update(mesh_hashes)
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -2365,7 +2626,7 @@ def main() -> int:
                      for path, run in hashes.items()}
     launches = {path: run and run["launches"]
                 for path, run in {**runs, **lanes, **sims, **hybrids,
-                                  **hashes, **ckpts}.items()}
+                                  **hashes, **ckpts, **meshes}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

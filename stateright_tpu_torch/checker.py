@@ -157,6 +157,30 @@ class CheckerBuilder:
 
         return SortMergeTpuBfsChecker(self, **kwargs)
 
+    def spawn_sharded_sortmerge(self, n_shards=None, devices=None,
+                                **kwargs) -> "Checker":
+        """Spawn the sort-merge wave engine over S shards — the port of
+        the JAX package's ``spawn_tpu_sharded_sortmerge``. Shard ``s``
+        runs on ``devices[s]`` (a device may repeat); without
+        ``devices``, one shard per visible card, and ``n_shards`` above
+        the card count raises. Capacities are per shard (see
+        parallel/engine_sortmerge.py)."""
+        from .parallel.engine_sortmerge import ShardedSortMergeTpuBfsChecker
+
+        return ShardedSortMergeTpuBfsChecker(
+            self, n_shards=n_shards, devices=devices, **kwargs)
+
+    def spawn_sharded_hash(self, n_shards=None, devices=None,
+                           **kwargs) -> "Checker":
+        """Spawn the hash wave engine over S shards — the port of the JAX
+        package's ``spawn_tpu_sharded``: one open-addressing table a
+        shard, each fed by the CUDA insert. Devices and capacities as
+        :meth:`spawn_sharded_sortmerge` (see parallel/engine.py)."""
+        from .parallel.engine import ShardedTpuBfsChecker
+
+        return ShardedTpuBfsChecker(
+            self, n_shards=n_shards, devices=devices, **kwargs)
+
 
 class Checker:
     """Common checker result interface (checker.rs:273-557)."""

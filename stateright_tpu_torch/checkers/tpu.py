@@ -265,6 +265,10 @@ class TpuBfsChecker(Checker):
         #: the supervisor's retry budget and backoff base
         self.max_fault_retries = 3
         self.retry_backoff_sec = 0.5
+        #: let the supervisor drop a shard that keeps failing and re-shard
+        #: the last snapshot onto the rest (CLI ``--degrade-on-fault``;
+        #: harmless on one device)
+        self.degrade_on_fault = False
         #: the watchdog: None (off) or the factor of the rolling maximum
         #: wave wall a wave may take, clamped to [floor, cap]; the grace
         #: covers the first wave (kernel builds)
@@ -318,6 +322,16 @@ class TpuBfsChecker(Checker):
     def _degrade_memory_lean(self) -> bool:
         """The supervisor's hook after two OOMs: the hash engine has no
         leaner mode (False)."""
+        return False
+
+    def _fault_shards(self):
+        """The live shard ids a persistent shard fault is filtered
+        against: None on one device (the sharded engines override)."""
+        return None
+
+    def _can_degrade_shards(self) -> bool:
+        """One device has no shard to drop (the sharded engines
+        override)."""
         return False
 
     def _ckpt_cadence(self) -> int:
@@ -419,7 +433,7 @@ class TpuBfsChecker(Checker):
             if self.checkpoint_every == "auto":
                 self._ckpt_auto_every = checkpoint.auto_cadence(
                     snap_sec, wave_sec)
-        faultinject.fire("chunk_boundary", w)
+        faultinject.fire("chunk_boundary", w, shards=self._fault_shards())
 
     def _ckpt_metrics(self) -> dict:
         """The checkpoint counters for ``metrics``: none on a run that

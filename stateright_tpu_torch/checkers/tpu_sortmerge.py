@@ -237,26 +237,28 @@ class HotColdTier:
         self.ingest_wait_sec = 0.0
         self.member_sec = 0.0
 
-    def spill(self, st: WaveState) -> None:
-        """Move the whole sorted hot prefix to the cold store (ingest on
-        the worker thread) and leave the device tier empty."""
+    def spill(self, *states: WaveState) -> None:
+        """Move the whole sorted hot prefix of each state (one a shard of
+        the cold store) to the cold store (ingest on the worker thread)
+        and leave the device tiers empty."""
         t0 = time.monotonic()
-        self.cold.ingest([st.vkeys.cpu().numpy()])
-        st.vkeys = st.vkeys[:0]
+        self.cold.ingest([st.vkeys.cpu().numpy() for st in states])
+        for st in states:
+            st.vkeys = st.vkeys[:0]
         self.spill_sec += time.monotonic() - t0
 
     def drop_cold_members(self, is_new: torch.Tensor,
-                          s_key: torch.Tensor) -> int:
+                          s_key: torch.Tensor, shard: int = 0) -> int:
         """Clear, in place, the ``is_new`` rows whose keys the cold runs
-        hold; return the count of rows left (the wave's truly new
-        keys). The provisional keys go to the host at the wave's one
-        sync."""
+        of ``shard`` hold; return the count of rows left (the wave's
+        truly new keys). The provisional keys go to the host at the
+        wave's one sync."""
         idx = is_new.nonzero().squeeze(1)
         q = s_key[idx].cpu().numpy()
         t0 = time.monotonic()
         self.cold.sync()
         t1 = time.monotonic()
-        hit = self.cold.member(0, q)
+        hit = self.cold.member(shard, q)
         self.ingest_wait_sec += t1 - t0
         self.member_sec += time.monotonic() - t1
         n_hit = int(hit.sum())

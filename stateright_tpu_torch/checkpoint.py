@@ -1,7 +1,7 @@
 """Checkpoints, resume and supervised fault recovery for the wave engines.
 
-The port of the single-device half of the JAX package's ``checkpoint``
-module. A snapshot is taken at a wave's one host sync, every
+The port of the JAX package's ``checkpoint`` module, for the
+single-device and the sharded engines. A snapshot is taken at a wave's one host sync, every
 ``checkpoint_every`` waves, and a preempted, OOM-killed or crashed run
 resumes from it instead of from the init states.
 
@@ -48,9 +48,18 @@ What the port writes differs from the JAX engine's by design, and JAX's
   the JAX engine. Across packages only hand encodings resume: a
   compiled encoding's identity hashes its spec functions, and the
   port's specs are not JAX's (:func:`encoding_fingerprint`).
-* **One device.** A snapshot of a mesh run (``n_shards > 1``) is
-  refused; the re-shard comes with the multi-GPU engines (ROADMAP item
-  15).
+* **Mesh snapshots are packed too.** A sharded engine (parallel/) writes
+  JAX's mesh leaves (``u_loc``, ``n_loc``, ``pl_n`` per shard; the hash
+  tables at JAX's ``S * C`` slots), each shard's live block back to
+  back, and marks the manifest ``shard_layout: packed``; a JAX mesh
+  snapshot, its blocks at the padded strides, is read as it is.
+* **The re-shard** (:func:`reshard_sortmerge`, :func:`reshard_hash`,
+  JAX's host functions over the port's blocks) moves a snapshot between
+  shard counts, single ⇄ sharded included, through the (owner, fp)
+  route. Unlike JAX, a hash snapshot re-shards single ⇄ sharded too (by
+  re-insertion; a single-device table of another slot count is still
+  refused). A tiered mesh snapshot is refused: the sharded tier is not
+  ported (ROADMAP item 15).
 * **No telemetry yet** (ROADMAP item 17): what the JAX module emits as
   ``checkpoint``, ``fault_recovery`` and ``watchdog_timeout`` events
   lands in ``checker.metrics`` (``snapshots``, ``snapshot_bytes``,
@@ -63,10 +72,11 @@ What the port writes differs from the JAX engine's by design, and JAX's
 refused, never guessed around: an encoding fingerprint that differs, or
 a git SHA that differs from HEAD unless ``allow_sha_mismatch``) and
 stages it in host memory; the engine's next attempt uploads it. A
-sort-merge state goes through :func:`~stateright_tpu_torch.convert.
-carry_from_numpy`, which packs and checks the visited keys once; a JAX tiered snapshot's pending wave is committed on
-the host first through the port's ``ColdStore.member``, as JAX's fold
-commits it (:func:`_fold_tier_snapshot`). A hash table is rebuilt with
+sort-merge snapshot's visited keys are packed and checked once, shard
+by shard, and re-sharded when the target's layout differs; a JAX tiered
+snapshot's pending wave is committed on the host first through the
+port's ``ColdStore.member``, as JAX's fold commits it
+(:func:`_fold_tier_snapshot`). A hash table is rebuilt with
 ``DeviceHashSet.from_keys``, never copied raw: an empty slot's tag must
 be 0 for the CUDA insert to pick its winner (csrc/hashset.cu).
 
@@ -92,9 +102,13 @@ anything else raises through. Where the port differs from JAX:
   and raises :class:`WatchdogTimeout`. A wave writes only its attempt's
   own locals, which the host thread publishes after the wave, so a hung
   sync that returns later changes nothing of the retry.
-* **No shard degrade.** :func:`classify_failure` is JAX's table without
-  the straggler attribution, and there are no per-shard strikes: both
-  come with the multi-GPU engines (ROADMAP item 15).
+* **The shard degrade** (``degrade_on_fault``, the sharded engines of
+  parallel/) follows JAX's :class:`FailurePolicy`: a fault that strikes
+  one shard twice drops that shard's device
+  from the list, and the retry re-shards the last snapshot onto the
+  survivors. :func:`classify_failure` attributes a shard only from an
+  injected shard fault: the straggler evidence JAX also reads needs a
+  traced run, and the port has no tracer yet (ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -129,6 +143,11 @@ _TIER_LEAVES = ("pend_keys", "pend_par", "pend_n", "pend_valid",
 #: slots a host download copies at once: a snapshot takes no device
 #: memory beyond a block
 _BLOCK = 1 << 22
+
+#: the manifest's ``shard_layout`` of a port mesh snapshot: each shard's
+#: live block back to back (a JAX mesh snapshot has no such key: its
+#: shard blocks sit at a stride of the padded capacities)
+PACKED = "packed"
 
 
 def auto_cadence(snapshot_sec: float, chunk_sec: float,
@@ -208,7 +227,9 @@ def _git_sha() -> Optional[str]:
 
 
 def _engine_kind(checker) -> str:
-    return ("sharded" if getattr(checker, "mesh", None) is not None
+    """``sharded`` for an engine over a device list (parallel/), even
+    at one shard, as JAX's kind is ``sharded`` for any mesh engine."""
+    return ("sharded" if getattr(checker, "devices", None) is not None
             else "single")
 
 
@@ -393,7 +414,30 @@ def sortmerge_buffers(checker, st, tier=None) -> tuple[dict, Optional[dict]]:
     buffers.update(plog=plog, pl_n=np.uint32(plog.shape[1]))
     if tier is None:
         return buffers, None
-    cold = tier.cold
+    buffers["n_hot"] = np.uint32(st.vkeys.shape[0])
+    return buffers, _tier_block(checker, tier.cold, tier.plog, buffers)
+
+
+def hash_buffers(checker, table, parents, front, ebits, **counters) -> dict:
+    """The buffers of a hash wave state (checkers/tpu.py), under the JAX
+    leaf names: the one-shard case of :func:`mesh_hash_buffers`, without
+    its per-shard count (``counters``: ``depth``, ``waves``,
+    ``generated``, ``unique``)."""
+    out = mesh_hash_buffers(checker, [dict(
+        table=table, parents=parents, frontier=front, ebits=ebits)],
+        **counters)
+    del out["n_loc"]
+    return out
+
+
+def _cat(blocks, axis: int, empty) -> np.ndarray:
+    return np.concatenate(blocks, axis=axis) if blocks else empty
+
+
+def _tier_block(checker, cold, plog_blocks, buffers: dict) -> dict:
+    """A tiered run's cold runs (``tier_run{s}_{i}_lo/hi``) and host
+    parent log (``tier_plog``) into ``buffers``; returns the manifest's
+    ``tier`` block (JAX's)."""
     cold.sync()  # the ingest worker is joined before the runs are read
     run_rows = []
     for s, shard in enumerate(cold.snapshot_runs()):
@@ -403,32 +447,79 @@ def sortmerge_buffers(checker, st, tier=None) -> tuple[dict, Optional[dict]]:
             buffers[f"tier_run{s}_{i}_hi"] = hi
             rows.append(int(lo.size))
         run_rows.append(rows)
-    buffers["n_hot"] = np.uint32(st.vkeys.shape[0])
     plog_host = 0
-    if checker.track_paths and tier.plog:
-        buffers["tier_plog"] = _plog_limbs(tier.plog)
+    if checker.track_paths and plog_blocks:
+        buffers["tier_plog"] = _plog_limbs(plog_blocks)
         plog_host = int(buffers["tier_plog"].shape[1])
-    block = dict(hot_rows=tier.ceiling, max_runs=int(cold.max_runs),
-                 spills=int(cold.spills), run_rows=run_rows,
-                 plog_host_rows=plog_host,
-                 cold_rows_total=int(cold.rows()),
-                 cold_bytes_total=int(cold.bytes()))
-    return buffers, block
+    return dict(hot_rows=checker._tier_hot_ceiling,
+                max_runs=int(cold.max_runs), spills=int(cold.spills),
+                run_rows=run_rows, plog_host_rows=plog_host,
+                cold_rows_total=int(cold.rows()),
+                cold_bytes_total=int(cold.bytes()))
 
 
-def hash_buffers(checker, table, parents, front, ebits, *, depth: int,
-                 waves: int, generated: int, unique: int) -> dict:
-    """The buffers of a hash wave state (checkers/tpu.py), under the JAX
-    leaf names: the table and parent keys as limbs in slot order (an
-    empty slot and a root parent are ``(0, 0)``), the frontier
-    row-major ``[n, W]``."""
-    t = _limbs(table.keys)
-    p = (_limbs(parents) if checker.track_paths
-         else np.zeros((2, 0), np.uint32))
-    fr = np.ascontiguousarray(_u32(_host(front)).T)
+def mesh_sortmerge_buffers(checker, st, tier=None) -> tuple:
+    """``(buffers, tier block)`` of a sharded sort-merge state ``st``
+    (parallel/engine_sortmerge.py ``MeshState``; ``tier`` its
+    ``HotColdTier`` in a tiered run) under JAX's mesh leaf names, each
+    shard's live block back to back: ``vkeys uint32[2, U]`` with
+    ``u_loc[S]``, ``frontier [W, N]`` and ``ebits`` with ``n_loc[S]``,
+    ``plog [4, P]`` with ``pl_n[S]``, and the routed-row counter
+    ``sent_lo``/``sent_hi``. A tiered state adds ``h_loc[S]``, each
+    shard's hot keys (the block sizes), with ``u_loc`` each shard's hot
+    and cold keys (JAX's), and the cold runs and host log."""
+    W = int(checker.encoded.width)
+    vk = [_limbs(sh.vkeys) for sh in st.shards]
+    fr = [_u32(_host(sh.frontier)) for sh in st.shards]
+    eb = [_u32(_host(sh.ebits)) for sh in st.shards]
+    pl = [(_plog_limbs(sh.plog) if checker.track_paths
+           else np.zeros((4, 0), np.uint32)) for sh in st.shards]
+    n = sum(f.shape[1] for f in fr)
+    hot = np.array([v.shape[1] for v in vk], np.uint32)
+    buffers = dict(
+        vkeys=_cat(vk, 1, np.zeros((2, 0), np.uint32)),
+        u_loc=hot,
+        frontier=_cat(fr, 1, np.zeros((W, 0), np.uint32)),
+        fval=np.ones(n, bool), ebits=_cat(eb, 0, np.zeros(0, np.uint32)),
+        n_loc=np.array([f.shape[1] for f in fr], np.uint32),
+        plog=_cat(pl, 1, np.zeros((4, 0), np.uint32)),
+        pl_n=np.array([p.shape[1] for p in pl], np.uint32),
+        sent_lo=np.uint32(st.routed & _M32),
+        sent_hi=np.uint32(st.routed >> 32),
+        **_counters(checker, depth=st.depth, waves=st.waves,
+                    generated=st.generated,
+                    unique=checker._unique_states))
+    if tier is None:
+        return buffers, None
+    buffers["h_loc"] = hot
+    buffers["u_loc"] = hot + np.array(st.cold.shard_rows(), np.uint32)
+    return buffers, _tier_block(checker, st.cold, tier.plog, buffers)
+
+
+def mesh_hash_buffers(checker, shards, *, depth: int, waves: int,
+                      generated: int, unique: int) -> dict:
+    """The buffers of a sharded hash state (parallel/engine.py: one
+    ``dict(table, parents, frontier, ebits)`` a shard) under JAX's leaf
+    names: the tables and parent keys in slot order, shard after shard
+    (``t_lo uint32[S * C]``, JAX's layout), and each shard's live
+    frontier rows back to back (``frontier [N, W]`` with ``n_loc[S]``)."""
+    t = [_limbs(sh["table"].keys) for sh in shards]
+    p = [(_limbs(sh["parents"]) if checker.track_paths
+          else np.zeros((2, 0), np.uint32)) for sh in shards]
+    fr = [np.ascontiguousarray(_u32(_host(sh["frontier"])).T)
+          for sh in shards]
+    W = int(checker.encoded.width)
+    n = sum(f.shape[0] for f in fr)
     return dict(
-        t_lo=t[0], t_hi=t[1], p_lo_t=p[0], p_hi_t=p[1], frontier=fr,
-        fval=np.ones(fr.shape[0], bool), ebits=_u32(_host(ebits)),
+        t_lo=_cat([x[0] for x in t], 0, np.zeros(0, np.uint32)),
+        t_hi=_cat([x[1] for x in t], 0, np.zeros(0, np.uint32)),
+        p_lo_t=_cat([x[0] for x in p], 0, np.zeros(0, np.uint32)),
+        p_hi_t=_cat([x[1] for x in p], 0, np.zeros(0, np.uint32)),
+        frontier=_cat(fr, 0, np.zeros((0, W), np.uint32)),
+        n_loc=np.array([f.shape[0] for f in fr], np.uint32),
+        fval=np.ones(n, bool),
+        ebits=_cat([_u32(_host(sh["ebits"])) for sh in shards], 0,
+                   np.zeros(0, np.uint32)),
         **_counters(checker, depth=depth, waves=waves, generated=generated,
                     unique=unique))
 
@@ -448,7 +539,7 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
         kind=_engine_kind(checker),
         encoding=encoding_fingerprint(checker),
         width=int(checker.encoded.width),
-        n_shards=1,
+        n_shards=int(getattr(checker, "n_shards", 1)),
         capacity=int(checker.capacity),
         frontier_capacity=int(checker.frontier_capacity),
         track_paths=bool(checker.track_paths),
@@ -466,6 +557,11 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
                          crc32=_crc(b))
                  for k, b in buffers.items()},
     )
+    if manifest["kind"] == "sharded":
+        # the port's mesh leaves hold each shard's live block back to
+        # back (per-shard counts u_loc, n_loc, pl_n), not JAX's blocks
+        # at a stride of the padded capacities
+        manifest["shard_layout"] = PACKED
     _write_file(path, manifest, buffers)
     checker._last_snapshot = path
     return manifest
@@ -512,12 +608,6 @@ def _refuse_incompatible(checker, path: str, manifest: dict) -> None:
             f"{path}: snapshot track_paths={manifest.get('track_paths')}, "
             f"checker track_paths={checker.track_paths} — the parent log "
             "exists on one side only")
-    if (int(manifest.get("n_shards", 1)) > 1
-            or manifest.get("kind") == "sharded"):
-        raise SnapshotIncompatibleError(
-            f"{path}: a mesh snapshot ({manifest.get('n_shards')} shards) "
-            "resumes on one device only through the re-shard, which comes "
-            "with the multi-GPU engines (ROADMAP item 15)")
 
 
 def resume_from(checker, path: str, *,
@@ -620,91 +710,6 @@ def _fold_tier_snapshot(checker, manifest: dict, buffers: dict,
     return buffers, cold, hot, plog_host
 
 
-def _untier(checker, path: str, buffers: dict, cold: ColdStore, hot: int,
-            plog_host):
-    """Merge a tiered snapshot's cold runs back into the visited prefix
-    for a target that does not tier (JAX's un-tier), refusing when the
-    whole set passes the target's capacity."""
-    total = hot + cold.rows()
-    if total > int(checker.capacity):
-        raise SnapshotIncompatibleError(
-            f"{path}: tiered snapshot holds {total:,} visited keys "
-            f"({cold.rows():,} cold) but the target's capacity is "
-            f"{int(checker.capacity):,} and tiering is off — raise the "
-            "capacity, or resume with tier_hot_rows set to keep the cold "
-            "tier")
-    vk = np.asarray(buffers["vkeys"], np.uint32)[:, :hot]
-    merged = np.sort(np.concatenate(
-        [pack_keys_np(vk[0], vk[1])] + list(cold.runs[0])))
-    lo, hi = unpack_keys_np(merged)
-    buffers["vkeys"] = np.stack([lo, hi])
-    if plog_host is not None and plog_host.shape[1]:
-        pl = _scalar(buffers, "pl_n")
-        buffers["plog"] = np.concatenate(
-            [plog_host, np.asarray(buffers["plog"], np.uint32)[:, :pl]],
-            axis=1)
-        buffers["pl_n"] = np.uint32(buffers["plog"].shape[1])
-    return buffers, total
-
-
-def _stage_sortmerge(checker, path: str, manifest: dict, buffers: dict):
-    """A sort-merge snapshot's ``WaveState`` in host memory, checked: a
-    tiered snapshot folded (and un-tiered for a target without a tier),
-    the hot prefix packed once into int64 keys and found strictly sorted
-    (``convert.carry_from_numpy``), and hot plus cold rows equal to the
-    unique count. ``checker._ckpt_stats`` gets the wall of the packing
-    and checks."""
-    from .convert import carry_from_numpy, plog_blocks
-
-    tier_m = manifest.get("tier")
-    cold = None
-    plog_host = None
-    if tier_m:
-        buffers, cold, hot, plog_host = _fold_tier_snapshot(
-            checker, manifest, buffers, tier_m)
-        if getattr(checker, "tier_hot_rows", None) is None:
-            buffers, hot = _untier(checker, path, buffers, cold, hot,
-                                   plog_host)
-            cold = plog_host = None
-    else:
-        hot = _scalar(buffers, "new")
-    unique = _scalar(buffers, "new")
-    vkeys = np.asarray(buffers["vkeys"], np.uint32)
-    n_front = _scalar(buffers, "n_frontier")
-    pl_n = _scalar(buffers, "pl_n") if "pl_n" in buffers else 0
-    cold_rows = cold.rows() if cold is not None else 0
-    if (hot > vkeys.shape[1] or n_front > buffers["frontier"].shape[1]
-            or pl_n > np.asarray(buffers["plog"]).shape[1]
-            or hot + cold_rows != unique):
-        raise SnapshotCorruptError(
-            f"{path}: counters contradict the buffers ({hot:,} hot + "
-            f"{cold_rows:,} cold visited keys against {unique:,} unique, "
-            f"{n_front:,} frontier rows, {pl_n:,} parent-log rows)")
-    host_plog = []
-    if plog_host is not None and plog_host.shape[1]:
-        host_plog.append(plog_blocks(plog_host))
-    gen = _scalar(buffers, "gen_lo") | (_scalar(buffers, "gen_hi") << 32)
-    t0 = time.monotonic()
-    try:
-        st = carry_from_numpy(
-            vkeys, buffers["frontier"], n_front, buffers["ebits"],
-            depth=_scalar(buffers, "depth"), generated=gen, device="cpu",
-            cold=cold, n_visited=hot,
-            plog=buffers["plog"] if checker.track_paths else None,
-            pl_n=pl_n, host_plog=host_plog, waves=_scalar(buffers, "waves"),
-            disc=(buffers["disc_found"], buffers["disc_lo"],
-                  buffers["disc_hi"]),
-            props=list(checker.model.properties()))
-    except ValueError as exc:
-        raise SnapshotCorruptError(f"{path}: the visited prefix: {exc}")
-    if st.vkeys.numel() != hot:  # a sentinel inside the live prefix
-        raise SnapshotCorruptError(
-            f"{path}: the visited prefix holds {st.vkeys.numel():,} keys "
-            f"before its sentinels, the counters {hot:,}")
-    checker._ckpt_stats["resume_host_sec"] = round(time.monotonic() - t0, 6)
-    return st
-
-
 def sortmerge_state(checker, st):
     """A staged sort-merge ``WaveState`` uploaded to the checker's
     device (a tiered run keeps its parent log on the host);
@@ -721,45 +726,454 @@ def sortmerge_state(checker, st):
     return st
 
 
-def _stage_hash(checker, path: str, manifest: dict, buffers: dict) -> dict:
-    """A hash snapshot's state in host memory: packed slot keys, parent
-    keys (:data:`~stateright_tpu_torch.ops.hashset.EMPTY` where JAX has
-    parent 0, a root), the live frontier rows lane-major, counters and
-    discoveries."""
-    C = int(np.asarray(buffers["t_lo"]).size)
-    if C != int(checker.capacity):
+# -- mesh snapshots and the re-shard ------------------------------------------
+
+
+def _is_mesh(manifest: dict) -> bool:
+    return (int(manifest.get("n_shards", 1)) > 1
+            or manifest.get("kind") == "sharded")
+
+
+def _need(buffers: dict, path: str, *names) -> None:
+    missing = [n for n in names if n not in buffers]
+    if missing:
+        raise SnapshotCorruptError(
+            f"{path}: a mesh snapshot without its per-shard leaves "
+            f"{missing}")
+
+
+def _counts(buffers: dict, name: str, n: int) -> np.ndarray:
+    return np.asarray(buffers[name], np.int64).reshape(-1)[:n]
+
+
+def _block_slices(path: str, manifest: dict, widths: dict, counts: dict,
+                  strides: dict) -> list:
+    """Per source shard, ``{leaf: (start, stop)}`` of its live columns:
+    back to back in a port mesh snapshot (``shard_layout`` packed), at
+    ``strides[leaf]`` in a JAX one; each is checked against the leaf's
+    ``widths[leaf]`` columns."""
+    S = int(manifest.get("n_shards", 1))
+    packed = manifest.get("shard_layout") == PACKED
+    out = [dict() for _ in range(S)]
+    for leaf, n in counts.items():
+        width = widths[leaf]
+        off = 0
+        for s in range(S):
+            start = off if packed else s * strides[leaf]
+            stop = start + int(n[s])
+            if stop > width or (not packed and int(n[s]) > strides[leaf]):
+                raise SnapshotCorruptError(
+                    f"{path}: shard {s}'s {leaf} block [{start}, {stop}) "
+                    f"passes the leaf's {width} columns")
+            out[s][leaf] = (start, stop)
+            off = stop
+    return out
+
+
+def _sortmerge_blocks(path: str, manifest: dict, buffers: dict,
+                      hot: Optional[int] = None) -> list:
+    """A sort-merge snapshot's live state as one block a source shard:
+    ``dict(keys int64[u] (packed, as stored), frontier uint32[W, n],
+    ebits uint32[n], plog uint32[4, p])``, from a single-device
+    snapshot (``hot`` bounds its visited prefix), a JAX mesh snapshot
+    (blocks at the padded strides) or a port one (back to back)."""
+    track_paths = bool(manifest["track_paths"])
+    vk = np.asarray(buffers["vkeys"], np.uint32)
+    fr = np.asarray(buffers["frontier"], np.uint32)
+    eb = np.asarray(buffers["ebits"], np.uint32).reshape(-1)
+    plog = np.asarray(buffers.get("plog", np.zeros((4, 0), np.uint32)),
+                      np.uint32)
+    if not _is_mesh(manifest):
+        u = _scalar(buffers, "new") if hot is None else int(hot)
+        n = _scalar(buffers, "n_frontier")
+        p = _scalar(buffers, "pl_n") if track_paths else 0
+        if u > vk.shape[1] or n > fr.shape[1] or p > plog.shape[1]:
+            raise SnapshotCorruptError(
+                f"{path}: counters contradict the buffers ({u:,} visited "
+                f"keys, {n:,} frontier rows, {p:,} parent-log rows)")
+        sl = [dict(vkeys=(0, u), frontier=(0, n), ebits=(0, n),
+                   plog=(0, p))]
+    else:
+        _need(buffers, path, "u_loc", "n_loc", "pl_n")
+        S = int(manifest["n_shards"])
+        C, F = int(manifest["capacity"]), int(manifest["frontier_capacity"])
+        n_loc = _counts(buffers, "n_loc", S)
+        pl = (_counts(buffers, "pl_n", S) if track_paths
+              else np.zeros(S, np.int64))
+        # a tiered run's blocks hold its hot keys (h_loc); u_loc counts
+        # the cold ones too
+        hot_loc = _counts(buffers, "h_loc" if "h_loc" in buffers
+                          else "u_loc", S)
+        sl = _block_slices(
+            path, manifest, dict(vkeys=vk.shape[1], frontier=fr.shape[1],
+                                 ebits=eb.size, plog=plog.shape[1]),
+            dict(vkeys=hot_loc, frontier=n_loc, ebits=n_loc, plog=pl),
+            dict(vkeys=C + F, frontier=F, ebits=F,
+                 plog=(C + F) if track_paths else 0))
+    blocks = []
+    for b in sl:
+        (u0, u1), (n0, n1), (p0, p1) = b["vkeys"], b["frontier"], b["plog"]
+        blocks.append(dict(
+            keys=pack_keys_np(vk[0, u0:u1], vk[1, u0:u1]),
+            frontier=fr[:, n0:n1], ebits=eb[n0:n1], plog=plog[:, p0:p1]))
+    return blocks
+
+
+def _frontier_fps(cols: np.ndarray) -> tuple:
+    """``(lo, hi)`` uint32 fingerprints of ``[W, n]`` frontier columns
+    (the raw fold, as JAX's re-shard routes frontier rows)."""
+    import torch
+
+    from .ops.fingerprint import fingerprint_u32v_t
+
+    lo, hi = fingerprint_u32v_t(torch.from_numpy(cols.astype(np.int64)))
+    return lo.numpy().astype(np.uint32), hi.numpy().astype(np.uint32)
+
+
+def reshard_sortmerge(blocks: list, checker) -> list:
+    """The elastic re-shard of a sort-merge state (JAX
+    ``reshard_sortmerge``): every row re-routed through the (owner, fp)
+    seam onto ``checker``'s shard count — a visited key to ``lo % S``,
+    each shard's keys sorted; a frontier row to the owner of its raw
+    fingerprint, each shard's rows in fingerprint ``(hi, lo)`` order; a
+    parent-log entry to the owner of its child. Single-device is the
+    one-shard layout, so this covers single ⇄ sharded and S_a -> S_b.
+    Refuses with :class:`SnapshotIncompatibleError`, JAX's messages,
+    when a shard's share passes the per-shard capacities."""
+    S = int(getattr(checker, "n_shards", 1))
+    C, F = int(checker.capacity), int(checker.frontier_capacity)
+    keys = np.concatenate([b["keys"] for b in blocks])
+    cols = np.concatenate([b["frontier"] for b in blocks], axis=1)
+    ebits = np.concatenate([b["ebits"] for b in blocks])
+    plog = np.concatenate([b["plog"] for b in blocks], axis=1)
+    key_owner = (keys & _M32) % S
+    fr_lo, fr_hi = _frontier_fps(cols)
+    fr_owner = fr_lo % np.uint32(S)
+    pl_owner = plog[2] % np.uint32(S)
+    out = []
+    for d in range(S):
+        k = np.sort(keys[key_owner == d])
+        if k.size > C:
+            raise SnapshotIncompatibleError(
+                f"re-shard: shard {d} of {S} would own {k.size:,} visited "
+                f"keys but per-shard capacity is {C:,} — raise the target "
+                "capacity")
+        fsel = fr_owner == d
+        if int(fsel.sum()) > F:
+            raise SnapshotIncompatibleError(
+                f"re-shard: shard {d} of {S} would own {int(fsel.sum()):,} "
+                f"frontier rows but frontier_capacity is {F:,} — raise the "
+                "target frontier_capacity")
+        order = np.lexsort((fr_lo[fsel], fr_hi[fsel]))
+        out.append(dict(keys=k, frontier=cols[:, fsel][:, order],
+                        ebits=ebits[fsel][order],
+                        plog=plog[:, pl_owner == d]))
+    return out
+
+
+def _wave_state(block: dict, track_paths: bool):
+    """A shard's ``WaveState`` in host memory from its block, the visited
+    keys checked to be strictly sorted and free of the sentinel."""
+    import torch
+
+    from .checkers.tpu_sortmerge import WaveState
+    from .convert import plog_blocks
+    from .ops.fingerprint import SENTINEL_KEY
+
+    keys = block["keys"]
+    if keys.size > 1 and not bool((keys[1:] > keys[:-1]).all()):
+        raise ValueError("vkeys must be a strictly sorted prefix of "
+                         "distinct keys")
+    if keys.size and int(keys[-1]) == SENTINEL_KEY:
+        raise ValueError("a sentinel inside the live prefix")
+    plog = []
+    if track_paths and block["plog"].shape[1]:
+        plog.append(tuple(torch.from_numpy(a)
+                          for a in plog_blocks(block["plog"])))
+    return WaveState(
+        vkeys=torch.from_numpy(keys),
+        frontier=torch.from_numpy(block["frontier"].astype(np.int64)),
+        ebits=torch.from_numpy(block["ebits"].astype(np.int64)), plog=plog)
+
+
+def _discovered_lanes(props, buffers: dict) -> dict:
+    """The discovery lanes as ``{property name: fingerprint}``."""
+    found, lo, hi = (np.asarray(buffers[k]).reshape(-1) for k in
+                     ("disc_found", "disc_lo", "disc_hi"))
+    return {p.name: (int(hi[i]) << 32) | int(lo[i])
+            for i, p in enumerate(props) if bool(found[i])}
+
+
+def _discovered(checker, buffers: dict) -> dict:
+    return _discovered_lanes(list(checker.model.properties()), buffers)
+
+
+def _mesh_tier_runs(path: str, manifest: dict, buffers: dict,
+                    tier_m: dict) -> tuple:
+    """A port tiered mesh snapshot's host state: ``(cold store, host
+    parent-log limbs or None)``, one store shard a source shard. A JAX
+    tiered mesh snapshot (its blocks at the padded strides, maybe a
+    pending wave) is refused: its fold is ported for one device."""
+    if manifest.get("shard_layout") != PACKED:
         raise SnapshotIncompatibleError(
-            f"{path}: the snapshot's table has {C:,} slots, this checker's "
-            f"{int(checker.capacity):,} — a hash table's slot layout is its "
-            "capacity; resume at the snapshot's capacity")
-    keys = pack_keys_np(buffers["t_lo"], buffers["t_hi"])
-    parents = None
-    if checker.track_paths:
-        parents = pack_keys_np(buffers["p_lo_t"], buffers["p_hi_t"])
-    fval = np.asarray(buffers["fval"], bool).reshape(-1)
-    front = np.asarray(buffers["frontier"], np.uint32)[fval]
-    ebits = np.asarray(buffers["ebits"], np.uint32).reshape(-1)[fval]
+            f"{path}: a JAX tiered mesh snapshot: the fold of its pending "
+            "wave is ported for one device only (ROADMAP item 15)")
+    S = int(manifest["n_shards"])
+    run_rows = tier_m.get("run_rows") or [[] for _ in range(S)]
+    per_shard = []
+    for s in range(S):
+        shard = []
+        for i, n in enumerate(run_rows[s] if s < len(run_rows) else []):
+            lo = buffers.pop(f"tier_run{s}_{i}_lo")
+            hi = buffers.pop(f"tier_run{s}_{i}_hi")
+            if int(n) != int(lo.size):
+                raise SnapshotCorruptError(
+                    f"tier run {s}/{i}: manifest declares {n} rows, buffer "
+                    f"has {lo.size}")
+            shard.append((lo, hi))
+        per_shard.append(shard)
+    cold = ColdStore.from_runs(per_shard, max_runs=int(
+        tier_m.get("max_runs") or 8), spills=int(tier_m.get("spills") or 0))
+    return cold, buffers.pop("tier_plog", None)
+
+
+def _stage_sortmerge(checker, path: str, manifest: dict, buffers: dict):
+    """A sort-merge snapshot staged in host memory, checked: each source
+    shard's live block (one for a single-device snapshot), re-sharded
+    onto the target's shard count when the counts or kinds differ
+    (:func:`reshard_sortmerge`), as one ``WaveState`` a shard in a
+    ``MeshState`` — or one ``WaveState`` for a single-device target. A
+    tiered snapshot is folded first (a JAX one's pending wave commits
+    through the cold store); its cold runs stay cold for a tiered target
+    (repartitioned to its shard count, JAX's ``_route_tier_target``) and
+    join each shard's hot keys for any other (the un-tier, refused where
+    a shard's keys then pass the capacity); its host parent log joins
+    the log of the shard that owns each entry. Each shard's keys must be
+    strictly sorted, with no sentinel, and hot plus cold keys must equal
+    the unique count. ``checker._ckpt_stats`` gets the wall of the
+    packing and checks."""
+    from .parallel.engine_sortmerge import MeshState
+
+    tier_m = manifest.get("tier")
+    cold = plog_host = hot = None
+    if tier_m and _is_mesh(manifest):
+        cold, plog_host = _mesh_tier_runs(path, manifest, buffers, tier_m)
+    elif tier_m:
+        buffers, cold, hot, plog_host = _fold_tier_snapshot(
+            checker, manifest, buffers, tier_m)
+    t0 = time.monotonic()
+    blocks = _sortmerge_blocks(path, manifest, buffers, hot)
     unique = _scalar(buffers, "new")
-    occupied = int(((np.asarray(buffers["t_lo"]) != 0)
-                    | (np.asarray(buffers["t_hi"]) != 0)).sum())
+    held = sum(b["keys"].size for b in blocks) + (
+        0 if cold is None else cold.rows())
+    if held != unique:
+        raise SnapshotCorruptError(
+            f"{path}: the shards hold {held:,} visited keys against "
+            f"{unique:,} unique")
+    if plog_host is not None and plog_host.shape[1]:
+        owner = plog_host[2] % np.uint32(len(blocks))
+        for s, b in enumerate(blocks):
+            b["plog"] = np.concatenate([plog_host[:, owner == s], b["plog"]],
+                                       axis=1)
+    untier = cold is not None and getattr(checker, "tier_hot_rows",
+                                          None) is None
+    if untier:
+        # each source shard's cold runs rejoin its hot keys
+        for s, b in enumerate(blocks):
+            b["keys"] = np.sort(np.concatenate([b["keys"]] + cold.runs[s]))
+        cold = None
+    S_b = int(getattr(checker, "n_shards", 1))
+    if (len(blocks) != S_b
+            or _engine_kind(checker) != manifest.get("kind", "single")):
+        blocks = reshard_sortmerge(blocks, checker)
+        if cold is not None:
+            cold = cold.repartitioned(S_b)
+    C = int(checker.capacity)
+    if untier and max(b["keys"].size for b in blocks) > C:
+        raise SnapshotIncompatibleError(
+            f"{path}: tiered snapshot holds {unique:,} visited keys, more "
+            f"than a shard's capacity of {C:,} once un-tiered, and tiering "
+            "is off — raise the capacity, or resume with tier_hot_rows set "
+            "to keep the cold tier")
+    if cold is not None:
+        cold.max_runs = int(checker.tier_max_runs)
+    try:
+        shards = [_wave_state(b, checker.track_paths) for b in blocks]
+    except ValueError as exc:
+        raise SnapshotCorruptError(f"{path}: the visited prefix: {exc}")
+    gen = _scalar(buffers, "gen_lo") | (_scalar(buffers, "gen_hi") << 32)
+    counters = dict(depth=_scalar(buffers, "depth"), generated=gen,
+                    waves=_scalar(buffers, "waves"),
+                    discovered=_discovered(checker, buffers))
+    checker._ckpt_stats["resume_host_sec"] = round(time.monotonic() - t0, 6)
+    if _engine_kind(checker) != "sharded":
+        st = shards[0]
+        for k, v in counters.items():
+            setattr(st, k, v)
+        st.cold = cold
+        return st
+    routed = (_scalar(buffers, "sent_lo") | (_scalar(buffers, "sent_hi") << 32)
+              if "sent_lo" in buffers else 0)
+    return MeshState(shards=shards, cold=cold, routed=routed, **counters)
+
+
+def sortmerge_mesh_state(checker, st):
+    """A staged ``MeshState`` uploaded, each shard to its device;
+    ``checker._ckpt_stats`` gets the upload's wall."""
+    import torch
+
+    t0 = time.monotonic()
+    for sh, dev in zip(st.shards, checker.devices):
+        sh.vkeys, sh.frontier, sh.ebits = (
+            sh.vkeys.to(dev), sh.frontier.to(dev), sh.ebits.to(dev))
+        sh.plog = [(p.to(dev), c.to(dev)) for p, c in sh.plog]
+    for dev in set(checker.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    checker._ckpt_stats["resume_upload_sec"] = round(time.monotonic() - t0, 6)
+    return st
+
+
+def _hash_blocks(path: str, manifest: dict, buffers: dict) -> list:
+    """A hash snapshot's state as one block a source shard: ``dict(keys,
+    parents, frontier, ebits)`` — the slot keys and parent keys, packed
+    int64 ``[C]`` in slot order (EMPTY, the (0, 0) pair, is JAX's empty
+    slot and root parent), the live frontier rows ``uint32[n, W]`` and
+    their eventually-bits."""
+    track_paths = bool(manifest["track_paths"])
+    S = int(manifest.get("n_shards", 1))
+    W = int(manifest["width"])
+    t = pack_keys_np(buffers["t_lo"], buffers["t_hi"]).reshape(-1)
+    par = (pack_keys_np(buffers["p_lo_t"], buffers["p_hi_t"]).reshape(-1)
+           if track_paths else None)
+    fr = np.asarray(buffers["frontier"], np.uint32).reshape(-1, W)
+    eb = np.asarray(buffers["ebits"], np.uint32).reshape(-1)
+    fval = np.asarray(buffers["fval"], bool).reshape(-1)
+    if t.size % S:
+        raise SnapshotCorruptError(
+            f"{path}: {t.size:,} table slots do not split into {S} shards")
+    C = t.size // S
+    if manifest.get("shard_layout") == PACKED:
+        _need(buffers, path, "n_loc")
+        n = _counts(buffers, "n_loc", S)
+        starts = np.concatenate([[0], np.cumsum(n)[:-1]]).astype(np.int64)
+    else:  # JAX: one frontier block of frontier_capacity rows a shard
+        F = fr.shape[0] // S
+        starts = np.arange(S, dtype=np.int64) * F
+        n = np.full(S, F, np.int64)
+    blocks = []
+    for s in range(S):
+        rows = slice(int(starts[s]), int(starts[s] + n[s]))
+        live = fval[rows]
+        blocks.append(dict(
+            keys=t[s * C:(s + 1) * C],
+            parents=None if par is None else par[s * C:(s + 1) * C],
+            frontier=fr[rows][live], ebits=eb[rows][live]))
+    return blocks
+
+
+def reshard_hash(blocks: list, checker) -> list:
+    """The hash re-shard (JAX ``reshard_hash``): each target shard's table
+    rebuilt on the host by re-inserting, in source slot order, the
+    occupied keys it owns (``lo % S``) through the plain insert, whose
+    probe sequence is the CUDA kernel's and JAX's; each parent key moves
+    with its key; frontier rows re-route by their fingerprints, each
+    shard's rows in ``(hi, lo)`` order. Refuses before any device work
+    when a table cannot absorb its keys or a frontier share overflows.
+    Unlike JAX, single ⇄ sharded goes this way too (a single-device
+    table is the one-shard layout)."""
+    import torch
+
+    from .ops.hashset import EMPTY, DeviceHashSet, insert_plain
+
+    S = int(getattr(checker, "n_shards", 1))
+    C, F = int(checker.capacity), int(checker.frontier_capacity)
+    keys = np.concatenate([b["keys"] for b in blocks])
+    occupied = keys != EMPTY
+    keys = keys[occupied]
+    parents = (None if blocks[0]["parents"] is None else
+               np.concatenate([b["parents"] for b in blocks])[occupied])
+    rows = np.concatenate([b["frontier"] for b in blocks])
+    ebits = np.concatenate([b["ebits"] for b in blocks])
+    key_owner = (keys & _M32) % S
+    fr_lo, fr_hi = _frontier_fps(np.ascontiguousarray(rows.T))
+    fr_owner = fr_lo % np.uint32(S)
+    out = []
+    for d in range(S):
+        sel = key_owner == d
+        k = keys[sel]
+        if k.size > C:
+            raise SnapshotIncompatibleError(
+                f"hash re-shard: shard {d} of {S} would own {k.size:,} "
+                f"visited keys but per-shard capacity is {C:,} — raise the "
+                "target capacity")
+        table = DeviceHashSet.empty(C, "cpu")
+        _, ovf, slot = insert_plain(table, torch.from_numpy(k), None,
+                                    int(checker.probe_rounds))
+        if bool(ovf.any()):
+            raise SnapshotIncompatibleError(
+                f"hash re-shard: shard {d} of {S} exhausted "
+                f"{checker.probe_rounds} probe rounds re-inserting "
+                f"{k.size:,} keys at capacity {C:,} — raise the target "
+                "capacity or probe_rounds")
+        par = None
+        if parents is not None:
+            par = np.full(C, EMPTY, np.int64)
+            par[slot.numpy()] = parents[sel]
+        fsel = fr_owner == d
+        if int(fsel.sum()) > F:
+            raise SnapshotIncompatibleError(
+                f"hash re-shard: shard {d} of {S} would own "
+                f"{int(fsel.sum()):,} frontier rows but frontier_capacity "
+                f"is {F:,} — raise the target frontier_capacity")
+        order = np.lexsort((fr_lo[fsel], fr_hi[fsel]))
+        out.append(dict(keys=table.keys.numpy(), parents=par,
+                        frontier=rows[fsel][order],
+                        ebits=ebits[fsel][order]))
+    return out
+
+
+def _stage_hash(checker, path: str, manifest: dict, buffers: dict) -> dict:
+    """A hash snapshot staged in host memory: each source shard's packed
+    slot keys and parent keys (EMPTY where JAX has the (0, 0) pair: an
+    empty slot, a root), its live frontier rows lane-major, re-sharded
+    (:func:`reshard_hash`) unless the shard count, kind and slot count
+    all match (one device to one device must keep the slot count: a
+    table's layout is its capacity); the counters and discoveries; for a
+    sharded target the shards under ``shards``. Each table's occupied
+    slots must sum to the unique count."""
+    from .ops.hashset import EMPTY
+
+    blocks = _hash_blocks(path, manifest, buffers)
+    unique = _scalar(buffers, "new")
+    occupied = sum(int((b["keys"] != EMPTY).sum()) for b in blocks)
     if occupied != unique:
         raise SnapshotCorruptError(
-            f"{path}: the table holds {occupied:,} keys against {unique:,} "
+            f"{path}: the tables hold {occupied:,} keys against {unique:,} "
             "unique")
-    props = list(checker.model.properties())
-    found, lo, hi = (np.asarray(buffers[k]) for k in
-                     ("disc_found", "disc_lo", "disc_hi"))
-    discovered = {p.name: (int(hi[i]) << 32) | int(lo[i])
-                  for i, p in enumerate(props) if bool(found[i])}
-    return dict(
-        keys=keys, parents=parents,
-        frontier=np.ascontiguousarray(front.T).astype(np.int64),
-        ebits=ebits.astype(np.int64), depth=_scalar(buffers, "depth"),
-        waves=_scalar(buffers, "waves"),
+    S_b = int(getattr(checker, "n_shards", 1))
+    C = int(checker.capacity)
+    same_kind = _engine_kind(checker) == manifest.get("kind", "single")
+    if (same_kind and _engine_kind(checker) == "single"
+            and blocks[0]["keys"].size != C):
+        raise SnapshotIncompatibleError(
+            f"{path}: the snapshot's table has {blocks[0]['keys'].size:,} "
+            f"slots, this checker's {C:,} — a hash table's slot layout is "
+            "its capacity; resume at the snapshot's capacity")
+    if len(blocks) != S_b or not same_kind or blocks[0]["keys"].size != C:
+        blocks = reshard_hash(blocks, checker)
+    shards = [dict(keys=b["keys"], parents=b["parents"],
+                   frontier=np.ascontiguousarray(b["frontier"].T)
+                   .astype(np.int64),
+                   ebits=b["ebits"].astype(np.int64)) for b in blocks]
+    counters = dict(
+        depth=_scalar(buffers, "depth"), waves=_scalar(buffers, "waves"),
         generated=(_scalar(buffers, "gen_lo")
                    | (_scalar(buffers, "gen_hi") << 32)),
-        unique=unique, discovered=discovered,
-    )
+        unique=unique, discovered=_discovered(checker, buffers))
+    if _engine_kind(checker) != "sharded":
+        return dict(shards[0], **counters)
+    return dict(shards=shards, **counters)
 
 
 # -- failure policy -----------------------------------------------------------
@@ -844,12 +1258,15 @@ def is_supervised_fault(exc: BaseException) -> bool:
     return _is_oom(exc)
 
 
-def classify_failure(exc: BaseException) -> tuple:
-    """``(class, shard or None)`` of one failure, JAX's table without its
-    straggler attribution (which needs the multi-GPU engines):
+def classify_failure(exc: BaseException, straggler_shards=()) -> tuple:
+    """``(class, shard or None)`` of one failure, JAX's table:
     :class:`WatchdogTimeout` -> ``hang``; an injected shard fault ->
     ``shard_fault`` with its shard; an OOM -> ``oom``; another supervised
-    fault -> ``transient``; anything else -> ``unsupervised``."""
+    fault -> ``transient``, attributed to a shard only when
+    ``straggler_shards`` names exactly one; anything else ->
+    ``unsupervised``. The port's engines have no straggler detector yet
+    (ROADMAP item 17), so they pass none, and only an injected shard
+    fault names a shard."""
     from .faultinject import InjectedShardFault
 
     if isinstance(exc, WatchdogTimeout):
@@ -859,8 +1276,48 @@ def classify_failure(exc: BaseException) -> tuple:
     if _is_oom(exc):
         return "oom", None
     if is_supervised_fault(exc):
-        return "transient", None
+        shard = (int(straggler_shards[0])
+                 if len(straggler_shards) == 1 else None)
+        return "transient", shard
     return "unsupervised", None
+
+
+class FailurePolicy:
+    """Per-run failure bookkeeping for the supervisor (JAX's): classify
+    each failure, count shard-attributed strikes, and call a fault
+    PERSISTENT once one shard has failed ``persist_threshold`` times —
+    the point at which :func:`supervised_run` degrades onto the
+    surviving shards."""
+
+    def __init__(self, persist_threshold: int = 2):
+        if persist_threshold < 1:
+            raise ValueError(
+                f"persist_threshold must be >= 1: {persist_threshold}")
+        self.persist_threshold = int(persist_threshold)
+        #: (class, shard) per classified failure, in order
+        self.history: list = []
+        #: shard id -> attributed failures
+        self.strikes: dict = {}
+
+    def classify(self, exc: BaseException, straggler_shards=()) -> tuple:
+        """Classify and record one failure; a shard-attributed one strikes
+        its shard (one attributed to none resets nothing)."""
+        kind, shard = classify_failure(exc, straggler_shards)
+        self.history.append((kind, shard))
+        if shard is not None:
+            self.strikes[shard] = self.strikes.get(shard, 0) + 1
+        return kind, shard
+
+    def should_degrade(self) -> Optional[int]:
+        """The shard to drop (most strikes first), or None while no shard
+        has reached the threshold."""
+        over = [(n, s) for s, n in self.strikes.items()
+                if n >= self.persist_threshold]
+        return max(over)[1] if over else None
+
+    def degraded(self, shard: int) -> None:
+        """The run dropped this shard: its strikes go with it."""
+        self.strikes.pop(shard, None)
 
 
 # -- supervision --------------------------------------------------------------
@@ -881,15 +1338,20 @@ def _interruptible_backoff(delay: float, checker) -> None:
 
 
 def supervised_run(checker, reporter=None) -> None:
-    """The retry loop around one engine run (``checker._run``): a
-    supervised failure retries from the last snapshot — or from the
-    init states when the run checkpoints and none was written yet —
-    after a backoff of ``retry_backoff_sec * 2**(attempt - 1)`` (at most
-    30 s), up to ``max_fault_retries`` times, with a ``RuntimeWarning``
-    each time; the retries count in ``metrics["fault_recoveries"]``.
-    After two OOMs the engine degrades (``_degrade_memory_lean``).
-    Anything else, and a supervised failure past the retries, raises
-    through."""
+    """The retry loop around one engine run (``checker._run``): each
+    supervised failure is classified by a :class:`FailurePolicy` and
+    retried from the last snapshot — or from the init states when the
+    run checkpoints and none was written yet — after a backoff of
+    ``retry_backoff_sec * 2**(attempt - 1)`` (at most 30 s), up to
+    ``max_fault_retries`` times, with a ``RuntimeWarning`` each time; the
+    retries count in ``metrics["fault_recoveries"]``. After two OOMs the
+    engine degrades (``_degrade_memory_lean``). With ``degrade_on_fault``
+    set on a sharded engine of more than one shard, a fault that strikes
+    the same shard twice (the policy's threshold) drops that shard
+    (``_degrade_shards``), and the retry re-shards the last snapshot
+    onto the survivors; the warning says so (``DEGRADING``). Anything
+    else, and a supervised failure past the retries, raises through."""
+    policy = FailurePolicy()
     attempts = ooms = 0
     while True:
         try:
@@ -897,19 +1359,27 @@ def supervised_run(checker, reporter=None) -> None:
         except Exception as exc:
             if not is_supervised_fault(exc):
                 raise
-            kind, _ = classify_failure(exc)
+            kind, shard = policy.classify(exc)
             snap = checker._last_snapshot or checker._resume_path
             if ((not checker.checkpoint_every and snap is None)
                     or (snap is None and checker._started_from_state)
                     or attempts >= checker.max_fault_retries):
                 raise
             attempts += 1
+            victim = None
+            if (getattr(checker, "degrade_on_fault", False)
+                    and checker._can_degrade_shards()):
+                victim = policy.should_degrade()
             delay = min(checker.retry_backoff_sec * 2 ** (attempts - 1),
                         30.0)
+            S = int(getattr(checker, "n_shards", 1))
             warnings.warn(
-                f"supervised recovery [{kind}]: {type(exc).__name__} on "
-                f"wave execution ({exc}); retry {attempts}/"
-                f"{checker.max_fault_retries} from "
+                f"supervised recovery [{kind}"
+                + (f", shard {shard}" if shard is not None else "")
+                + f"]: {type(exc).__name__} on wave execution ({exc}); "
+                + (f"DEGRADING: dropping shard {victim} ({S} -> {S - 1} "
+                   "shards) and " if victim is not None else "")
+                + f"retry {attempts}/{checker.max_fault_retries} from "
                 + (f"snapshot {os.path.basename(snap)}" if snap
                    else "the init states")
                 + f" after {delay:.2f}s backoff",
@@ -924,6 +1394,11 @@ def supervised_run(checker, reporter=None) -> None:
                     checker._degrade_memory_lean()
             _interruptible_backoff(delay, checker)
             checker._reset_for_resume()
+            if victim is not None:
+                checker._degrade_shards(exclude_shard=victim)
+                policy.degraded(victim)
+                checker._ckpt_stats["shard_degrades"] = (
+                    checker._ckpt_stats.get("shard_degrades", 0) + 1)
             if snap is not None:
                 resume_from(checker, snap,
                             allow_sha_mismatch=checker._resume_allow_sha)

@@ -56,8 +56,11 @@ the run's) and retries a failed wave from it; ``--checkpoint-path=P``
 names the file (default ``stateright_tpu_torch.ckpt``); ``--resume``
 continues from it (``--resume-any-sha`` also from another commit);
 ``--watchdog[=factor]`` bounds each wave's wall at ``factor`` (default
-8) times the slowest wave so far. A run killed mid-way resumes from its
-last snapshot:
+8) times the slowest wave so far; ``--degrade-on-fault`` is accepted as
+the JAX lanes accept it: it lets the supervisor drop a shard that keeps
+failing, which engages only on a sharded engine (the CLI's lanes run one
+device; the sharded engines are a library entry, parallel/). A run
+killed mid-way resumes from its last snapshot:
 
     python -m stateright_tpu_torch 2pc check-gpu 9 --checkpoint-every=4
     python -m stateright_tpu_torch 2pc check-gpu 9 --resume
@@ -93,9 +96,13 @@ class RunFlags:
     resume_any_sha: bool = False
     #: the watchdog's factor of the slowest wave so far; None: off
     watchdog: float | None = None
+    #: let the supervisor drop a persistently failing shard (a no-op on
+    #: one device, JAX ``--degrade-on-fault``)
+    degrade_on_fault: bool = False
 
     def durable(self) -> bool:
-        return bool(self.checkpoint_every or self.resume or self.watchdog)
+        return bool(self.checkpoint_every or self.resume or self.watchdog
+                    or self.degrade_on_fault)
 
     def apply(self, checker):
         """Arm ``checker`` with the checkpoint, resume and watchdog flags
@@ -106,6 +113,8 @@ class RunFlags:
         path = self.checkpoint_path or DEFAULT_PATH
         if self.watchdog:
             checker.watchdog_factor = float(self.watchdog)
+        if self.degrade_on_fault:
+            checker.degrade_on_fault = True
         if self.checkpoint_every:
             checker.checkpoint_every = self.checkpoint_every
             checker.checkpoint_path = path
@@ -165,12 +174,12 @@ def _pop_flags(argv: list[str]):
             if float(val) <= 0:
                 raise SystemExit(f"--watchdog={val}: the factor must be > 0")
             durable["watchdog"] = float(val)
-        elif (arg == "--degrade-on-fault"
-              or arg.startswith("--straggler-factor")):
+        elif arg == "--degrade-on-fault":
+            on.add("degrade_on_fault")
+        elif arg.startswith("--straggler-factor"):
             raise SystemExit(
-                f"{arg.split('=', 1)[0]}: the shard degrade and the "
-                "straggler detector need the multi-GPU engines, which are "
-                "not ported yet (ROADMAP item 15)")
+                "--straggler-factor: the straggler detector reads traced "
+                "runs, and the port has no tracer yet (ROADMAP item 17)")
         elif arg == "--device":
             device = next(it, None)
         elif arg.startswith("--device="):
@@ -205,8 +214,8 @@ def _check(header: str, model, flags: RunFlags) -> None:
         )
     if flags.durable():
         raise SystemExit(
-            "--checkpoint-every, --resume and --watchdog apply to check-gpu; "
-            "check runs the plain host DFS"
+            "--checkpoint-every, --resume, --watchdog and --degrade-on-fault "
+            "apply to check-gpu; check runs the plain host DFS"
         )
     print(header)
     model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
@@ -542,9 +551,9 @@ def _usage() -> None:
           "memory plan (memplan.decide_hot_rows, 2 GiB budget)")
     print("       every check-gpu lane takes [--checkpoint-every=N|auto] "
           "[--checkpoint-path=P] [--resume] [--resume-any-sha] "
-          "[--watchdog[=FACTOR]]: a snapshot every N waves "
-          "(checkpoint.py; default path stateright_tpu_torch.ckpt), a "
-          "failed wave retried from it, --resume continues from it")
+          "[--watchdog[=FACTOR]] [--degrade-on-fault]: a snapshot every "
+          "N waves (checkpoint.py; default path stateright_tpu_torch.ckpt),"
+          " a failed wave retried from it, --resume continues from it")
     print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "

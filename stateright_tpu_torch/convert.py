@@ -20,6 +20,12 @@ memory (``stateright_tpu.tier.ColdStore``); :func:`cold_store_from_runs`
 turns its ``snapshot_runs()`` into the port's
 :class:`~stateright_tpu_torch.tier.ColdStore`, which a wave state
 carries as ``cold`` (``carry_from_numpy(..., cold=...)``).
+
+The JAX sharded sort-merge engine's carry holds the same leaves with a
+shard's block at a stride of its padded per-shard capacities, and the
+per-shard counts ``u_loc``, ``n_loc`` and ``pl_n``;
+:func:`mesh_from_numpy` turns it into the port's sharded state, one
+wave state a shard, for ``spawn_sharded_sortmerge(...).start_from``.
 """
 
 from __future__ import annotations
@@ -110,3 +116,41 @@ def cold_store_from_runs(per_shard_runs, max_runs: int = 8,
     ``repartitioned(1)``)."""
     return ColdStore.from_runs(per_shard_runs, max_runs=max_runs,
                                spills=spills)
+
+
+def mesh_from_numpy(carry: dict, *, n_shards: int, capacity: int,
+                    frontier_capacity: int, track_paths: bool = True,
+                    props=()):
+    """The port's sharded state (parallel/engine_sortmerge.py
+    ``MeshState``) from a JAX sharded sort-merge carry or mesh snapshot
+    (numpy leaves): per shard ``s`` its visited keys ``vkeys[:,
+    s*(C+F):][:u_loc[s]]``, frontier block ``frontier[:, s*F:][:n_loc[s]]``
+    with its ``ebits``, and parent log ``plog[:, s*(C+F):][:pl_n[s]]``,
+    ``C`` and ``F`` the JAX engine's per-shard ``capacity`` and
+    ``frontier_capacity``; the counters, the routed-row count and the
+    discovery lanes as :func:`carry_from_numpy` reads them. Each shard's
+    tensors stay in host memory until a run (``start_from``) uploads
+    them to its device."""
+    from .checkpoint import (
+        _discovered_lanes,
+        _sortmerge_blocks,
+        _wave_state,
+    )
+    from .parallel.engine_sortmerge import MeshState
+
+    manifest = dict(n_shards=int(n_shards), kind="sharded",
+                    capacity=int(capacity),
+                    frontier_capacity=int(frontier_capacity),
+                    track_paths=bool(track_paths))
+    blocks = _sortmerge_blocks("carry", manifest, carry)
+
+    def scalar(name):
+        return int(np.asarray(carry.get(name, 0)).reshape(-1)[0])
+
+    return MeshState(
+        shards=[_wave_state(b, track_paths) for b in blocks],
+        depth=scalar("depth"),
+        generated=scalar("gen_lo") | (scalar("gen_hi") << 32),
+        waves=scalar("waves"),
+        routed=scalar("sent_lo") | (scalar("sent_hi") << 32),
+        discovered=_discovered_lanes(props, carry))

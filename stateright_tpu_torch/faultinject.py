@@ -26,10 +26,13 @@ counts from 0 again, so a fault armed once cannot trip itself twice).
 * **wave hang**: a ``hang`` sleeps ``hang_sec`` (default 30 s) at its
   site instead of raising; only the watchdog (the engines'
   ``watchdog_factor``) sees it;
-* **per-shard faults and the collective seam**: ``shard_fault`` and the
-  ``collective_seam`` site parse and fire as in the JAX package, but no
-  single-device engine calls :func:`fire` at that site or names a shard
-  (the mesh engines are ROADMAP item 15).
+* **per-shard faults and the collective seam**: the sharded engines
+  (parallel/) fire the ``collective_seam`` site at each wave's exchange,
+  after its host sync and before any row moves between shards, and pass
+  their live shard ids to every site, so a ``shard_fault`` (one dead
+  device of the list, persistent) fires until a degrade drops its shard.
+  A single-device engine never reaches the collective seam, and its
+  shard is 0.
 
 Faults arm programmatically (:func:`arm`) or through the ``STPU_FAULTS``
 environment variable, the JAX package's: a comma-separated list of

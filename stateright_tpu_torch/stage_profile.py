@@ -12,6 +12,10 @@
     python -m stateright_tpu_torch.stage_profile --hash paxos 4
     python -m stateright_tpu_torch.stage_profile --tier 1048576 9
     python -m stateright_tpu_torch.stage_profile --tier 262144 paxos 4
+    python -m stateright_tpu_torch.stage_profile --shards 4 9
+    python -m stateright_tpu_torch.stage_profile --shards 4 paxos 4
+    python -m stateright_tpu_torch.stage_profile --shards 2 --hash 9
+    python -m stateright_tpu_torch.stage_profile --shards 4 --devices cuda:0,cuda:1,cuda:2,cuda:3 9
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
@@ -33,6 +37,12 @@ runs the sort-merge checker with the tiered visited set at a hot
 ceiling of N keys (``--tier-hot-rows=N``) and adds the engine's own
 host walls of the tier: the spills, the ingest on the worker thread,
 the waits for it and the cold membership searches (:func:`_tier_split`).
+``--shards S`` runs the sharded engine of the same run instead
+(``spawn_sharded_sortmerge``, or ``spawn_sharded_hash`` with ``--hash``)
+over S shards, each with the per-shard sizes of :func:`sharded_sizes`,
+all on ``cuda:0`` unless ``--devices`` lists one device a shard, and
+adds the shard route's and the exchange's device time and the host
+wall of the engine's per-wave syncs (:func:`_shard_split`).
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -118,6 +128,86 @@ def _checker(model: str, n: int, extra: list, sparse=None, flags=None):
     return flags.spawn(
         TwoPhaseSys(rm_count=n), symmetric=True, **twopc_sizes(n),
         sparse=sparse)
+
+
+def sharded_sizes(sizes: dict, n_shards: int) -> dict:
+    """Per-shard sort-merge sizes for ``n_shards`` shards from one
+    device's: twice an even share of the capacity and the frontier (a
+    bound the shards may cross unevenly; the port allocates to the live
+    size, not the bound)."""
+    if n_shards == 1:
+        return dict(sizes)
+    return {k: -(-2 * v // n_shards) if k in ("capacity",
+                                              "frontier_capacity") else v
+            for k, v in sizes.items()}
+
+
+def _sharded_checker(model: str, n: int, devices: list, hashed: bool):
+    """The sharded engine of 2pc rm=``n`` or Paxos with ``n`` clients, at
+    the one-device run's sizes split over the shards."""
+    from .cli import twopc_sizes
+
+    S = len(devices)
+    if model == "paxos":
+        from .models.paxos import PaxosModelCfg, paxos_model
+        from .models.paxos_tpu import STRUCTURAL_SIZES
+
+        m = paxos_model(PaxosModelCfg(client_count=n, server_count=3))
+        sizes = dict(sharded_sizes(STRUCTURAL_SIZES[n], S),
+                     track_paths=n <= 2)
+    else:
+        from .models.two_phase_commit import TwoPhaseSys
+
+        m = TwoPhaseSys(rm_count=n)
+        sizes = sharded_sizes(twopc_sizes(n), S)
+    if hashed:
+        cfg = dict(HASH_CFG[model])
+        # the table is allocated: an even share, a power of two
+        cfg["capacity"] = max(1 << 10, cfg["capacity"] // S)
+        return m.checker().spawn_sharded_hash(devices=devices, **cfg)
+    return m.checker().spawn_sharded_sortmerge(devices=devices, **sizes)
+
+
+def _shard_split(syncs: dict, ranges: dict, waves: int, wall: float) -> dict:
+    """The sharded run's route and exchange on the device (the
+    profiler's ranges around ``exchange.route`` and ``exchange.exchange``:
+    their kernels' summed time, and the span each range covers on the
+    device timeline) and the host wall of its per-wave syncs
+    (``exchange.host_rows``, the counts and verdicts read on the host),
+    beside the untraced wall."""
+    return dict(
+        **ranges,
+        host_sync_calls=syncs["calls"],
+        host_sync_sec=syncs["sec"],
+        host_sync_sec_per_wave=syncs["sec"] / max(waves, 1),
+        host_sync_share_of_untraced_wall=syncs["sec"] / wall)
+
+
+def _instrument_shards(syncs: dict) -> None:
+    """Wrap the sharded engines' route and exchange in profiler ranges
+    and time their host syncs (this tool's patch of the names the engine
+    modules call, for this process only)."""
+    from torch.profiler import record_function
+
+    from .parallel import engine, engine_sortmerge, exchange
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
+
+    def timed_rows(rows):
+        t0 = time.monotonic()
+        out = exchange.host_rows(rows)
+        syncs["sec"] += time.monotonic() - t0
+        syncs["calls"] += 1
+        return out
+
+    for mod in (engine, engine_sortmerge):
+        mod.route = ranged("shard route", exchange.route)
+        mod.exchange = ranged("shard exchange", exchange.exchange)
+        mod.host_rows = timed_rows
 
 
 #: the warm-up size of each model (a smaller run of the same code)
@@ -244,6 +334,19 @@ def main(argv=None) -> int:
     hashed = "--hash" in argv
     if hashed:
         argv.remove("--hash")
+    devices = None
+    if "--devices" in argv:
+        i = argv.index("--devices")
+        devices = argv[i + 1].split(",")
+        del argv[i:i + 2]
+    if "--shards" in argv:
+        i = argv.index("--shards")
+        S = int(argv[i + 1])
+        del argv[i:i + 2]
+        devices = devices or ["cuda:0"] * S
+        if len(devices) != S:
+            raise SystemExit(f"--shards {S} but --devices lists "
+                             f"{len(devices)}")
     sparse = None
     if "--dense" in argv:
         argv.remove("--dense")
@@ -271,7 +374,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     make = warm = None
-    if sim:
+    syncs = dict(sec=0.0, calls=0)
+    if devices is not None:
+        _instrument_shards(syncs)
+        make = lambda: _sharded_checker(  # noqa: E731
+            model, n, devices, hashed)
+        warm = lambda: _sharded_checker(  # noqa: E731
+            model, min(n, WARM[model]), devices, hashed)
+    elif sim:
         cfg = SIM_CFG[model]
         make = lambda: _sim_checker(model, n, cfg)  # noqa: E731
         warm = lambda: _sim_checker(  # noqa: E731
@@ -282,17 +392,36 @@ def main(argv=None) -> int:
         warm = lambda: _hash_checker(  # noqa: E731
             model, min(n, WARM[model]), dict(cfg, capacity=1 << 16))
     _check(model, min(n, WARM[model]), extra, sparse, flags, warm)
+    syncs.update(sec=0.0, calls=0)
     checker, wall = _check(model, n, extra, sparse, flags, make)
+    untraced_syncs = dict(syncs)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: the host ops of a dense Paxos run are
-    # millions of events, more than the profiler digests in minutes
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # millions of events, more than the profiler digests in minutes (a
+    # sharded run records its host ranges too: its route and exchange
+    # are read off them)
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if devices is not None else [])
+    with profile(activities=activities) as prof:
         traced, traced_wall = _check(model, n, extra, sparse, flags, make)
     kernels = {}
+    ranges = {}
     launches = 0
     for ev in prof.key_averages():
+        if ev.key in ("shard route", "shard exchange"):
+            # the host range sums its kernels' device time; its copy on
+            # the device timeline spans first kernel to last, gaps too
+            name = ev.key.replace(" ", "_")
+            if ev.device_type == DeviceType.CUDA:
+                ranges[f"{name}_device_span_ms"] = (
+                    ev.self_device_time_total / 1e3)
+            else:
+                ranges[f"{name}_kernels_ms"] = getattr(
+                    ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0)) / 1e3
+            continue
         if ev.device_type != DeviceType.CUDA:
             continue  # host ops; their kernels are listed on their own
         kernels[ev.key] = kernels.get(ev.key, 0.0) + (
@@ -337,6 +466,8 @@ def main(argv=None) -> int:
         "card": card,
         "model": " ".join((["hash"] if hashed else [])
                           + [model, str(n), *extra]
+                          + ([f"--shards={len(devices)}"]
+                             if devices is not None else [])
                           + (["dense"] if sparse is False else [])
                           + [f"--{k.replace('_', '-')}={v}"
                              if v is not True else
@@ -360,6 +491,10 @@ def main(argv=None) -> int:
         "canonicalizer": canon,
         "tier": (_tier_split(traced.metrics, traced_wall, busy_ms)
                  if flags.tier_hot_rows else None),
+        "devices": devices,
+        "shards": (_shard_split(untraced_syncs, ranges,
+                                checker.metrics["waves"], wall)
+                   if devices is not None else None),
     }, indent=1))
     return 0
 

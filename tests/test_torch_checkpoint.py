@@ -461,12 +461,12 @@ def test_incompatible_snapshot_refused(tmp_path, twopc3_snapshot):
         _hash(3).resume_from(twopc3_snapshot)
     with pytest.raises(SnapshotIncompatibleError, match="track_paths"):
         _sm(3, track_paths=False).resume_from(twopc3_snapshot)
-    # a mesh snapshot: the re-shard is the multi-GPU engines' (item 15)
+    # a mesh manifest over one device's leaves: no per-shard counters
     mesh = str(tmp_path / "mesh.ckpt")
     manifest, buffers = checkpoint._read_raw(twopc3_snapshot)
     manifest.update(n_shards=2, kind="sharded")
     checkpoint._write_file(mesh, manifest, buffers)
-    with pytest.raises(SnapshotIncompatibleError, match="ROADMAP item 15"):
+    with pytest.raises(SnapshotCorruptError, match="per-shard leaves"):
         _sm(3).resume_from(mesh)
     # a hash table's slot count is its layout
     snap = str(tmp_path / "h.ckpt")
@@ -566,3 +566,198 @@ def test_cli_killed_and_resumed(tmp_path):
     assert p.returncode == 0, p.stderr
     assert "resuming from" in p.stdout and "wave 6" in p.stdout
     assert "Done. states=8258, unique=1568, depth=14" in p.stdout
+
+
+# -- mesh snapshots and the re-shard (the sharded engines, parallel/) ---------
+
+
+def _mesh(S, rm=4, **kw):
+    kw.setdefault("capacity", 1 << 11)
+    kw.setdefault("frontier_capacity", 512)
+    return TwoPhaseSys(rm_count=rm).checker().spawn_sharded_sortmerge(
+        devices=["cpu"] * S, **kw)
+
+
+def _mesh_hash(S, rm=4, **kw):
+    kw.setdefault("capacity", 1 << 12)
+    return TwoPhaseSys(rm_count=rm).checker().spawn_sharded_hash(
+        devices=["cpu"] * S, frontier_capacity=512, **kw)
+
+
+def _counts(c) -> tuple:
+    return (c.unique_state_count(), c.state_count(), c.max_depth(),
+            c.discovered_property_names())
+
+
+def test_mesh_2pc4_every_boundary_same_shard_and_2_to_4(tmp_path):
+    """2pc rm=4 at S = 2, killed at every wave boundary, resumes at S = 2
+    to the uninterrupted run's every field and path, and re-sharded at
+    S = 4 and on the one-device engine to its counts, with paths that
+    replay (JAX ``tests/test_checkpoint.py:181``)."""
+    base = _mesh(2).join()
+    assert base.unique_state_count() == 1568
+    for wave in range(base.metrics["waves"] - 1):
+        snap = str(tmp_path / f"mesh{wave}.ckpt")
+        _kill_at(lambda **kw: _mesh(2, **kw), snap, wave)
+        same = _resume(lambda: _mesh(2), snap)
+        assert _fields(same) == _fields(base), wave
+        assert _paths(same) == _paths(base), wave
+        for target in (_mesh(4), _sm(4)):
+            manifest = target.resume_from(snap)
+            assert (manifest["n_shards"], manifest["kind"],
+                    manifest["shard_layout"]) == (2, "sharded", "packed")
+            target.join()
+            assert _counts(target) == _counts(base), wave
+    _replays(target)
+
+
+def test_single_snapshot_resumes_sharded(tmp_path):
+    """A one-device snapshot re-shards onto S = 2 and 3, a tiered one
+    un-tiered on the way (the sharded engines keep their keys on the
+    device)."""
+    base = _sm(5, capacity=1 << 15, frontier_capacity=1 << 13).join()
+    snap = str(tmp_path / "single.ckpt")
+    _kill_at(lambda **kw: _sm(5, capacity=1 << 15,
+                              frontier_capacity=1 << 13, **kw), snap, 6)
+    tiered = str(tmp_path / "tiered.ckpt")
+    _kill_at(lambda **kw: _sm(5, capacity=1 << 15,
+                              frontier_capacity=1 << 13,
+                              tier_hot_rows=1024, **kw), tiered, 12)
+    assert load_snapshot(tiered)[0]["tier"]["spills"] >= 1
+    for path, S in ((snap, 2), (snap, 3), (tiered, 2)):
+        c = _resume(lambda: _mesh(S, rm=5, capacity=1 << 14,
+                                  frontier_capacity=1 << 12), path)
+        assert _counts(c) == _counts(base), (path, S)
+        _replays(c)
+
+
+def test_reshard_refuses_a_small_target(tmp_path, twopc3_snapshot):
+    with pytest.raises(SnapshotIncompatibleError,
+                       match=r"re-shard: shard \d of 2 would own"):
+        _mesh(2, rm=3, capacity=2).resume_from(twopc3_snapshot)
+
+
+def test_hash_reshard_directions(tmp_path):
+    """The sharded hash snapshot re-shards by re-insertion S_a -> S_b in
+    both directions, and, beyond JAX (which refuses it), single ⇄
+    sharded; the same layout uploads directly
+    (JAX ``tests/test_checkpoint.py:270``)."""
+    base = _mesh_hash(2).join()
+    assert base.unique_state_count() == 1568
+    snap2, snap4, one = (str(tmp_path / f"{n}.ckpt")
+                         for n in ("h2", "h4", "h1"))
+    _kill_at(lambda **kw: _mesh_hash(2, **kw), snap2, 5)
+    _kill_at(lambda **kw: _mesh_hash(4, **kw), snap4, 7)
+    _kill_at(lambda **kw: _hash(4, **kw), one, 6)
+    same = _resume(lambda: _mesh_hash(2), snap2)
+    assert _fields(same) == _fields(base) and _paths(same) == _paths(base)
+    for path, spawn in ((snap2, lambda: _mesh_hash(4)),
+                        (snap4, lambda: _mesh_hash(2)),
+                        (one, lambda: _mesh_hash(3)),
+                        (snap2, lambda: _hash(4))):
+        c = _resume(spawn, path)
+        assert _counts(c) == _counts(base), path
+        _replays(c)
+    with pytest.raises(SnapshotIncompatibleError,
+                       match="hash re-shard: shard 1 of 2 exhausted"):
+        _mesh_hash(2, capacity=1 << 9).resume_from(snap2)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_snapshot(tmp_path_factory):
+    """JAX's sharded sort-merge 2pc rm=4 at S = 2, one wave a sync: the
+    run resumed from its snapshot at wave 5, and that snapshot."""
+    from stateright_tpu import faultinject as jax_faults
+    from stateright_tpu.models.two_phase_commit import (
+        TwoPhaseSys as JaxTwoPhase,
+    )
+
+    snap = str(tmp_path_factory.mktemp("jax_mesh") / "mesh.ckpt")
+
+    def spawn(**kw):
+        return JaxTwoPhase(rm_count=4).checker().spawn_tpu_sharded_sortmerge(
+            n_shards=2, capacity=1 << 11, frontier_capacity=256,
+            cand_capacity=4096, bucket_capacity=2048, waves_per_sync=1,
+            **kw)
+
+    c = spawn(checkpoint_every=1, checkpoint_path=snap)
+    c.max_fault_retries = 0
+    jax_faults.arm("raise", "chunk_boundary", 5)
+    try:
+        with pytest.raises(jax_faults.InjectedFault):
+            c.join()
+    finally:
+        jax_faults.disarm_all()
+    resumed = spawn()
+    resumed.resume_from(snap)
+    return resumed.join(), snap
+
+
+def test_jax_mesh_snapshot_resumes_on_port(jax_mesh_snapshot):
+    """A JAX mesh snapshot resumes on the port at S = 2 to JAX's resumed
+    run in every field and path, and re-shards onto S = 4 and one device
+    to its counts; its carry, converted (``convert.mesh_from_numpy``),
+    continues to the same fields as the JAX engine does."""
+    from stateright_tpu.checkpoint import load_snapshot as jax_load
+    from stateright_tpu_torch.convert import mesh_from_numpy
+
+    jax_run, snap = jax_mesh_snapshot
+    same = _resume(lambda: _mesh(2), snap)
+    assert _fields(same) == _fields(jax_run)
+    assert _paths(same) == _paths(jax_run)
+    for spawn in (lambda: _mesh(4), lambda: _sm(4)):
+        c = _resume(spawn, snap)
+        assert _counts(c) == _counts(jax_run)
+        _replays(c)
+    manifest, carry = jax_load(snap)
+    st = mesh_from_numpy(carry, n_shards=2, capacity=manifest["capacity"],
+                         frontier_capacity=manifest["frontier_capacity"],
+                         props=list(TwoPhaseSys(rm_count=4).properties()))
+    c = _mesh(2).start_from(st).join()
+    assert _fields(c) == _fields(jax_run) and _paths(c) == _paths(jax_run)
+
+
+def test_port_mesh_snapshots_pass_jax_load_snapshot(tmp_path):
+    """A port mesh snapshot of either family passes JAX's
+    ``load_snapshot`` with JAX's mesh leaves and manifest."""
+    from stateright_tpu.checkpoint import load_snapshot as jax_load
+
+    for family, spawn in (("sortmerge", _mesh), ("hash", _mesh_hash)):
+        snap = str(tmp_path / f"{family}.ckpt")
+        c = _kill_at(lambda **kw: spawn(3, **kw), snap, 4)
+        manifest, buffers = jax_load(snap)
+        assert (manifest["family"], manifest["kind"], manifest["n_shards"],
+                manifest["shard_layout"]) == (family, "sharded", 3, "packed")
+        assert int(buffers["new"]) == manifest["unique"] == \
+            c._unique_states
+        if family == "sortmerge":
+            assert int(buffers["u_loc"].sum()) == manifest["unique"]
+            assert buffers["vkeys"].shape == (2, manifest["unique"])
+            assert buffers["n_loc"].shape == buffers["pl_n"].shape == (3,)
+        else:
+            assert buffers["t_lo"].shape == (3 * c.capacity,)
+            assert int(buffers["n_loc"].sum()) == buffers["frontier"].shape[0]
+
+
+def test_reshard_equals_jax_reshard(jax_mesh_snapshot):
+    """The port's re-shard of JAX's mesh snapshot onto S = 3 places
+    every key, frontier row and parent-log entry where JAX's does."""
+    from stateright_tpu.checkpoint import load_snapshot as jax_load
+    from stateright_tpu.checkpoint import reshard_sortmerge as jax_reshard
+    from stateright_tpu.models.two_phase_commit import (
+        TwoPhaseSys as JaxTwoPhase,
+    )
+
+    _, snap = jax_mesh_snapshot
+    manifest, buffers = jax_load(snap)
+    target = JaxTwoPhase(rm_count=4).checker().spawn_tpu_sharded_sortmerge(
+        n_shards=3, capacity=1 << 11, frontier_capacity=256,
+        cand_capacity=4096, bucket_capacity=2048)
+    out = jax_reshard(dict(manifest), dict(buffers), target)
+    want = checkpoint._sortmerge_blocks(
+        snap, dict(manifest, n_shards=3), out)
+    got = checkpoint.reshard_sortmerge(
+        checkpoint._sortmerge_blocks(snap, manifest, buffers), _mesh(3))
+    for w, g in zip(want, got):
+        for leaf in ("keys", "frontier", "ebits", "plog"):
+            np.testing.assert_array_equal(w[leaf], g[leaf], leaf)

@@ -8,7 +8,12 @@ fault recovers in one join, the watchdog sees an injected hang and
 recovers from the snapshot or refuses loudly without one, a wave it
 abandoned writes nothing to the retry when it finishes late, repeated
 OOMs degrade the dense wave, and neither an engine overflow nor a
-sticky CUDA error is retried.
+sticky CUDA error is retried. On the sharded engines (parallel/, S = 2
+on ``["cpu"] * 2``): a persistent shard fault under
+``degrade_on_fault`` drops its shard and finishes at S = 1 with the
+host count (JAX ``tests/test_fault.py:259``, counts and warning; the
+trace half waits for the port's tracer, ROADMAP item 17), the degrade
+needs opt-in (:305), and a ``collective_seam`` raise recovers (:323).
 """
 
 import threading
@@ -48,8 +53,7 @@ def _twopc3(**kw):
 
 def _failures(faults):
     """The JAX test's failure inputs, built from ``faults`` (either
-    package's faultinject) and its watchdog class; the straggler cases
-    wait for the multi-GPU engines."""
+    package's faultinject) and its watchdog class."""
     return [
         ("watchdog", lambda m: m.WatchdogTimeout(3, 5.0)),
         ("memory", lambda m: MemoryError()),
@@ -331,9 +335,10 @@ def test_watchdog_refuses_loudly_without_a_snapshot():
 
 
 def test_cli_runtime_flags():
-    """The checkpoint and watchdog flags parse as JAX's do and land on a
-    spawned engine; the shard degrade and the straggler factor refuse,
-    naming the multi-GPU item; ``check`` refuses them all."""
+    """The checkpoint, watchdog and shard-degrade flags parse as JAX's do
+    and land on a spawned engine (the degrade is harmless on one
+    device); the straggler factor refuses, naming the telemetry item;
+    ``check`` refuses them all."""
     from stateright_tpu_torch.cli import _pop_flags, main
 
     flags, rest = _pop_flags(["2pc", "check-gpu", "3", "--watchdog=6",
@@ -346,13 +351,106 @@ def test_cli_runtime_flags():
     assert (c.watchdog_factor, c.checkpoint_every, c.checkpoint_path) == (
         6.0, "auto", "/tmp/x.ckpt")
     assert _pop_flags(["--watchdog"])[0].watchdog == 8.0
+    flags = _pop_flags(["--degrade-on-fault", "--device", "cpu"])[0]
+    c = flags.spawn(TwoPhaseSys(rm_count=3), capacity=1 << 10)
+    assert c.degrade_on_fault and not c._can_degrade_shards()
+    assert c.join().unique_state_count() == 288
     flags = _pop_flags(["--resume-any-sha"])[0]
     assert flags.resume and flags.resume_any_sha
     for bad, match in (("--watchdog=0", "must be > 0"),
                        ("--checkpoint-every=0", "must be >= 1"),
-                       ("--degrade-on-fault", "ROADMAP item 15"),
-                       ("--straggler-factor=4", "ROADMAP item 15")):
+                       ("--straggler-factor=4", "ROADMAP item 17")):
         with pytest.raises(SystemExit, match=match):
             _pop_flags([bad])
     with pytest.raises(SystemExit, match="apply to check-gpu"):
         main(["2pc", "check", "3", "--resume"])
+
+
+# -- the shard degrade (the sharded engines) ----------------------------------
+
+HOST_2PC4 = 1568
+
+
+def _mesh2pc4(S, **kw):
+    return TwoPhaseSys(rm_count=4).checker().spawn_sharded_sortmerge(
+        devices=["cpu"] * S, capacity=1 << 11, frontier_capacity=512, **kw)
+
+
+def test_failure_policy_equals_jax():
+    """Strikes, the persistence threshold and the victim pick equal
+    JAX's ``FailurePolicy`` over one failure sequence, and the
+    straggler attribution of ``classify_failure`` equals JAX's."""
+    from stateright_tpu import checkpoint as jax_ckpt
+    from stateright_tpu import faultinject as jax_faults
+
+    seq = [(lambda f: f.InjectedShardFault("mid_chunk", 1, 1), ()),
+           (lambda f: f.InjectedFault("mid_chunk", 2), (3,)),
+           (lambda f: f.InjectedFault("mid_chunk", 2), (0, 3)),
+           (lambda f: f.InjectedShardFault("mid_chunk", 3, 3), ()),
+           (lambda f: MemoryError(), (1,))]
+    port, jax = checkpoint.FailurePolicy(2), jax_ckpt.FailurePolicy(2)
+    for make, stragglers in seq:
+        assert port.classify(make(faultinject), stragglers) == \
+            jax.classify(make(jax_faults), stragglers)
+        assert port.should_degrade() == jax.should_degrade()
+        assert port.strikes == jax.strikes
+    port.degraded(3)
+    jax.degraded(3)
+    assert (port.history, port.strikes, port.should_degrade()) == (
+        jax.history, jax.strikes, jax.should_degrade())
+    with pytest.raises(ValueError):
+        checkpoint.FailurePolicy(0)
+
+
+def test_persistent_shard_fault_degrades_and_continues(tmp_path):
+    base = _mesh2pc4(2).join()
+    assert base.unique_state_count() == HOST_2PC4
+    c = _mesh2pc4(2, checkpoint_every=1,
+                  checkpoint_path=str(tmp_path / "deg.ckpt"))
+    c.degrade_on_fault = True
+    c.retry_backoff_sec = 0.01
+    faultinject.arm("shard_fault", "mid_chunk", 1, shard=1)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        c.join()
+    assert (c.unique_state_count(), c.state_count(), c.max_depth()) == (
+        base.unique_state_count(), base.state_count(), base.max_depth())
+    assert c.discovered_property_names() == base.discovered_property_names()
+    assert c.n_shards == 1 and c._shard_ids == (0,)
+    assert len(c.devices) == 1 and c.metrics["n_shards"] == 1
+    msgs = [str(x.message) for x in w]
+    assert any("DEGRADING: dropping shard 1 (2 -> 1 shards)" in m
+               for m in msgs), msgs
+    assert c.metrics["shard_degrades"] == 1
+    for name, path in c.discoveries().items():
+        prop = c.model.property_by_name(name)
+        assert prop.condition(c.model, path.last_state())
+
+
+def test_degrade_needs_opt_in(tmp_path):
+    c = _mesh2pc4(2, checkpoint_every=1,
+                  checkpoint_path=str(tmp_path / "nodeg.ckpt"))
+    c.retry_backoff_sec = 0.01
+    c.max_fault_retries = 2
+    faultinject.arm("shard_fault", "mid_chunk", 1, shard=1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with pytest.raises(InjectedShardFault):
+            c.join()
+    assert c.n_shards == 2
+
+
+def test_collective_seam_raise_recovers(tmp_path):
+    c = _mesh2pc4(2, checkpoint_every=1,
+                  checkpoint_path=str(tmp_path / "coll.ckpt"))
+    c.retry_backoff_sec = 0.01
+    faultinject.arm("raise", "collective_seam", 1, once=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        c.join()
+    assert c.unique_state_count() == HOST_2PC4
+    assert c.metrics["fault_recoveries"] == 1
+    # the site is the exchange's: a one-device run never reaches it
+    faultinject.arm("raise", "collective_seam", 0, once=True)
+    assert _twopc3().join().unique_state_count() == 288
+    assert faultinject.armed()

@@ -3,8 +3,9 @@
 increment-lock, register and single-copy-register lanes, at their
 smallest size, the 2pc and register lanes with the reductions on, and
 the host DFS's ``2pc check 2``, and ``2pc check-gpu 3`` with a tiered
-visited set, and checkpointed and resumed), a device simulation, a hybrid race, a hash engine run and
-a host BFS on the CPU loads neither jax nor anything
+visited set, and checkpointed and resumed), a device simulation, a hybrid race, a hash engine run,
+both sharded engines (parallel/) at two shards and a host BFS on the CPU
+loads neither jax nor anything
 of the JAX package, and no source file of the port (nor chip_smoke.py)
 imports either."""
 
@@ -65,6 +66,12 @@ def test_import_and_cli_load_no_jax():
         " device='cpu').join()\n"
         "print('HASH', h.unique_state_count(), h.state_count(),"
         " sorted(h.discovered_property_names()))\n"
+        "ms = TwoPhaseSys(3).checker().spawn_sharded_sortmerge("
+        "devices=['cpu'] * 2, capacity=1 << 10).join()\n"
+        "mh = TwoPhaseSys(3).checker().spawn_sharded_hash("
+        "devices=['cpu'] * 2, capacity=1 << 10).join()\n"
+        "print('MESH', ms.unique_state_count(), mh.unique_state_count(),"
+        " ms.metrics['shard_unique'])\n"
         "b = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
         "print('BFS', b.unique_state_count(), b.state_count(),"
         " sorted(b.discoveries()))\n"
@@ -101,6 +108,7 @@ def test_import_and_cli_load_no_jax():
         in out.stdout
     assert "BFS 288 1146 ['abort agreement', 'commit agreement']" \
         in out.stdout
+    assert "MESH 288 288 [141, 147]" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
@@ -114,7 +122,10 @@ def test_no_jax_imports_in_port_sources():
                    "checkers/bfs.py", "checkers/on_demand.py",
                    "checkers/simulation.py", "fixtures.py",
                    "occupancy.py", "ops/hashset.py", "memplan.py",
-                   "tier.py", "checkpoint.py", "faultinject.py"):
+                   "tier.py", "checkpoint.py", "faultinject.py",
+                   "parallel/__init__.py", "parallel/exchange.py",
+                   "parallel/shards.py", "parallel/engine_sortmerge.py",
+                   "parallel/engine.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

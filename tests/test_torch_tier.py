@@ -16,6 +16,12 @@ the tiered sort-merge wave), on the CPU, held against the JAX package.
 * The CLI's ``--tier-hot-rows``, a start state carrying cold runs, a
   tiered run past the resident capacity, and the cancel path joining
   the ingest worker.
+* The sharded tier (parallel/engine_sortmerge.py, one cold-store shard
+  a shard) against the port's own resident sharded run in every field
+  and against the pinned host count, and its snapshots re-sharded. JAX's
+  sharded tier is not the reference here:
+  ``tests/test_tier.py::test_tier_mesh_and_reshard_with_cold_runs`` is a
+  known failure under JAX 0.9.
 """
 
 import contextlib
@@ -348,3 +354,79 @@ def test_cancel_joins_the_ingest_worker(monkeypatch):
     assert cold is not None and cold._worker is None  # joined
     assert c.metrics["tier_spills"] >= 1
     assert c.metrics["cold_rows"] == cold.rows() > 0
+
+
+# -- the sharded tier ----------------------------------------------------------
+
+
+def _mesh5(S, **kw):
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(rm_count=5).checker().spawn_sharded_sortmerge(
+        devices=["cpu"] * S, capacity=1 << 14, frontier_capacity=1 << 12,
+        **kw)
+
+
+def _all_fields(c) -> tuple:
+    return (c.unique_state_count(), c.state_count(), c.max_depth(),
+            c.discovery_fingerprints(), _paths(c))
+
+
+@pytest.fixture(scope="module")
+def mesh_resident():
+    return _mesh5(2).join()
+
+
+def test_sharded_tier_equals_resident_sharded_run(mesh_resident):
+    """2pc rm=5 at S = 2 with a 512-key hot tier a shard: the resident
+    sharded run's every field and path, 8,832 (the host count), hot
+    plus cold rows equal to unique, the spills shared by both shards."""
+    t = _mesh5(2, tier_hot_rows=512).join()
+    assert _all_fields(t) == _all_fields(mesh_resident)
+    assert t.unique_state_count() == 8832
+    m = t.metrics
+    assert m["tier_spills"] >= 2 and m["hot_ceiling_rows"] == 512
+    assert m["cold_rows"] + m["hot_rows"] == 8832
+    assert len(m["cold_rows_per_shard"]) == 2
+    assert all(r > 0 for r in m["cold_rows_per_shard"])
+    assert m["cold_rows_per_shard"] == [
+        u - h for u, h in zip(mesh_resident.metrics["shard_unique"],
+                              m["shard_unique"])]
+
+
+def test_sharded_tier_snapshot_resumes_anywhere(tmp_path, mesh_resident):
+    """A tiered S = 2 snapshot taken after its spills resumes tiered at
+    S = 2 to every field, and re-shards tiered onto S = 3, un-tiered
+    onto S = 4, and onto one device tiered, to the counts."""
+    from stateright_tpu_torch import faultinject
+    from stateright_tpu_torch.checkpoint import load_snapshot
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    snap = str(tmp_path / "mesh_tier.ckpt")
+    c = _mesh5(2, tier_hot_rows=512, checkpoint_every=1,
+               checkpoint_path=snap)
+    c.max_fault_retries = 0
+    faultinject.arm("raise", "chunk_boundary", 12)
+    try:
+        with pytest.raises(faultinject.InjectedFault):
+            c.join()
+    finally:
+        faultinject.disarm_all()
+    manifest, buffers = load_snapshot(snap)
+    assert manifest["tier"]["spills"] >= 2
+    assert len(manifest["tier"]["run_rows"]) == 2
+    assert int(buffers["u_loc"].sum()) == manifest["unique"]
+    assert int(buffers["h_loc"].sum()) == buffers["vkeys"].shape[1]
+    one = TwoPhaseSys(rm_count=5).checker().spawn_sortmerge(
+        device="cpu", capacity=1 << 15, frontier_capacity=1 << 13,
+        tier_hot_rows=1024)
+    base = _all_fields(mesh_resident)
+    for target, exact in ((_mesh5(2, tier_hot_rows=512), True),
+                          (_mesh5(3, tier_hot_rows=512), False),
+                          (_mesh5(4), False), (one, False)):
+        target.resume_from(snap)
+        target.join()
+        got = _all_fields(target)
+        assert (got if exact else got[:3]) == (base if exact else base[:3])
+        assert target.discovered_property_names() == \
+            mesh_resident.discovered_property_names()
