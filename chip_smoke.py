@@ -181,8 +181,25 @@ it exits non-zero and prints no result. Phases, each ending in
    the exchange and S times the launches, not multi-card scaling. The
    sort-merge runs join the kernel checks at their widest per-shard
    calls, the hash run the insert's.
+26. traced runs (telemetry.py), each trace validated
+   (``validate_events``) and each run launching every kernel exactly as
+   often as its untraced twin: ``2pc rm=9`` and ``paxos check 4``
+   untraced, traced (default) and traced (deep), seven times each,
+   interleaved in a rotating order (phase 4's and phase 6's counts every
+   time; the median
+   ``sec=`` of each level, the traced overheads in %, the event counts
+   and the ``latency_profile``: time to first wave, dispatch and fetch
+   shares, compile attribution); ``paxos check-gpu 4 --trace`` through
+   the CLI (a trace pair in a temporary directory, "value chosen");
+   ``hash 2pc rm=9`` traced; the S = 4 ``2pc rm=9`` run of phase 25
+   traced with ``straggler_factor`` set (its ``shard_balance``
+   summary); phase 24's checkpointing run traced (one ``checkpoint``
+   event a snapshot written) and its resume traced, diffed against an
+   uninterrupted trace with no divergence; and ``2pc check-gpu 9
+   --trace=deep`` in a process of its own (the ``program_build`` tiers
+   of the kernels' libraries and the compile spans).
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-25) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-26) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -2550,6 +2567,319 @@ def sharded_phases(one_rm9, one_paxos4) -> tuple:
     return runs, hashes, others
 
 
+# -- phase 26: traced runs (telemetry.py) -------------------------------------
+
+#: repetitions of each trace level in the overhead measurement (the
+#: untraced walls of one call spread by a quarter: three runs a level
+#: do not resolve a few per cent)
+TRACE_REPS = 7
+#: the straggler factor of the traced S = 4 run
+STRAGGLER_FACTOR = 4.0
+
+
+def _traced(checker, level, print_lines=None, kernels=MERGE_KERNELS):
+    """``(run, events)``: ``checker`` through ``run_main`` under a tracer
+    at ``level`` (None: untraced, no events), each trace validated."""
+    from stateright_tpu_torch import telemetry
+
+    if level is None:
+        return run_main(checker, print_lines, kernels), None
+    tr = telemetry.RunTracer(level=level)
+    with tr.activate():
+        run = run_main(checker, print_lines, kernels)
+    telemetry.validate_events(tr.events)
+    return run, tr.events
+
+
+def _same_launches(label: str, run: dict, twin: dict | None) -> None:
+    """A traced run launched each kernel as many times as its untraced
+    twin."""
+    assert twin is not None, f"{label}: the untraced twin did not pass"
+    assert run["launches"] == twin["launches"], (
+        label, run["launches"], twin["launches"])
+
+
+def _event_counts(events) -> dict:
+    from collections import Counter
+
+    return dict(sorted(Counter(e["ev"] for e in events).items()))
+
+
+def _profile_line(events) -> str:
+    """The run's ``latency_profile``: time to first wave, the dispatch and
+    fetch shares, and the compile attribution."""
+    prof = next(e for e in events if e["ev"] == "latency_profile")
+    keys = ("run_wall_sec", "time_to_first_wave_sec", "dispatch_sec",
+            "fetch_sec", "device_sec", "dispatch_share", "sync_share",
+            "interchunk_sec", "compile")
+    return json.dumps({k: prof.get(k) for k in keys})
+
+
+def _levels(make, twin: dict, held, kernels=MERGE_KERNELS) -> dict:
+    """``make()``'s checker run untraced, traced (default) and traced
+    (deep), ``TRACE_REPS`` times each, interleaved in a rotating order:
+    the median ``sec=``
+    of each level, the traced overheads, each traced run's event counts
+    and latency profile, each run held by ``held(run)`` and to ``twin``'s
+    launches."""
+    import statistics
+
+    secs = {None: [], "default": [], "deep": []}
+    order = list(secs)
+    last = {}
+    for rep in range(TRACE_REPS):
+        # each rep starts with another level, so no level always runs
+        # first
+        for level in order[rep % 3:] + order[:rep % 3]:
+            run, events = _traced(make(), level, print_lines=0,
+                                  kernels=kernels)
+            held(run)
+            _same_launches(f"{level} trace", run, twin)
+            secs[level].append(run["sec"])
+            last[level] = (run, events)
+    med = {level: statistics.median(v) for level, v in secs.items()}
+    out = dict(untraced=last[None][0])
+    for level in ("default", "deep"):
+        run, events = last[level]
+        over = 100.0 * (med[level] / med[None] - 1.0)
+        print(f"  {level}: median sec={med[level]:.4f} against untraced "
+              f"{med[None]:.4f} ({over:+.2f}%), all {secs[level]} "
+              f"against {secs[None]}", flush=True)
+        print(f"  {level} events: {_event_counts(events)}", flush=True)
+        print(f"  {level} latency_profile: {_profile_line(events)}",
+              flush=True)
+        out[level] = run
+        out[f"{level}_overhead_pct"] = over
+    return out
+
+
+@phase("2pc rm=9 traced: untraced, default, deep (main path)")
+def rm9_traced(one: dict | None):
+    """``2pc check-gpu 9``'s checker untraced, traced and traced deep,
+    ``TRACE_REPS`` times each: phase 4's counts and names every time,
+    phase 4's launches, the median ``sec=`` and the overheads."""
+    import torch
+
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.memplan import device_bytes_in_use
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    # the traced runs' memory poll reads what memory_allocated returns
+    dev = torch.device("cuda")
+    assert device_bytes_in_use(dev) == (torch.cuda.memory_allocated(dev),
+                                        "memory_stats")
+    model = TwoPhaseSys(rm_count=9)
+
+    def held(run):
+        assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+        assert (run["states"], run["depth"]) == (
+            HAND["2pc rm=9 states"], HAND["2pc rm=9 depth"]), run
+
+    return _levels(lambda: model.checker().spawn_sortmerge(**twopc_sizes(9)),
+                   one, held)
+
+
+@phase("paxos check 4 traced: untraced, default, deep (main path)")
+def paxos4_traced(one: dict | None):
+    """``paxos check-gpu 4``'s checker at each level, ``TRACE_REPS``
+    times each: phase 6's counts, names and launches."""
+    from stateright_tpu_torch.cli import paxos_checker
+
+    def held(run):
+        assert run["unique"] == 2_372_188 and run["names"] == {
+            "value chosen"}, run
+
+    return _levels(lambda: paxos_checker(4), one, held)
+
+
+@phase("paxos check-gpu 4 --trace (the CLI)")
+def paxos4_cli_traced(one: dict | None, tmp: str):
+    """The CLI lane in this process with ``--trace``: its report, a trace
+    pair in a temporary directory that validates, "value chosen", and
+    phase 6's launches."""
+    import contextlib
+
+    from stateright_tpu_torch import telemetry
+    from stateright_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    _zero_launches()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        cli_main(["paxos", "check-gpu", "4", "--trace",
+                  f"--trace-root={tmp}"])
+    sec = time.monotonic() - t0
+    run = dict(launches=_read_launches(), sec=sec)
+    text = out.getvalue()
+    print(f"  {text.splitlines()[-2][:200]}", flush=True)
+    assert "Done. states=" in text and "unique=2372188," in text, text[-500:]
+    assert "value chosen" in text, text[-500:]
+    events = telemetry.load_trace(os.path.join(tmp, "TRACE_r01.jsonl"))
+    telemetry.validate_events(events)
+    assert os.path.exists(os.path.join(tmp, "TRACE_r01.trace.json"))
+    verdicts = {e["property"]: e["kind"] for e in events
+                if e["ev"] == "verdict"}
+    assert verdicts == {"value chosen": "discovery",
+                        "linearizable": "exhaustion"}, verdicts
+    _same_launches("paxos check-gpu 4 --trace", run, one)
+    print(f"  wall {sec:.3f}s, events: {_event_counts(events)}", flush=True)
+    return run
+
+
+@phase("hash 2pc rm=9 traced")
+def hash_rm9_traced(one: dict | None):
+    """``spawn_hash`` at 2pc rm=9 traced: phase 22's counts and insert
+    launches, one chunk event a wave (the hash engines keep no wave
+    log)."""
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    model = TwoPhaseSys(rm_count=9)
+    run, events = _traced(_hash(model, capacity=HASH_SLOTS), "default",
+                          print_lines=0, kernels=HASH_KERNELS)
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    _same_launches("hash 2pc rm=9 traced", run, one)
+    counts = _event_counts(events)
+    assert counts["chunk"] == run["metrics"]["waves"], counts
+    print(f"  events: {counts}", flush=True)
+    print(f"  latency_profile: {_profile_line(events)}", flush=True)
+    return run
+
+
+@phase("2pc rm=9 sharded S=4 traced, --straggler-factor")
+def rm9_sharded_traced(one: dict | None):
+    """The S = 4 run of phase 25 traced, the straggler detector armed:
+    its counts and launches, a ``shard_wave`` row a (wave, shard), and
+    the ``shard_balance`` summary."""
+    from stateright_tpu_torch import telemetry
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.stage_profile import sharded_sizes
+
+    model = TwoPhaseSys(rm_count=9)
+    checker = model.checker().spawn_sharded_sortmerge(
+        devices=_on_card(SHARDS), **sharded_sizes(twopc_sizes(9), SHARDS))
+    checker.straggler_factor = STRAGGLER_FACTOR
+    run, events = _traced(checker, "default", print_lines=0)
+    assert (run["unique"], run["names"]) == HAND["2pc rm=9"], run
+    _same_launches("2pc rm=9 S=4 traced", run, one)
+    counts = _event_counts(events)
+    assert counts["shard_wave"] == SHARDS * counts["wave"], counts
+    bal = telemetry.shard_balance(events)
+    keys = ("n_shards", "waves", "frontier_skew_worst",
+            "frontier_skew_weighted", "candidate_skew_worst",
+            "routed_rows_total", "recv_rows_total", "routed_bytes_total",
+            "dest_fill_worst", "visited_per_shard", "visited_skew",
+            "occupancy_max", "warnings")
+    print(f"  shard_balance: {json.dumps({k: bal[k] for k in keys})}",
+          flush=True)
+    print(f"  events: {counts}", flush=True)
+    assert bal["routed_rows_total"] == run["metrics"]["shuffle_volume"], bal
+    # a balanced run: no occupancy, tile or imbalance warning
+    assert not bal["warnings"], bal["warnings"]
+    assert sum(bal["visited_per_shard"]) == run["unique"], bal
+    return run
+
+
+@phase("2pc rm=9 checkpointed, killed and resumed, traced")
+def rm9_ckpt_traced(resumed: dict | None, tmp: str):
+    """Phase 24's checkpointing run traced: one ``checkpoint`` event a
+    snapshot written, then its resume traced (a ``restore`` event,
+    phase 24's resumed launches), diffed against an uninterrupted traced
+    run: no divergence."""
+    from stateright_tpu_torch import faultinject, telemetry
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    assert resumed is not None, "phase 24's killed run did not pass"
+    kill = resumed["kill_wave"]
+    model = TwoPhaseSys(rm_count=9)
+    snap = os.path.join(tmp, "traced.ckpt")
+    killed = model.checker().spawn_sortmerge(
+        checkpoint_every=CKPT_EVERY_2PC9, checkpoint_path=snap,
+        **twopc_sizes(9))
+    tr = telemetry.RunTracer()
+    with tr.activate():
+        _ckpt_kill(killed, kill)
+    telemetry.validate_events(tr.events)
+    written = killed._ckpt_stats["snapshots"]
+    ckpts = [e for e in tr.events if e["ev"] == "checkpoint"]
+    assert len(ckpts) == written, (len(ckpts), written)
+    assert tr.events[-1]["ev"] == "run_end" and tr.events[-1]["error"]
+    checker = model.checker().spawn_sortmerge(**twopc_sizes(9))
+    checker.resume_from(snap)
+    run, events = _traced(checker, "default", print_lines=0)
+    _same_launches("2pc rm=9 resumed traced", run, resumed)
+    restore = [e for e in events if e["ev"] == "restore"]
+    assert len(restore) == 1 and restore[0]["wave"] == kill + 1, restore
+    _, full = _traced(model.checker().spawn_sortmerge(**twopc_sizes(9)),
+                      "default", print_lines=0)
+    rep = telemetry.diff_traces(full, events)
+    assert rep["divergences"] == [] and rep["resume_wave_b"] == kill + 1, rep
+    print(f"  {written} snapshots, {len(ckpts)} checkpoint events "
+          f"({[e['snapshot_bytes'] for e in ckpts]} bytes); resumed at wave "
+          f"{kill + 1}, no divergence against the uninterrupted trace",
+          flush=True)
+    return run
+
+
+@phase("2pc check-gpu 9 --trace=deep in a process of its own")
+def rm9_cli_traced_process(tmp: str):
+    """The CLI in a fresh process (the kernels' libraries on disk from the
+    build phase): its ``program_build`` events' tiers and walls, its
+    compile spans and its trace's latency profile."""
+    from stateright_tpu_torch import telemetry
+
+    root = os.path.join(tmp, "process")
+    os.makedirs(root)
+    t0 = time.monotonic()
+    p = subprocess.run(
+        [sys.executable, "-m", "stateright_tpu_torch", "2pc", "check-gpu",
+         "9", "--trace=deep", f"--trace-root={root}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"  exit {p.returncode} in {time.monotonic() - t0:.3f}s", flush=True)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert "unique=10340352," in p.stdout, p.stdout[-500:]
+    events = telemetry.load_trace(os.path.join(root, "TRACE_r01.jsonl"))
+    telemetry.validate_events(events)
+    builds = [{k: e.get(k) for k in ("program", "tier", "wall_sec")}
+              for e in events if e["ev"] == "program_build"]
+    compiles = [e["dur"] for e in events
+                if e["ev"] == "span" and e["phase"] == "compile"]
+    print(f"  program_build: {builds}; compile spans {compiles}", flush=True)
+    print(f"  latency_profile: {_profile_line(events)}", flush=True)
+    assert any(b["program"] == "merge_path" for b in builds), builds
+    assert all(b["tier"] in ("disk", "in_process", "cold") for b in builds)
+
+
+def traced_phases(runs: dict, hashes: dict) -> dict:
+    """Phase 26: the traced runs, each held to its untraced twin; the
+    traces in a temporary directory deleted at the end."""
+    from stateright_tpu_torch.ops import cuda_build
+
+    print(f"  this process's kernel builds (tier cold where nvcc ran): "
+          f"{cuda_build.BUILD_SECONDS}", flush=True)
+    out = {}
+    rm9 = rm9_traced(runs.get("2pc rm=9"))
+    pax = paxos4_traced(runs.get("paxos 4c"))
+    for label, levels in (("2pc rm=9", rm9), ("paxos 4c", pax)):
+        if levels:
+            out[f"{label} traced"] = levels["default"]
+            out[f"{label} traced deep"] = levels["deep"]
+        else:
+            FAILED.append(f"{label} traced")
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-trace-") as tmp:
+        out["paxos check-gpu 4 --trace"] = paxos4_cli_traced(
+            runs.get("paxos 4c"), tmp)
+        out["hash 2pc rm=9 traced"] = hash_rm9_traced(
+            hashes.get("hash 2pc rm=9"))
+        out["2pc rm=9 sharded S=4 traced"] = rm9_sharded_traced(
+            runs.get("2pc rm=9 sharded S=4"))
+        out["2pc rm=9 resumed traced"] = rm9_ckpt_traced(
+            runs.get("2pc rm=9 resumed"), tmp)
+        rm9_cli_traced_process(tmp)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2608,6 +2938,7 @@ def main() -> int:
                                                     runs["paxos 4c"])
     runs.update(mesh_runs)
     hashes.update(mesh_hashes)
+    traced = traced_phases(runs, hashes)
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -2626,7 +2957,8 @@ def main() -> int:
                      for path, run in hashes.items()}
     launches = {path: run and run["launches"]
                 for path, run in {**runs, **lanes, **sims, **hybrids,
-                                  **hashes, **ckpts, **meshes}.items()}
+                                  **hashes, **ckpts, **meshes,
+                                  **traced}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

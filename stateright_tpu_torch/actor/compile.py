@@ -73,6 +73,7 @@ boundary would prune it anyway. Component domains must close within
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Callable, Optional
 
@@ -342,8 +343,14 @@ def compile_actor_model(
     predicate idiom). The applied rewrites are reported in
     ``encoding.codegen_opt``. Only this emission is ported:
     ``optimize=False`` raises ``NotImplementedError``.
+
+    The compile's host wall is stamped on the encoding
+    (``host_compile_span``, monotonic seconds): the first traced run
+    that uses the encoding records it as a ``compile`` span
+    (telemetry.py), since the compile runs before that run begins.
     """
-    return CompiledActorEncoding(
+    t0 = time.monotonic()
+    enc = CompiledActorEncoding(
         model,
         properties or {},
         boundary,
@@ -357,6 +364,8 @@ def compile_actor_model(
         ample_mask=ample_mask,
         optimize=optimize,
     )
+    enc.host_compile_span = (t0, time.monotonic())
+    return enc
 
 
 

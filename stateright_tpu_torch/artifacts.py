@@ -1,0 +1,173 @@
+"""Run-artifact conventions: round numbering and provenance.
+
+A copy of the parts of the JAX package's ``artifacts`` module that the
+port's run telemetry needs (telemetry.py): the round numbering of the
+``<STEM>_rNN.<ext>`` artifacts (:func:`next_round`,
+:func:`artifact_path`, :func:`latest_artifact`) and the provenance block
+every artifact embeds (:func:`provenance`). ``TRACE_r*`` pairs share
+one round sequence with the ``BENCH``/``LINT``/``MULTICHIP`` artifacts;
+``MEM_r*`` and ``LAT_r*`` each number in a sequence of their own
+(``next_round(root, stems=("MEM",))``).
+
+The artifacts' root is :func:`repo_root` unless the caller names one,
+or the ``STPU_TORCH_ARTIFACT_ROOT`` environment variable does.
+
+Where the JAX block names jax, jaxlib and the XLA backend, this one
+names ``torch``, its CUDA version, and the card: its name and power
+limit as ``nvidia-smi --query-gpu=name,power.limit`` reports them (a
+card set below its maximum power runs slower under load, so a number
+is comparable only beside its limit).
+"""
+
+from __future__ import annotations
+
+import functools
+import glob
+import os
+import re
+import subprocess
+import sys
+
+#: every artifact family that shares the one round sequence (stem of
+#: ``<STEM>_rNN.<ext>``)
+ARTIFACT_STEMS = ("BENCH", "LINT", "MULTICHIP", "TRACE")
+
+#: the environment variable that moves the default artifacts' root
+ROOT_ENV = "STPU_TORCH_ARTIFACT_ROOT"
+
+
+def repo_root() -> str:
+    """Where artifacts land by default: ``$STPU_TORCH_ARTIFACT_ROOT``
+    when set, else the repo root this package sits in."""
+    env = os.environ.get(ROOT_ENV)
+    if env:
+        return env
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def next_round(root: str | None = None,
+               stems: tuple = ARTIFACT_STEMS) -> int:
+    """The next free round number: one past the highest ``_rNN`` of any
+    listed artifact family (any extension)."""
+    root = repo_root() if root is None else root
+    best = 0
+    for stem in stems:
+        for p in glob.glob(os.path.join(root, f"{stem}_r*.*")):
+            m = re.search(r"_r(\d+)\.", os.path.basename(p))
+            if m:
+                best = max(best, int(m.group(1)))
+    return best + 1
+
+
+def artifact_path(stem: str, ext: str = "json",
+                  root: str | None = None,
+                  round: int | None = None) -> str:
+    """``<root>/<stem>_rNN.<ext>``, auto-numbered unless ``round`` is
+    pinned (pin it to write a pair, ``TRACE_rNN.jsonl`` and
+    ``TRACE_rNN.trace.json``, into one round)."""
+    root = repo_root() if root is None else root
+    if round is None:
+        round = next_round(root)
+    return os.path.join(root, f"{stem}_r{round:02d}.{ext}")
+
+
+def latest_artifact(stem: str, root: str | None = None) -> str | None:
+    """The highest-round artifact of one family, or None. Ties within a
+    round break to the first basename (the JSONL over the Chrome
+    export)."""
+    root = repo_root() if root is None else root
+    best, path = -1, None
+    for p in sorted(glob.glob(os.path.join(root, f"{stem}_r*.*")),
+                    key=os.path.basename):
+        m = re.search(r"_r(\d+)\.", os.path.basename(p))
+        if m and int(m.group(1)) > best:
+            best, path = int(m.group(1)), p
+    return path
+
+
+def _package_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _git_dirty(root: str) -> bool | None:
+    """True when the working tree has uncommitted changes, False when
+    clean, None when git cannot answer."""
+    try:
+        out = subprocess.run(["git", "status", "--porcelain"], cwd=root,
+                             capture_output=True, text=True, timeout=10)
+        if out.returncode == 0:
+            return bool(out.stdout.strip())
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return None
+
+
+@functools.lru_cache(maxsize=4)
+def _git_sha(root: str) -> str | None:
+    """HEAD's SHA, read once a process for each root (the tree does not
+    move under a run), or None when git cannot answer."""
+    try:
+        out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=root,
+                             capture_output=True, text=True, timeout=10)
+        if out.returncode == 0:
+            return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return None
+
+
+@functools.lru_cache(maxsize=1)
+def _card() -> tuple:
+    """``(name, power limit)`` of the first card from ``nvidia-smi``, or
+    ``(None, None)`` where it cannot answer. Read once a process: the
+    card does not change under a run."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=20)
+    except (OSError, subprocess.SubprocessError):
+        return None, None
+    if out.returncode != 0 or not out.stdout.strip():
+        return None, None
+    first = out.stdout.strip().splitlines()[0]
+    name, _, limit = first.rpartition(",")
+    return (name.strip() or None), (limit.strip() or None)
+
+
+def provenance(lane: dict | None = None) -> dict:
+    """The context block every artifact embeds: Python, torch and its
+    CUDA version, the device the numbers were measured on (the card's
+    name and power limit), the git SHA of the code, and the lane
+    config. Best effort: a field the environment cannot answer is None,
+    never a raise."""
+    out: dict = {
+        "python": sys.version.split()[0],
+        "torch": None,
+        "cuda": None,
+        "backend": None,
+        "device_kind": None,
+        "device_count": None,
+        "power_limit": None,
+        "git_sha": _git_sha(_package_root()),
+    }
+    try:
+        import torch
+
+        out["torch"] = torch.__version__
+        out["cuda"] = torch.version.cuda
+        if torch.cuda.is_available():
+            out["backend"] = "cuda"
+            out["device_count"] = torch.cuda.device_count()
+            out["device_kind"] = torch.cuda.get_device_name(0)
+            name, limit = _card()
+            out["power_limit"] = limit
+            out["device_kind"] = out["device_kind"] or name
+        else:
+            out["backend"] = "cpu"
+            out["device_count"] = 0
+    except Exception:  # a stripped environment: still writable
+        pass
+    if lane is not None:
+        out["lane"] = lane
+    return out

@@ -206,6 +206,18 @@ class Checker:
             if self._run_error is not None:
                 raise self._run_error
             return
+        # Run telemetry (telemetry.py): with a tracer active, every
+        # engine's run is bracketed here, the one place all engines pass
+        # through, so host and device checkers trace alike. A checker
+        # run inside another's run (the hybrid racer's two sides) records
+        # into the enclosing run, which owns the bracket.
+        from . import telemetry
+
+        tracer = telemetry.current_tracer()
+        if tracer is not None and tracer._run_open:
+            tracer = None
+        if tracer is not None:
+            tracer.begin_run(lane=self._lane_config())
         self._started_at = time.monotonic()
         try:
             self._run(reporter)
@@ -215,9 +227,51 @@ class Checker:
             self._finished_at = time.monotonic()
             self._done = True
             self._run_error = exc
+            if tracer is not None:
+                tracer.end_run(error=f"{type(exc).__name__}: {exc}",
+                               **self._run_stats())
             raise
         self._finished_at = time.monotonic()
         self._done = True
+        if tracer is not None:
+            self._emit_settlement_verdicts(tracer)
+            tracer.end_run(error=None, **self._run_stats())
+
+    def _emit_settlement_verdicts(self, tracer) -> None:
+        """The exhaustion half of the verdict timeline: a property with
+        no discovery settles when the search completes, so a clean run
+        gives each property exactly one ``verdict`` event (discoveries
+        land earlier, where the engines find them). A cancelled run (the
+        hybrid racer's loser) has exhausted nothing and emits none."""
+        if getattr(self, "cancelled", False):
+            return
+        discovered = set(self._discoveries) | set(
+            getattr(self, "_discovered_fps", None) or {})
+        metrics = getattr(self, "metrics", None)
+        waves = metrics.get("waves") if isinstance(metrics, dict) else None
+        for prop in self.model.properties():
+            if prop.name in discovered:
+                continue
+            tracer.event("verdict", property=prop.name,
+                         expectation=prop.expectation.name.lower(),
+                         kind="exhaustion",
+                         wave=(int(waves) if waves is not None else None),
+                         depth=self._max_depth)
+
+    def _lane_config(self) -> dict:
+        """The run's lane, embedded in the trace's ``run_begin`` event
+        (engines add their shapes)."""
+        return dict(engine=type(self).__name__,
+                    model=type(self.model).__name__,
+                    target_state_count=self.builder._target_state_count,
+                    target_max_depth=self.builder._target_max_depth)
+
+    def _run_stats(self) -> dict:
+        """The run's outcome for the trace's ``run_end`` event."""
+        return dict(total_states=self._total_states,
+                    unique_states=self._unique_states,
+                    max_depth=self._max_depth,
+                    duration_sec=round(self.duration_sec(), 6))
 
     # -- status (checker.rs:287-314) -------------------------------------
 

@@ -1,7 +1,8 @@
 """Host breadth-first checker — the host correctness oracle.
 
-A copy of the JAX package's ``checkers/bfs.py`` without its telemetry
-spans (they come with the port of ``telemetry.py``). It re-implements
+A copy of the JAX package's ``checkers/bfs.py``, its telemetry
+included (a ``property_check`` phase total, discovery verdicts and the
+reconstruction span, telemetry.py). It re-implements
 the semantics of the reference's parallel BFS
 (stateright src/checker/bfs.rs): FIFO frontier, fingerprint-keyed
 visited map storing child→parent digests for path reconstruction
@@ -54,12 +55,20 @@ class BfsChecker(ParentTraceMixin, Checker):
         self.generated: dict[int, Optional[int]] = {}
 
     def _run(self, reporter: Optional[Reporter] = None) -> None:
+        from .. import telemetry
+
         model = self.model
         props = list(model.properties())
         ebits_init = self._eventually_bits_init()
         visitor = self.builder._visitor
         target_states = self.builder._target_state_count
         target_depth = self.builder._target_max_depth
+        # property evaluation runs once a popped state, so it accumulates
+        # into one phase_total event; the shared no-op keeps the untraced
+        # loop cost-free
+        tracer = telemetry.current_tracer()
+        prop_acc = (tracer.phase_acc("property_check") if tracer
+                    else telemetry._NULL_SPAN)
 
         pending: deque[tuple[object, int, int, int]] = deque()
         for init in model.init_states():
@@ -87,16 +96,22 @@ class BfsChecker(ParentTraceMixin, Checker):
                 )
 
             # Property evaluation on the popped state (bfs.rs:223-268).
-            for i, prop in enumerate(props):
-                if prop.expectation == Expectation.ALWAYS:
-                    if not prop.condition(model, state):
-                        self._discover(prop.name, fp)
-                elif prop.expectation == Expectation.SOMETIMES:
-                    if prop.condition(model, state):
-                        self._discover(prop.name, fp)
-                else:  # EVENTUALLY
-                    if ebits & (1 << i) and prop.condition(model, state):
-                        ebits &= ~(1 << i)
+            # Discoveries are recorded after the timed block: the path
+            # reconstruction has its own span.
+            hit = []
+            with prop_acc:
+                for i, prop in enumerate(props):
+                    if prop.expectation == Expectation.ALWAYS:
+                        if not prop.condition(model, state):
+                            hit.append(prop.name)
+                    elif prop.expectation == Expectation.SOMETIMES:
+                        if prop.condition(model, state):
+                            hit.append(prop.name)
+                    else:  # EVENTUALLY
+                        if ebits & (1 << i) and prop.condition(model, state):
+                            ebits &= ~(1 << i)
+            for name in hit:
+                self._discover(name, fp, depth=depth)
 
             if self._all_discovered():
                 break
@@ -131,7 +146,7 @@ class BfsChecker(ParentTraceMixin, Checker):
             if is_terminal and ebits:
                 for i, prop in enumerate(props):
                     if ebits & (1 << i):
-                        self._discover(prop.name, fp)
+                        self._discover(prop.name, fp, depth=depth)
 
             if reporter is not None:
                 now = time.monotonic()
@@ -249,7 +264,7 @@ class BfsChecker(ParentTraceMixin, Checker):
                     for fp, ebits, depth, disc, succs, term in results:
                         self._max_depth = max(self._max_depth, depth)
                         for name in disc:
-                            self._discover(name, fp)
+                            self._discover(name, fp, depth=depth)
                         for next_state, next_fp in succs:
                             self._total_states += 1
                             if next_fp not in self.generated:
@@ -260,7 +275,7 @@ class BfsChecker(ParentTraceMixin, Checker):
                                      depth + 1)
                                 )
                         for name in term:
-                            self._discover(name, fp)
+                            self._discover(name, fp, depth=depth)
                     if self._all_discovered() or (
                         target_states is not None
                         and self._unique_states >= target_states

@@ -6,7 +6,8 @@ A copy of the JAX package's ``checkers/common.py``: the refusals
 :func:`soundness_refusal`) with its wording, the supported engines and
 modules named being the port's own; and :class:`ParentTraceMixin`, the
 child→parent fingerprint forest walk of the host BFS and on-demand
-checkers (bfs.rs:28-29, 371-400), without its telemetry spans.
+checkers (bfs.rs:28-29, 371-400), with its discovery ``verdict`` event
+and ``counterexample_reconstruction`` span (telemetry.py).
 """
 
 from __future__ import annotations
@@ -76,8 +77,20 @@ class ParentTraceMixin:
         fps.reverse()
         return fps
 
-    def _discover(self, name: str, fp: int) -> None:
+    def _discover(self, name: str, fp: int,
+                  depth: Optional[int] = None) -> None:
         if name not in self._discoveries:
-            self._discoveries[name] = Path.from_fingerprints(
-                self.model, self._reconstruct_fps(fp)
-            )
+            from .. import telemetry
+
+            # the verdict lands before the reconstruction: time to verdict
+            # is when the search settled the property, and the path has
+            # its own span
+            prop = self.model.property_by_name(name)
+            telemetry.emit("verdict", property=name,
+                           expectation=prop.expectation.name.lower(),
+                           kind="discovery", wave=None, depth=depth)
+            with telemetry.span("counterexample_reconstruction",
+                                property=name):
+                self._discoveries[name] = Path.from_fingerprints(
+                    self.model, self._reconstruct_fps(fp)
+                )

@@ -1,7 +1,9 @@
 """Host depth-first checker.
 
-A copy of the JAX package's ``checkers/dfs.py`` without its telemetry
-spans (they come with the port of ``telemetry.py``). It re-implements
+A copy of the JAX package's ``checkers/dfs.py``, its telemetry included
+(``property_check`` and ``symmetry_canonicalization`` phase totals,
+discovery verdicts and the reconstruction span, telemetry.py). It
+re-implements
 the reference DFS (stateright src/checker/dfs.rs): LIFO stack, visited
 *set* of fingerprints (no parent pointers, dfs.rs:27), each job carrying
 its full fingerprint trace for discovery reconstruction (dfs.rs:30),
@@ -38,11 +40,22 @@ class DfsChecker(Checker):
 
     def _discover(self, name: str, trace: tuple[int, ...]) -> None:
         if name not in self._discoveries:
-            self._discoveries[name] = Path.from_fingerprints(
-                self.model, list(trace)
-            )
+            from .. import telemetry
+
+            # the verdict before the reconstruction: the settle moment
+            prop = self.model.property_by_name(name)
+            telemetry.emit("verdict", property=name,
+                           expectation=prop.expectation.name.lower(),
+                           kind="discovery", wave=None, depth=len(trace))
+            with telemetry.span("counterexample_reconstruction",
+                                property=name):
+                self._discoveries[name] = Path.from_fingerprints(
+                    self.model, list(trace)
+                )
 
     def _run(self, reporter: Optional[Reporter] = None) -> None:
+        from .. import telemetry
+
         model = self.model
         props = list(model.properties())
         ebits_init = self._eventually_bits_init()
@@ -50,11 +63,20 @@ class DfsChecker(Checker):
         symmetry = self.builder._symmetry
         target_states = self.builder._target_state_count
         target_depth = self.builder._target_max_depth
+        # per-state costs accumulate into one phase_total event apiece;
+        # the shared no-op keeps the untraced loop cost-free
+        tracer = telemetry.current_tracer()
+        prop_acc = (tracer.phase_acc("property_check") if tracer
+                    else telemetry._NULL_SPAN)
+        sym_acc = (tracer.phase_acc("symmetry_canonicalization")
+                   if tracer is not None and symmetry is not None
+                   else telemetry._NULL_SPAN)
 
         def visited_key(state, fp: int) -> int:
             if symmetry is None:
                 return fp
-            return fingerprint(symmetry(state))
+            with sym_acc:
+                return fingerprint(symmetry(state))
 
         pending: list[tuple[object, tuple[int, ...], int]] = []
         for init in model.init_states():
@@ -81,17 +103,20 @@ class DfsChecker(Checker):
             if visitor is not None:
                 visitor.visit(model, Path.from_fingerprints(model, list(trace)))
 
+            # discoveries are recorded after the timed block (the path
+            # reconstruction has its own span)
             hit = []
-            for i, prop in enumerate(props):
-                if prop.expectation == Expectation.ALWAYS:
-                    if not prop.condition(model, state):
-                        hit.append(prop.name)
-                elif prop.expectation == Expectation.SOMETIMES:
-                    if prop.condition(model, state):
-                        hit.append(prop.name)
-                else:  # EVENTUALLY
-                    if ebits & (1 << i) and prop.condition(model, state):
-                        ebits &= ~(1 << i)
+            with prop_acc:
+                for i, prop in enumerate(props):
+                    if prop.expectation == Expectation.ALWAYS:
+                        if not prop.condition(model, state):
+                            hit.append(prop.name)
+                    elif prop.expectation == Expectation.SOMETIMES:
+                        if prop.condition(model, state):
+                            hit.append(prop.name)
+                    else:  # EVENTUALLY
+                        if ebits & (1 << i) and prop.condition(model, state):
+                            ebits &= ~(1 << i)
             for name in hit:
                 self._discover(name, trace)
 

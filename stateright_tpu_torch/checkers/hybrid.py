@@ -149,16 +149,21 @@ class HybridChecker(Checker):
                 ) from host_error[0]
             # Host memory exhaustion is the race LOST, not a model
             # error: the host DFS holds O(states x depth) trace tuples.
-            warnings.warn(
-                "hybrid race: host engine ran out of memory; adopting "
-                "the device engine's completed result",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+            # A traced run records it as an event too (a memory datum).
+            from .. import telemetry
+
+            msg = ("hybrid race: host engine ran out of memory; adopting "
+                   "the device engine's completed result")
+            telemetry.emit(
+                "hybrid_host_oom", phase="host_dfs", message=msg,
+                winner=self.winner,
+                error=f"{type(host_error[0]).__name__}: {host_error[0]}")
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
         win = host if self.winner == "host" else device
         # Adopt the winner's result surface wholesale.
         self._winner_checker = win
         self._discoveries = win._discoveries
+        self._discovered_fps = dict(getattr(win, "_discovered_fps", {}))
         self._total_states = win._total_states
         self._unique_states = win._unique_states
         self._max_depth = win._max_depth

@@ -1,8 +1,8 @@
 """On-demand checker: expands states only when asked.
 
-A copy of the JAX package's ``checkers/on_demand.py`` without its
-telemetry (the trace-run bracket of ``run_to_completion`` comes with the
-port of ``telemetry.py``). It re-implements the semantics of stateright
+A copy of the JAX package's ``checkers/on_demand.py``, with its
+telemetry: ``run_to_completion`` opens and closes a trace run
+(telemetry.py). It re-implements the semantics of stateright
 src/checker/on_demand.rs:
 a BFS variant whose frontier sits idle until the Explorer requests a
 specific fingerprint (``check_fingerprint``, on_demand.rs:139-159) or
@@ -77,27 +77,53 @@ class OnDemandChecker(ParentTraceMixin, Checker):
             self._expand(state, fp, ebits, depth)
 
     def run_to_completion(self) -> None:
-        """Switch to exhaustive BFS (on_demand.rs:160-165)."""
+        """Switch to exhaustive BFS (on_demand.rs:160-165).
+
+        This engine bypasses the base ``_ensure_run`` (its accessors
+        reflect incremental progress), so the trace bracket is here: an
+        exhaustive pass with a tracer active opens its own run, unless
+        one is open already, and a pass that drains the space sweeps
+        the exhaustion verdicts as every other engine does."""
+        from .. import telemetry
+
         self._exhaustive = True
         if self._done and not self._order:
             return  # already drained
         if self._started_at is None:
             self._started_at = time.monotonic()
+        tracer = telemetry.current_tracer()
+        if tracer is not None and not tracer._run_open:
+            tracer.begin_run(lane=self._lane_config())
+        else:
+            tracer = None  # an enclosing run owns the bracket
         target_states = self.builder._target_state_count
-        while self._order:
-            fp = self._order.popleft()
-            job = self.pending.pop(fp, None)
-            if job is None:
-                continue  # already expanded via check_fingerprint
-            state, ebits, depth = job
-            self._expand(state, fp, ebits, depth)
-            if self._all_discovered():
-                break
-            if (target_states is not None
-                    and self._unique_states >= target_states):
-                break
+        try:
+            while self._order:
+                fp = self._order.popleft()
+                job = self.pending.pop(fp, None)
+                if job is None:
+                    continue  # already expanded via check_fingerprint
+                state, ebits, depth = job
+                self._expand(state, fp, ebits, depth)
+                if self._all_discovered():
+                    break
+                if (target_states is not None
+                        and self._unique_states >= target_states):
+                    break
+        except Exception as exc:
+            # close the bracket on a model panic: an open run would take
+            # every later event
+            self._finished_at = time.monotonic()
+            if tracer is not None:
+                tracer.end_run(error=f"{type(exc).__name__}: {exc}",
+                               **self._run_stats())
+            raise
         self._finished_at = time.monotonic()
         self._done = not self.pending
+        if tracer is not None:
+            if self._done:
+                self._emit_settlement_verdicts(tracer)
+            tracer.end_run(error=None, **self._run_stats())
 
     # -- shared expansion (mirrors bfs.rs check_block) -------------------
 
@@ -115,10 +141,10 @@ class OnDemandChecker(ParentTraceMixin, Checker):
         for i, prop in enumerate(props):
             if prop.expectation == Expectation.ALWAYS:
                 if not prop.condition(model, state):
-                    self._discover(prop.name, fp)
+                    self._discover(prop.name, fp, depth=depth)
             elif prop.expectation == Expectation.SOMETIMES:
                 if prop.condition(model, state):
-                    self._discover(prop.name, fp)
+                    self._discover(prop.name, fp, depth=depth)
             else:
                 if ebits & (1 << i) and prop.condition(model, state):
                     ebits &= ~(1 << i)
@@ -146,4 +172,4 @@ class OnDemandChecker(ParentTraceMixin, Checker):
         if is_terminal and ebits:
             for i, prop in enumerate(props):
                 if ebits & (1 << i):
-                    self._discover(prop.name, fp)
+                    self._discover(prop.name, fp, depth=depth)

@@ -1,8 +1,7 @@
 """Host simulation checker: random deep traces instead of exhaustive search.
 
-A copy of the JAX package's ``checkers/simulation.py`` without its
-telemetry (the verdict event comes with the port of ``telemetry.py``).
-It re-implements stateright src/checker/simulation.rs: a pluggable
+A copy of the JAX package's ``checkers/simulation.py``, with its
+discovery ``verdict`` event (telemetry.py). It re-implements stateright src/checker/simulation.rs: a pluggable
 ``Chooser`` picks an init state and then one action per step
 (simulation.rs:21-38); ``UniformChooser`` uses a seeded PRNG
 (simulation.rs:50-78) with per-trace seeds derived from the base seed
@@ -171,4 +170,10 @@ class SimulationChecker(Checker):
         self, name: str, steps: list, final_state: State
     ) -> None:
         if name not in self._discoveries:
+            from .. import telemetry
+
+            prop = self.model.property_by_name(name)
+            telemetry.emit("verdict", property=name,
+                           expectation=prop.expectation.name.lower(),
+                           kind="discovery", wave=None, depth=len(steps))
             self._discoveries[name] = Path(list(steps) + [(final_state, None)])

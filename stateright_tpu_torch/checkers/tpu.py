@@ -35,6 +35,7 @@ the JAX engine's messages.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import warnings
@@ -43,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import checkpoint, faultinject
+from .. import checkpoint, faultinject, telemetry
 from ..checker import Checker, CheckerBuilder
 from ..model import Expectation
 from ..occupancy import occupancy_warning
@@ -68,6 +69,51 @@ REPORT_EVERY_WAVES = 64
 #: its torch ops once a chunk, whatever the chunk's rows, so fewer and
 #: larger chunks cost less host time
 DENSE_CHUNK_BYTES = 1 << 32
+
+
+class HostReads:
+    """The wave loops' blocking device-to-host reads, counted and timed.
+
+    Every read a wave makes of a device value (``.tolist()``, a count,
+    a flag, a download of keys) goes through :func:`host_read`, so the
+    sum of their walls is the time the host spent blocked on the device
+    in that wave: a traced chunk's ``fetch_sec`` (telemetry.py), the
+    rest of the wave its ``dispatch_sec``. Other implicit syncs (a
+    ``nonzero`` on the card sizes its output) count as dispatch.
+
+    ``sync_before`` is the deep trace level's one extra sync: set by the
+    wave loop before a wave, it makes the wave's first read call
+    ``torch.cuda.synchronize`` on those devices first and add the wait
+    to ``device_sec``. Tracing at the default level makes no read of
+    its own: ``calls`` is the same with a tracer and without."""
+
+    def __init__(self):
+        self.calls = 0
+        self.sec = 0.0
+        self.device_sec = 0.0
+        self.sync_before = None
+
+
+#: the one counter of the process's wave-loop reads
+READS = HostReads()
+
+
+def host_read(x, numpy: bool = False):
+    """``x.tolist()`` (a Python scalar for a 0-d tensor), or with
+    ``numpy`` the host copy ``x.cpu().numpy()``: one blocking read,
+    counted and timed in :data:`READS`."""
+    devs, READS.sync_before = READS.sync_before, None
+    if devs:
+        t0 = time.monotonic()
+        for dev in devs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        READS.device_sec += time.monotonic() - t0
+    t0 = time.monotonic()
+    out = x.cpu().numpy() if numpy else x.tolist()
+    READS.sec += time.monotonic() - t0
+    READS.calls += 1
+    return out
 
 
 def step_with_trunc(enc, states_t):
@@ -131,7 +177,7 @@ def discovery_update(props, hits, los, his, found: dict) -> None:
     """Fold this wave's verdicts into ``found`` (property name ->
     fingerprint), keeping the first (shallowest) hit — bfs.rs discovery
     recording. One host transfer per wave."""
-    packed = torch.stack([hits.to(torch.int64), los, his]).cpu().tolist()
+    packed = host_read(torch.stack([hits.to(torch.int64), los, his]))
     for i, p in enumerate(props):
         if packed[0][i] and p.name not in found:
             found[p.name] = (packed[2][i] << 32) | packed[1][i]
@@ -293,10 +339,13 @@ class TpuBfsChecker(Checker):
         #: abandoned finds it changed and stops before its sync, and the
         #: host thread publishes nothing of an abandoned attempt
         self._attempt_token = None
+        #: the tracer of the current attempt (telemetry.py), or None
+        self._tracer = None
 
     def _run(self, reporter=None) -> None:
         """One run, supervised (checkpoint.supervised_run)."""
         checkpoint.supervised_run(self, reporter)
+        self._trace_close()
 
     def resume_from(self, path: str, allow_sha_mismatch: bool = False
                     ) -> dict:
@@ -340,9 +389,11 @@ class TpuBfsChecker(Checker):
         return int(self.checkpoint_every)
 
     def _begin_attempt(self) -> object:
-        """A new attempt's token (see ``_attempt_token``)."""
+        """A new attempt's token (see ``_attempt_token``); attaches the
+        run's tracer and builds the attempt's kernels."""
         self._attempt_token = token = object()
         self._ckpt_stats.setdefault("fault_recoveries", 0)
+        self._trace_attach()
         return token
 
     def _abandoned(self, token) -> bool:
@@ -366,7 +417,11 @@ class TpuBfsChecker(Checker):
         ``watchdog_factor`` set on a daemon worker thread that the host
         waits on at most the derived deadline, raising
         ``checkpoint.WatchdogTimeout`` past it (the thread is abandoned:
-        a CUDA sync cannot be cancelled)."""
+        a CUDA sync cannot be cancelled) after a ``watchdog_timeout``
+        event."""
+        self._wave_reads0 = (READS.sec, READS.device_sec)
+        if self._tracer is not None and self._tracer.level == "deep":
+            READS.sync_before = self._trace_devices()
         if not self.watchdog_factor:
             return thunk()
         deadline = checkpoint.watchdog_deadline(
@@ -389,22 +444,29 @@ class TpuBfsChecker(Checker):
                          name=f"stpu-torch-watchdog-wave{w}").start()
         if not done.wait(deadline):
             self._attempt_token = None  # the wave thread is abandoned
-            raise checkpoint.WatchdogTimeout(w, deadline, dict(
-                chunk=int(w), deadline_sec=round(deadline, 3),
-                rolling_max_chunk_sec=self._wd_roll_max,
-                factor=float(self.watchdog_factor),
-                waited_sec=round(time.monotonic() - t0, 3)))
+            att = dict(chunk=int(w), deadline_sec=round(deadline, 3),
+                       rolling_max_chunk_sec=self._wd_roll_max,
+                       factor=float(self.watchdog_factor),
+                       waited_sec=round(time.monotonic() - t0, 3))
+            telemetry.emit("watchdog_timeout", **att)
+            raise checkpoint.WatchdogTimeout(w, deadline, att)
         if "exc" in box:
             raise box["exc"]
         return box["out"]
 
-    def _wave_done(self, w: int, wave_sec: float, done: bool,
+    def _wave_done(self, w: int, t0: float, done: bool,
                    buffers_fn) -> None:
-        """After wave ``w`` of this attempt (its sync done): feed the
-        watchdog, write the snapshot when the cadence asks (never on the
-        last wave), then fire the ``chunk_boundary`` fault site — JAX's
-        order, so a kill there leaves the snapshot committed.
-        ``buffers_fn()`` gives ``(buffers, tier block)``."""
+        """After wave ``w`` of this attempt, begun at ``t0`` (its sync
+        done): record it in the trace, feed the watchdog, write the
+        snapshot when the cadence asks (never on the last wave), then
+        fire the ``chunk_boundary`` fault site — JAX's order, so a kill
+        there leaves the snapshot committed. ``buffers_fn()`` gives
+        ``(buffers, tier block)``."""
+        t1 = time.monotonic()
+        wave_sec = t1 - t0
+        READS.sync_before = None
+        if self._tracer is not None:
+            self._trace_wave(w, t0, t1)
         if self.watchdog_factor and (self._wd_roll_max is None
                                      or wave_sec > self._wd_roll_max):
             self._wd_roll_max = wave_sec
@@ -431,9 +493,180 @@ class TpuBfsChecker(Checker):
             stats["snapshot_write_max_sec"] = round(
                 max(stats.get("snapshot_write_max_sec", 0.0), snap_sec), 6)
             if self.checkpoint_every == "auto":
-                self._ckpt_auto_every = checkpoint.auto_cadence(
-                    snap_sec, wave_sec)
+                new = checkpoint.auto_cadence(snap_sec, wave_sec)
+                if new != self._ckpt_auto_every:
+                    telemetry.emit(
+                        "checkpoint_cadence",
+                        old=int(self._ckpt_auto_every), new=int(new),
+                        snapshot_sec=round(snap_sec, 6),
+                        chunk_sec=round(wave_sec, 6))
+                self._ckpt_auto_every = new
         faultinject.fire("chunk_boundary", w, shards=self._fault_shards())
+
+    # -- run telemetry (telemetry.py) ---------------------------------------
+
+    def _kernel_sources(self) -> tuple:
+        """The CUDA sources this engine launches (built in the attempt's
+        ``compile`` span on the card)."""
+        from ..ops import hashset
+
+        return (hashset,)
+
+    def _trace_devices(self) -> tuple:
+        return (self.device,)
+
+    def _trace_attach(self) -> None:
+        """The top of an attempt: resolve the active tracer (None: every
+        hook below is a no-op), reset the attempt's trace state, and
+        build the attempt's kernels inside a ``compile`` span. A compiled
+        encoding's host compile (actor/compile.py), which ran before the
+        run, is recorded as a ``compile`` span of the first run that
+        traces it. The port runs one wave a sync at every level, so the
+        deep level needs no ``deep_sync_override``: it only adds the
+        device sync before each wave's first read."""
+        tracer = telemetry.current_tracer()
+        self._tracer = tracer
+        self._trace_row = None
+        self._verdicts_seen: set = set()
+        self._mem_peak = self._mem_src = None
+        self._mem_polls = 0
+        if tracer is not None:
+            stamp = getattr(self.encoded, "host_compile_span", None)
+            if (stamp is not None and getattr(
+                    self.encoded, "_compile_traced", None) is not tracer):
+                self.encoded._compile_traced = tracer
+                tracer.record_span("compile", stamp[0], stamp[1],
+                                   stage="actor_compile",
+                                   engine=type(self).__name__)
+        with telemetry.span("compile", engine=type(self).__name__):
+            if any(d.type == "cuda" for d in self._trace_devices()):
+                for ops in self._kernel_sources():
+                    ops._lib()
+
+    def _traced_start(self, start):
+        """``start()``, the attempt's start state, in a ``seed_upload``
+        span, or, when a snapshot is staged, in a ``restore_upload`` span
+        followed by the ``restore`` event (the wave stream then starts at
+        the snapshot's wave)."""
+        resume = self._resume
+        with telemetry.span("seed_upload" if resume is None
+                            else "restore_upload"):
+            out = start()
+        if resume is not None:
+            manifest = resume[0]
+            telemetry.emit(
+                "restore",
+                path=os.path.basename(self._resume_path or "") or None,
+                wave=int(manifest["wave"]), depth=int(manifest["depth"]),
+                unique=int(manifest["unique"]),
+                from_shards=int(manifest.get("n_shards", 1)),
+                to_shards=int(getattr(self, "n_shards", 1)))
+        return out
+
+    def _trace_wave(self, w: int, t0: float, t1: float) -> None:
+        """One wave as one chunk (the port syncs every wave): the wall
+        split into the timed host reads (``fetch_sec``) and the rest
+        (``dispatch_sec``), the deep level's device wait, the wave's row
+        and per-shard rows the wave left in ``_trace_row``, the device
+        bytes in use, the straggler verdicts, and a ``verdict`` event
+        for each property first discovered in this wave."""
+        from ..memplan import device_bytes_in_use
+
+        tracer = self._tracer
+        r0, d0 = self._wave_reads0
+        fetch = READS.sec - r0
+        dev = (READS.device_sec - d0) if tracer.level == "deep" else None
+        mem_now, src = device_bytes_in_use(self.device)
+        if mem_now is not None:
+            self._mem_src = src
+            self._mem_polls += 1
+            self._mem_peak = (mem_now if self._mem_peak is None
+                              else max(self._mem_peak, mem_now))
+        wave_no, row, srows = self._trace_row
+        self._trace_row = None
+        if srows is not None:
+            self._note_shard_health(srows, wave_no)
+        tracer.record_chunk(
+            chunk=w, wave0=wave_no, t0=t0, t1=t1,
+            dispatch_sec=max(t1 - t0 - fetch - (dev or 0.0), 0.0),
+            fetch_sec=fetch, device_sec=dev, n_waves=1,
+            wave_rows=None if row is None else [row],
+            shard_rows=None if srows is None else [[r] for r in srows],
+            mem_bytes=mem_now)
+        for prop in self.model.properties():
+            if (prop.name in self._discovered_fps
+                    and prop.name not in self._verdicts_seen):
+                self._verdicts_seen.add(prop.name)
+                tracer.event("verdict", property=prop.name,
+                             expectation=prop.expectation.name.lower(),
+                             kind="discovery", wave=wave_no + 1,
+                             depth=self._max_depth, chunk=w)
+
+    def _note_shard_health(self, srows, wave_no: int) -> None:
+        """The straggler detector (the sharded engines override)."""
+
+    def _sustained_stragglers(self) -> tuple:
+        """The shards held as sustained stragglers, the supervisor's
+        evidence for ``checkpoint.classify_failure``: none on one device
+        (the sharded engines override)."""
+        return ()
+
+    def _memory_headroom(self) -> dict:
+        """The watermark's visited accounting: rows against capacity,
+        priced per row, and the cold tier of a tiered run."""
+        bpr = self._visited_bytes_per_row()
+        cap = getattr(self, "total_capacity", self.capacity)
+        u = self._unique_states
+        return dict(visited_rows=int(u), visited_capacity=int(cap),
+                    occupancy=(round(u / cap, 4) if cap else None),
+                    bytes_per_row=bpr, visited_used_bytes=int(u * bpr),
+                    visited_capacity_bytes=int(cap * bpr), budget=None,
+                    tier=self._tier_headroom())
+
+    def _tier_headroom(self) -> Optional[dict]:
+        """The cold tier's rows and bytes, None when the run never
+        spilled."""
+        m = self.metrics
+        if not isinstance(m, dict) or "tier_spills" not in m:
+            return None
+        return dict(spills=m["tier_spills"], cold_rows_total=m["cold_rows"],
+                    cold_bytes_total=m["cold_bytes"],
+                    hot_rows=m.get("hot_rows"))
+
+    def _trace_close(self) -> None:
+        """The end of a traced run: the ``memory_plan`` event (the port
+        fills its plan at the end of the run, where JAX declares it
+        before the first wave) and the ``memory_watermark``. A
+        cancelled run (the hybrid racer's loser) emits neither."""
+        tracer = getattr(self, "_tracer", None)
+        if tracer is None or getattr(self, "cancelled", False):
+            return
+        if self.memory_plan is not None:
+            tracer.event("memory_plan", **self.memory_plan)
+        tier = self._tier_headroom()
+        tracer.event(
+            "memory_watermark", source=self._mem_src,
+            device_peak_bytes=(None if self._mem_peak is None
+                               else int(self._mem_peak)),
+            polls=int(self._mem_polls),
+            cold_tier_bytes=None if tier is None else tier["cold_bytes_total"],
+            headroom=self._memory_headroom(),
+            projection=self._memory_projection())
+
+    def _lane_config(self) -> dict:
+        lane = super()._lane_config()
+        lane.update(encoding=type(self.encoded).__name__,
+                    width=self.encoded.width,
+                    max_actions=self.encoded.max_actions,
+                    capacity=self.capacity,
+                    frontier_capacity=self.frontier_capacity,
+                    cand_capacity=self.cand_capacity,
+                    waves_per_sync=1, track_paths=self.track_paths,
+                    device=str(self.device),
+                    merge_impl=("cuda" if self.device.type == "cuda"
+                                else "plain"),
+                    visited_row_bytes=self._visited_bytes_per_row())
+        return lane
 
     def _ckpt_metrics(self) -> dict:
         """The checkpoint counters for ``metrics``: none on a run that
@@ -563,9 +796,12 @@ class TpuBfsChecker(Checker):
         stg = memplan.plan_entries(staging)
         resident_bytes = memplan.plan_total(res)
         staging_bytes = memplan.plan_total(stg)
+        # ``classes``: the port sizes every wave exactly and has no class
+        # ladder; ``compiled``: an eager wave has no compiled program
         plan = dict(engine=type(self).__name__, device=str(self.device),
                     n_shards=1, resident=res, resident_bytes=resident_bytes,
                     staging=stg, staging_bytes=staging_bytes,
+                    classes=[], compiled=None,
                     total_bytes=resident_bytes + staging_bytes,
                     projection=self._memory_projection())
         if host:
@@ -623,7 +859,7 @@ class TpuBfsChecker(Checker):
                                None, self.probe_rounds)
         self._unique_states, self._total_states = n0, n0
         self._max_depth = 1
-        if bool(over.any()):
+        if host_read(over.any()):
             raise RuntimeError(self._overflow_message("visited"))
         ebits = torch.full((n0,), self._eventually_bits_init(),
                            dtype=torch.int64, device=dev)
@@ -647,7 +883,7 @@ class TpuBfsChecker(Checker):
         evt_idx = self._eventually_indices(props)
         dev = self.device
         (table, parents, front, ebits, unique, generated, depth,
-         waves) = self._hash_start()
+         waves) = self._traced_start(self._hash_start)
         self._unique_states, self._total_states = unique, generated
         self._max_depth = depth
         fps = dict(self._discovered_fps)  # this attempt's discoveries
@@ -696,7 +932,7 @@ class TpuBfsChecker(Checker):
             flags = [over.any(), is_new.sum()]
             if trunc is not None:
                 flags.append(trunc)
-            flags = torch.stack([f.to(torch.int64) for f in flags]).tolist()
+            flags = host_read(torch.stack([f.to(torch.int64) for f in flags]))
             new_count = flags[1]
             # the JAX engine's order of verdicts
             if flags[0]:
@@ -721,6 +957,10 @@ class TpuBfsChecker(Checker):
                 max_cand = n_cand
                 insert_shape = (unique - new_count, n_cand, new_count)
 
+            if self._tracer is not None:
+                # JAX's hash engine keeps no wave log: its chunks land
+                # without wave rows
+                self._trace_row = (waves - 1, None, None)
             all_disc = bool(props) and len(fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
             finished = new_count == 0 or all_disc or target_hit
@@ -740,7 +980,7 @@ class TpuBfsChecker(Checker):
                 done = self._guarded_wave(lambda: wave(w), w)
             finally:
                 self._publish(token, fps, unique, generated, depth)
-            self._wave_done(w, time.monotonic() - t0, done, buffers)
+            self._wave_done(w, t0, done, buffers)
             w += 1
             if not done and not warned:  # once a run, where JAX warns a sync
                 warned = self._maybe_warn_occupancy(unique / self.capacity)
@@ -863,15 +1103,22 @@ class TpuBfsChecker(Checker):
     def _reconstruct(self, fp: int) -> Path:
         """Walk the parent log, then replay the HOST model matching
         device fingerprints of encoded successors (bfs.rs:371-400 +
-        path.rs:20-97, with the encoder as the bridge)."""
-        fps = [fp]
-        while True:
-            parent = self._parent_of(fps[-1])
-            if parent is None:
-                break
-            fps.append(parent)
-        fps.reverse()
-        return self._replay_fps(fps)
+        path.rs:20-97, with the encoder as the bridge). Traced, the walk
+        and the replay are the ``cex_parent_drain`` and
+        ``cex_host_decode`` spans of a ``counterexample_reconstruction``
+        span."""
+        with telemetry.span("counterexample_reconstruction",
+                            fingerprint=f"{fp:#x}"):
+            with telemetry.span("cex_parent_drain"):
+                fps = [fp]
+                while True:
+                    parent = self._parent_of(fps[-1])
+                    if parent is None:
+                        break
+                    fps.append(parent)
+                fps.reverse()
+            with telemetry.span("cex_host_decode"):
+                return self._replay_fps(fps)
 
     def _replay_fps(self, fps: list) -> Path:
         """Replay a fingerprint trace through the HOST model: the init

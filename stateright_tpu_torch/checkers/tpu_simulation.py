@@ -338,9 +338,16 @@ class TpuSimulationChecker(TpuBfsChecker):
         off = 2 + 4 * P
         dt_lo = stats[off:off + P * LT]
         dt_hi = stats[off + P * LT:]
+        from .. import telemetry
+
         for i, prop in enumerate(props):
             if not found[i]:
                 continue
+            if prop.name not in self._discovered_fps:
+                telemetry.emit("verdict", property=prop.name,
+                               expectation=prop.expectation.name.lower(),
+                               kind="discovery", wave=None,
+                               depth=self._max_depth)
             self._discovered_fps[prop.name] = (hi[i] << 32) | lo[i]
             if self.track_paths:
                 # the frozen trace, replayed through the HOST model

@@ -94,7 +94,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import checkpoint, faultinject
+from .. import checkpoint, faultinject, telemetry
 from ..ops.bitmask import mask_words, popcount_words, words_to_mask
 from ..ops.canonical import canonical_hits, canonicalize_t
 from ..ops.fingerprint import (
@@ -114,6 +114,7 @@ from .tpu import (
     dense_candidates,
     discovery_update,
     frontier_props_t,
+    host_read,
     wave_hits,
 )
 
@@ -227,10 +228,13 @@ class HotColdTier:
     log, and the walls of the spills, of waiting for the ingest worker
     and of the cold membership searches."""
 
-    def __init__(self, cold: ColdStore, ceiling: Optional[int], limit: int):
+    def __init__(self, cold: ColdStore, ceiling: Optional[int], limit: int,
+                 engine: Optional[str] = None):
         self.cold = cold
         self.ceiling = ceiling
         self.limit = limit
+        #: the engine's name, for the ``tier_spill`` events
+        self.engine = engine
         #: (parent keys, child keys) int64 numpy blocks, wave by wave
         self.plog: list = []
         self.spill_sec = 0.0
@@ -240,12 +244,31 @@ class HotColdTier:
     def spill(self, *states: WaveState) -> None:
         """Move the whole sorted hot prefix of each state (one a shard of
         the cold store) to the cold store (ingest on the worker thread)
-        and leave the device tiers empty."""
+        and leave the device tiers empty; a ``tier_spill`` event records
+        it (JAX's fields: the counts are exact, the walls timing)."""
         t0 = time.monotonic()
-        self.cold.ingest([st.vkeys.cpu().numpy() for st in states])
+        self.cold.sync()  # the ingest joins the last one anyway
+        prev_rows, prev_runs = self.cold.rows(), self.cold.run_count()
+        per_shard = [host_read(st.vkeys, numpy=True) for st in states]
+        self.cold.ingest(per_shard)
         for st in states:
             st.vkeys = st.vkeys[:0]
-        self.spill_sec += time.monotonic() - t0
+        wall = time.monotonic() - t0
+        self.spill_sec += wall
+        from ..tier import COLD_BYTES_PER_ROW
+
+        rows = int(sum(k.size for k in per_shard))
+        telemetry.emit(
+            "tier_spill", engine=self.engine, rows=rows,
+            bytes=rows * COLD_BYTES_PER_ROW,
+            rows_per_shard=[int(k.size) for k in per_shard],
+            hot_rows_before=rows, hot_ceiling_rows=self.ceiling,
+            spill_index=int(self.cold.spills),
+            runs=int(prev_runs + sum(1 for k in per_shard if k.size)),
+            cold_rows_total=int(prev_rows + rows),
+            cold_bytes_total=int((prev_rows + rows) * COLD_BYTES_PER_ROW),
+            wall_sec=round(wall, 6),
+            ingest_sec=round(self.cold.ingest_sec, 6))
 
     def drop_cold_members(self, is_new: torch.Tensor,
                           s_key: torch.Tensor, shard: int = 0) -> int:
@@ -254,7 +277,7 @@ class HotColdTier:
         truly new keys). The provisional keys go to the host at the
         wave's one sync."""
         idx = is_new.nonzero().squeeze(1)
-        q = s_key[idx].cpu().numpy()
+        q = host_read(s_key[idx], numpy=True)
         t0 = time.monotonic()
         self.cold.sync()
         t1 = time.monotonic()
@@ -489,7 +512,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             raise ValueError(
                 f"the single-device engine takes a 1-shard cold store, got "
                 f"{st.cold.n_shards} shards: repartitioned(1) it first")
-        tier = HotColdTier(st.cold, ceiling, self._tier_limit(ceiling))
+        tier = HotColdTier(st.cold, ceiling, self._tier_limit(ceiling),
+                           engine=type(self).__name__)
         tier.plog = [(p.cpu().numpy(), c.cpu().numpy()) for p, c in st.plog]
         st.plog = []
         if st.vkeys.numel() > tier.limit:
@@ -512,7 +536,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         self._check_device()
         ample_words = self._resolve_ample_words()
         token = self._begin_attempt()
-        st = self._start_state()
+        st = self._traced_start(self._start_state)
         ceiling = self._tier_hot_ceiling = self._tier_ceiling()
         if st.vkeys.numel() > self.capacity:
             raise RuntimeError(self._overflow_message("visited"))
@@ -561,6 +585,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             nonlocal max_cand, max_new, member_shape, merge_shape
             nonlocal chunks, max_chunks, widest_wave, unique
             front = st.frontier
+            depth_in = st.depth
             cond, eb, f_lo, f_hi = frontier_props_t(
                 enc, props, evt_idx, front, st.ebits, sym
             )
@@ -571,15 +596,17 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 succ_t, keys = front[:, :0], st.vkeys[:0]
                 rows, n_cand, tripped = keys, 0, False
                 has_succ = torch.ones_like(eb, dtype=torch.bool)
+                pairs = 0
             elif sparse:
                 succ_t, keys, rows, has_succ, n_cand, tripped, hits = \
                     self._expand_sparse(front, K, trivial, ample_words)
+                pairs = rows.numel()
             else:
                 succ_t, rows, has_succ, eov, n_chunks = dense_candidates(
                     enc, front, trivial, chunk_rows)
                 keys, hits = successor_keys(succ_t, sym)
-                n_cand = keys.numel()
-                tripped = bool(eov)
+                n_cand = pairs = keys.numel()  # JAX's dense convention
+                tripped = bool(host_read(eov))
                 chunks += n_chunks
                 max_chunks = max(max_chunks, n_chunks)
             # the fault site between the wave's issue and its sync
@@ -602,8 +629,13 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             fresh = (s_key != SENTINEL_KEY) & ~prev_same
             hot_rows = st.vkeys.numel()
             is_new = fresh & ~member_keys(st.vkeys, s_key)
+            wave_hits_n = None
             if tier is None:
-                new_count = int(is_new.sum())
+                if hits is None:
+                    new_count = host_read(is_new.sum())
+                else:  # the wave's canonical hits ride the same read
+                    new_count, wave_hits_n = host_read(torch.stack(
+                        [is_new.sum(), hits.to(torch.int64)]))
                 spill = False
                 over = hot_rows + new_count
             else:
@@ -625,7 +657,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 if tier is None:
                     st.plog.append(block)
                 else:
-                    tier.plog.append(tuple(t.cpu().numpy() for t in block))
+                    tier.plog.append(tuple(host_read(t, numpy=True)
+                                           for t in block))
             if spill:
                 tier.spill(st)
             merge_rows = st.vkeys.numel()
@@ -647,6 +680,14 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             max_new = max(max_new, new_count)
 
             unique += new_count
+            if self._tracer is not None:
+                # the wave's row (telemetry.WAVE_LOG_FIELDS): host values
+                # the wave already holds; no ladder, so no classes
+                row = [front.shape[1], pairs, n_cand, new_count, unique,
+                       depth_in, None, None]
+                if wave_hits_n is not None:
+                    row.append(wave_hits_n)
+                self._trace_row = (st.waves - 1, row, None)
             all_disc = bool(props) and len(fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
             finished = new_count == 0 or all_disc or target_hit
@@ -667,7 +708,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 done = self._guarded_wave(lambda: wave(w), w)
             finally:
                 self._publish(token, fps, unique, st.generated, st.depth)
-            self._wave_done(w, time.monotonic() - t0, done,
+            self._wave_done(w, t0, done,
                             lambda: checkpoint.sortmerge_buffers(self, st,
                                                                  tier))
             w += 1
@@ -715,6 +756,17 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 self._discoveries[name] = self._reconstruct(fp)
         self.memory_plan = self._sortmerge_memory_plan(
             st, max_cand, tier is not None)
+
+    def _kernel_sources(self) -> tuple:
+        from ..ops import merge
+
+        return (merge,)
+
+    def _lane_config(self) -> dict:
+        lane = super()._lane_config()
+        lane.update(expansion="sparse" if self._use_sparse() else "dense",
+                    tier_hot_rows=self.tier_hot_rows, visited_exact=True)
+        return lane
 
     def _visited_bytes_per_row(self) -> int:
         """Device bytes per visited state of a resident run: the key in
@@ -782,7 +834,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                                device=front.device)
         has_succ[rows[ok]] = True
         if eov is None:
-            n_cand = int(ok.sum())
+            n_cand = host_read(ok.sum())
         else:  # one transfer for the count and the flag
-            n_cand, tripped = torch.stack([ok.sum(), eov.long()]).tolist()
+            n_cand, tripped = host_read(torch.stack([ok.sum(), eov.long()]))
         return succ_t, keys, rows, has_succ, n_cand, tripped, hits

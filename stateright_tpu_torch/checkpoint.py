@@ -60,13 +60,16 @@ What the port writes differs from the JAX engine's by design, and JAX's
   re-insertion; a single-device table of another slot count is still
   refused). A tiered mesh snapshot is refused: the sharded tier is not
   ported (ROADMAP item 15).
-* **No telemetry yet** (ROADMAP item 17): what the JAX module emits as
-  ``checkpoint``, ``fault_recovery`` and ``watchdog_timeout`` events
-  lands in ``checker.metrics`` (``snapshots``, ``snapshot_bytes``,
-  ``snapshot_write_sec`` and of it ``snapshot_capture_sec``,
-  ``resume_load_sec`` and of it ``resume_read_sec`` and
-  ``resume_host_sec``, then the run's ``resume_upload_sec``,
-  ``fault_recoveries``) and in a ``RuntimeWarning`` where JAX warns.
+* **Telemetry** (telemetry.py): a traced run gets JAX's ``checkpoint``
+  event for each snapshot written, ``fault_recovery`` and
+  ``fault_degrade`` from the supervisor, and from the engines
+  ``restore``, ``checkpoint_cadence`` and ``watchdog_timeout``. The
+  same facts land, traced or not, in ``checker.metrics``
+  (``snapshots``, ``snapshot_bytes``, ``snapshot_write_sec`` and of it
+  ``snapshot_capture_sec``, ``resume_load_sec`` and of it
+  ``resume_read_sec`` and ``resume_host_sec``, then the run's
+  ``resume_upload_sec``, ``fault_recoveries``) and in a
+  ``RuntimeWarning`` where JAX warns.
 
 **Resume** (:func:`resume_from`) validates the snapshot (staleness is
 refused, never guessed around: an encoding fingerprint that differs, or
@@ -106,9 +109,10 @@ anything else raises through. Where the port differs from JAX:
   parallel/) follows JAX's :class:`FailurePolicy`: a fault that strikes
   one shard twice drops that shard's device
   from the list, and the retry re-shards the last snapshot onto the
-  survivors. :func:`classify_failure` attributes a shard only from an
-  injected shard fault: the straggler evidence JAX also reads needs a
-  traced run, and the port has no tracer yet (ROADMAP item 17).
+  survivors. :func:`classify_failure` attributes a shard from an
+  injected shard fault, or from the straggler detector's evidence
+  (``_sustained_stragglers``: a traced sharded run with
+  ``straggler_factor`` set, telemetry.detect_stragglers), as JAX's.
 """
 
 from __future__ import annotations
@@ -528,7 +532,10 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
                    tier_block: Optional[dict] = None) -> dict:
     """Write one snapshot of ``buffers`` (:func:`sortmerge_buffers` or
     :func:`hash_buffers`) atomically to ``path`` with JAX's manifest, and
-    return the manifest. ``chunk`` is the wave index in this attempt."""
+    return the manifest. ``chunk`` is the wave index in this attempt. A
+    ``checkpoint`` event records it (its wall: the file write; the
+    engine's ``snapshot_write_sec`` adds the download)."""
+    t0 = time.monotonic()
     total = int(sum(b.nbytes for b in buffers.values()))
     manifest = dict(
         version=SNAPSHOT_VERSION,
@@ -564,6 +571,13 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
         manifest["shard_layout"] = PACKED
     _write_file(path, manifest, buffers)
     checker._last_snapshot = path
+    from . import telemetry
+
+    telemetry.emit(
+        "checkpoint", path=os.path.basename(path), chunk=int(chunk),
+        wave=manifest["wave"], depth=manifest["depth"],
+        unique=manifest["unique"], snapshot_bytes=total,
+        wall_sec=round(time.monotonic() - t0, 6))
     return manifest
 
 
@@ -1264,9 +1278,9 @@ def classify_failure(exc: BaseException, straggler_shards=()) -> tuple:
     ``shard_fault`` with its shard; an OOM -> ``oom``; another supervised
     fault -> ``transient``, attributed to a shard only when
     ``straggler_shards`` names exactly one; anything else ->
-    ``unsupervised``. The port's engines have no straggler detector yet
-    (ROADMAP item 17), so they pass none, and only an injected shard
-    fault names a shard."""
+    ``unsupervised``. The engines pass the shards their straggler
+    detector holds as sustained stragglers (none unless a sharded run
+    is traced with ``straggler_factor`` set)."""
     from .faultinject import InjectedShardFault
 
     if isinstance(exc, WatchdogTimeout):
@@ -1359,7 +1373,8 @@ def supervised_run(checker, reporter=None) -> None:
         except Exception as exc:
             if not is_supervised_fault(exc):
                 raise
-            kind, shard = policy.classify(exc)
+            kind, shard = policy.classify(
+                exc, straggler_shards=checker._sustained_stragglers())
             snap = checker._last_snapshot or checker._resume_path
             if ((not checker.checkpoint_every and snap is None)
                     or (snap is None and checker._started_from_state)
@@ -1385,6 +1400,14 @@ def supervised_run(checker, reporter=None) -> None:
                 + f" after {delay:.2f}s backoff",
                 RuntimeWarning, stacklevel=2)
             checker._ckpt_stats["fault_recoveries"] = attempts
+            from . import telemetry
+
+            telemetry.emit(
+                "fault_recovery", attempt=attempts,
+                error=f"{type(exc).__name__}: {exc}",
+                snapshot=(os.path.basename(snap) if snap else None),
+                backoff_sec=round(delay, 3), oom=(kind == "oom"),
+                failure_class=kind, shard=shard)
             if kind == "oom":
                 ooms += 1
                 torch = _torch()
@@ -1399,6 +1422,17 @@ def supervised_run(checker, reporter=None) -> None:
                 policy.degraded(victim)
                 checker._ckpt_stats["shard_degrades"] = (
                     checker._ckpt_stats.get("shard_degrades", 0) + 1)
+            manifest = None
             if snap is not None:
-                resume_from(checker, snap,
-                            allow_sha_mismatch=checker._resume_allow_sha)
+                manifest = resume_from(
+                    checker, snap,
+                    allow_sha_mismatch=checker._resume_allow_sha)
+            if victim is not None:
+                telemetry.emit(
+                    "fault_degrade", from_shards=S,
+                    to_shards=int(checker.n_shards),
+                    excluded_shard=int(victim), reason=kind,
+                    wave=(int(manifest["wave"]) if manifest else 0),
+                    rerouted_rows=(int(manifest["unique"]) if manifest
+                                   else 0),
+                    snapshot=(os.path.basename(snap) if snap else None))

@@ -64,6 +64,22 @@ killed mid-way resumes from its last snapshot:
 
     python -m stateright_tpu_torch 2pc check-gpu 9 --checkpoint-every=4
     python -m stateright_tpu_torch 2pc check-gpu 9 --resume
+
+``--trace`` (or ``--trace=deep``) anywhere on the line traces the run of
+any ``check-gpu`` or ``check`` lane (telemetry.py) and writes the pair
+``TRACE_rNN.jsonl`` / ``TRACE_rNN.trace.json``, on failure too, into
+the artifacts' root: the repository root, or ``--trace-root=DIR``, or
+``$STPU_TORCH_ARTIFACT_ROOT`` (artifacts.py). The JAX package's
+``tools/trace_diff.py``, ``shard_report.py``, ``latency_report.py`` and
+``mem_report.py`` read it. ``--trace=deep`` syncs the device before each
+wave's first read, so the wave walls split into device and host time.
+``--straggler-factor=F`` arms the straggler detector of a traced
+sharded run (a no-op on the CLI's one-device lanes). The live metrics
+plane (``--metrics-interval``) waits for ``metrics.py`` (ROADMAP item
+17).
+
+    python -m stateright_tpu_torch 2pc check-gpu 9 --trace=deep
+    python -m stateright_tpu_torch paxos check 2 --trace --trace-root=/tmp/t
 """
 
 from __future__ import annotations
@@ -99,10 +115,13 @@ class RunFlags:
     #: let the supervisor drop a persistently failing shard (a no-op on
     #: one device, JAX ``--degrade-on-fault``)
     degrade_on_fault: bool = False
+    #: the straggler detector's factor of the shard median (a traced
+    #: sharded run's; a no-op on one device); None: off
+    straggler_factor: float | None = None
 
     def durable(self) -> bool:
         return bool(self.checkpoint_every or self.resume or self.watchdog
-                    or self.degrade_on_fault)
+                    or self.degrade_on_fault or self.straggler_factor)
 
     def apply(self, checker):
         """Arm ``checker`` with the checkpoint, resume and watchdog flags
@@ -115,6 +134,8 @@ class RunFlags:
             checker.watchdog_factor = float(self.watchdog)
         if self.degrade_on_fault:
             checker.degrade_on_fault = True
+        if self.straggler_factor:
+            checker.straggler_factor = float(self.straggler_factor)
         if self.checkpoint_every:
             checker.checkpoint_every = self.checkpoint_every
             checker.checkpoint_path = path
@@ -176,10 +197,13 @@ def _pop_flags(argv: list[str]):
             durable["watchdog"] = float(val)
         elif arg == "--degrade-on-fault":
             on.add("degrade_on_fault")
-        elif arg.startswith("--straggler-factor"):
-            raise SystemExit(
-                "--straggler-factor: the straggler detector reads traced "
-                "runs, and the port has no tracer yet (ROADMAP item 17)")
+        elif arg.startswith("--straggler-factor="):
+            val = float(arg.split("=", 1)[1])
+            if val <= 1.0:
+                raise SystemExit(
+                    f"--straggler-factor={val}: must be > 1 (a shard "
+                    "above the median would flag at 1)")
+            durable["straggler_factor"] = val
         elif arg == "--device":
             device = next(it, None)
         elif arg.startswith("--device="):
@@ -214,8 +238,9 @@ def _check(header: str, model, flags: RunFlags) -> None:
         )
     if flags.durable():
         raise SystemExit(
-            "--checkpoint-every, --resume, --watchdog and --degrade-on-fault "
-            "apply to check-gpu; check runs the plain host DFS"
+            "--checkpoint-every, --resume, --watchdog, --degrade-on-fault "
+            "and --straggler-factor apply to check-gpu; check runs the "
+            "plain host DFS"
         )
     print(header)
     model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
@@ -568,10 +593,51 @@ def _usage() -> None:
           "--unsound-ok waives the gate (no soundness guarantee)")
 
 
+def _pop_trace_flags(argv: list[str]):
+    """``(level or None, artifacts' root or None, the other arguments)``:
+    ``--trace`` / ``--trace=LEVEL`` and ``--trace-root=DIR`` from
+    anywhere on the line. An unknown level, and the metrics plane's
+    flags, are refused."""
+    level = root = None
+    rest = []
+    for a in argv:
+        if a == "--trace":
+            level = "default"
+        elif a.startswith("--trace="):
+            level = a.split("=", 1)[1]
+            if level not in ("default", "deep"):
+                raise SystemExit(
+                    f"--trace={level}: unknown level (use --trace or "
+                    "--trace=deep)")
+        elif a.startswith("--trace-root="):
+            root = a.split("=", 1)[1]
+        elif a.startswith(("--metrics-interval", "--metrics-path")):
+            raise SystemExit(
+                f"{a.split('=', 1)[0]}: the live metrics plane "
+                "(metrics.py) is not ported yet (ROADMAP item 17)")
+        else:
+            rest.append(a)
+    return level, root, rest
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
+    level, root, argv = _pop_trace_flags(argv)
     flags, argv = _pop_flags(argv)
     if len(argv) < 2 or argv[0] not in _MODELS:
         _usage()
         return
-    _MODELS[argv[0]](argv[1], argv[2:], flags)
+    if level is None:
+        _MODELS[argv[0]](argv[1], argv[2:], flags)
+        return
+    from .telemetry import RunTracer, write_artifacts
+
+    tracer = RunTracer(level=level)
+    try:
+        with tracer.activate():
+            _MODELS[argv[0]](argv[1], argv[2:], flags)
+    finally:
+        # a failed run's partial trace is the one a diagnosis needs
+        if tracer.events:
+            jsonl, chrome = write_artifacts(tracer, root=root)
+            print(f"trace: wrote {jsonl} + {chrome}", file=sys.stderr)

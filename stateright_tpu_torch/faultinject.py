@@ -40,8 +40,9 @@ environment variable, the JAX package's: a comma-separated list of
 ``STPU_FAULTS="kill@chunk_boundary:2"`` or ``"hang@mid_chunk:1:20"``
 (arg: seconds). Each armed fault fires once, except ``shard_fault``.
 
-The JAX module emits a ``fault_injected`` telemetry event at each
-firing; the port has no telemetry yet (ROADMAP item 17).
+Each firing emits a ``fault_injected`` telemetry event (telemetry.py;
+a no-op without a tracer), before the fault acts: a kill's event dies
+with the process, as a real kill's would.
 """
 
 from __future__ import annotations
@@ -191,9 +192,10 @@ def chunk_for_seed(seed: int, n_chunks: int) -> int:
 
 def fire(site: str, chunk: int, shards=None) -> None:
     """The engine-side hook: fire the first armed fault matching
-    ``(site, chunk)``. ``raise`` throws :class:`InjectedFault`; ``kill``
-    ``os._exit``\\ s with :data:`KILL_EXIT_CODE`; ``hang`` sleeps its
-    armed seconds; ``shard_fault`` raises :class:`InjectedShardFault` at
+    ``(site, chunk)``, after its ``fault_injected`` event. ``raise``
+    throws :class:`InjectedFault`; ``kill`` ``os._exit``\\ s with
+    :data:`KILL_EXIT_CODE`; ``hang`` sleeps its armed seconds;
+    ``shard_fault`` raises :class:`InjectedShardFault` at
     every chunk at or past its armed one while its shard is in
     ``shards`` (None: one device, shard 0). With nothing armed this is a
     list check."""
@@ -214,6 +216,13 @@ def fire(site: str, chunk: int, shards=None) -> None:
             continue
         if f["once"]:
             _ARMED.remove(f)
+        from . import telemetry
+
+        telemetry.emit(
+            "fault_injected", site=site, chunk=int(chunk),
+            action=f["action"],
+            **({"shard": f["shard"]}
+               if f["action"] == "shard_fault" else {}))
         if f["action"] == "kill":
             # a real preemption: no cleanup, no atexit, nothing flushed
             os._exit(KILL_EXIT_CODE)

@@ -7,7 +7,8 @@ uses: the ledger rows (:func:`buffer_entry`, :func:`plan_entries`,
 (:func:`decide_hot_rows`, the ``tier_hot_rows="auto"`` policy), the
 tiered frontier-headroom bound (:func:`tier_frontier_headroom`), the
 admission floor (:func:`session_resident_bytes`), the live device
-watermark (:func:`device_bytes_in_use`) and the byte formatter.
+watermark (:func:`device_bytes_in_use`), the byte formatter and the
+``MEM_r*.json`` writer (:func:`write_memory_artifact`).
 
 The JAX module's compiled-program analysis (``compiled_memory``,
 ``compiled_memory_analysis``) is XLA's own accounting of a compiled
@@ -22,6 +23,7 @@ when it is called.
 
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
@@ -169,16 +171,19 @@ def tier_frontier_headroom(capacity: int, frontier_capacity: int,
 
 def device_bytes_in_use(device=None) -> tuple[Optional[int], Optional[str]]:
     """``(bytes, source)``: on a CUDA device, the caching allocator's
-    ``torch.cuda.memory_allocated(device)`` as ``"memory_stats"``; on
-    the CPU ``(None, None)`` — torch keeps no registry of live CPU
-    tensors, so there is nothing to read. It never blocks on device
-    work."""
+    allocated bytes (what ``torch.cuda.memory_allocated(device)``
+    returns) as ``"memory_stats"``; on the CPU ``(None, None)`` — torch
+    keeps no registry of live CPU tensors, so there is nothing to read.
+    It never blocks on device work. It reads the nested statistics
+    directly: ``memory_allocated`` flattens and sorts all of them first,
+    several times the cost, and a traced run polls once a wave."""
     import torch
 
     dev = torch.device(device if device is not None else "cuda")
     if dev.type != "cuda" or not torch.cuda.is_available():
         return None, None
-    return int(torch.cuda.memory_allocated(dev)), "memory_stats"
+    stats = torch.cuda.memory_stats_as_nested_dict(dev)
+    return int(stats["allocated_bytes"]["all"]["current"]), "memory_stats"
 
 
 # -- rendering ------------------------------------------------------------
@@ -195,3 +200,22 @@ def format_bytes(n) -> str:
                     else f"{n:,.2f} {unit}")
         n /= 1024.0
     return f"{n:,.2f} GB"
+
+
+def write_memory_artifact(summary: dict, root: Optional[str] = None) -> str:
+    """Write one ``MEM_r*.json`` artifact: the memory summary of a traced
+    run (``telemetry.memory_summary``, ``tools/mem_report.py --json``),
+    numbered in its own round sequence (``MEM_r01`` first) since it is
+    derived from a TRACE and names it in its ``trace`` field. The root
+    is artifacts.py's unless given."""
+    from .artifacts import artifact_path, next_round, provenance, repo_root
+
+    root = repo_root() if root is None else root
+    path = artifact_path("MEM", "json", root=root,
+                         round=next_round(root, stems=("MEM",)))
+    doc = dict(summary)
+    doc.setdefault("provenance", provenance())
+    with open(path, "w") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    return path

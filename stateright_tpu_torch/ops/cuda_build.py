@@ -12,6 +12,13 @@ build runs on first use, never at import: machines without ``nvcc``
 
 compiles the sources once more with ``-Xptxas -v`` and prints each
 kernel's registers, shared memory and spills.
+
+A traced run (telemetry.py) records one ``program_build`` event per
+source the first time the run loads it, in place of the JAX package's
+XLA compile-cache ledger: tier ``cold`` where nvcc ran (``wall_sec`` and
+``cold_sec`` are its seconds, :data:`BUILD_SECONDS`), ``disk`` where a
+built library was loaded from ``build/kernels/``, ``in_process`` where
+the process had it loaded already.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ NVCC_FLAGS = (
 _LOADED: dict = {}
 #: seconds spent in nvcc per source name, for the smoke report.
 BUILD_SECONDS: dict = {}
+#: source name -> (tracer, run index) its last ``program_build`` went to
+_TRACED: dict = {}
 
 
 def nvcc_path() -> str:
@@ -89,11 +98,36 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from ``csrc/<name>``, built on first
     use and cached for the process."""
     lib = _LOADED.get(name)
-    if lib is None:
-        finish_build(name, start_build(name))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+    if lib is not None:
+        _trace_build(name, "in_process", 0.0)
+        return lib
+    t0 = time.monotonic()
+    pending = start_build(name)
+    finish_build(name, pending)
+    lib = ctypes.CDLL(str(library_path(name)))
+    _LOADED[name] = lib
+    if pending is None:
+        _trace_build(name, "disk", time.monotonic() - t0)
+    else:
+        _trace_build(name, "cold", BUILD_SECONDS[name])
     return lib
+
+
+def _trace_build(name: str, tier: str, wall: float) -> None:
+    """The ``program_build`` event of ``name``, once a traced run."""
+    from .. import telemetry
+
+    tracer = telemetry.current_tracer()
+    if tracer is None:
+        return
+    run = (tracer, tracer._run_idx)
+    prev = _TRACED.get(name)
+    if prev is not None and prev[0] is run[0] and prev[1] == run[1]:
+        return
+    _TRACED[name] = run
+    tracer.event("program_build", program=Path(name).stem, tier=tier,
+                 key=library_path(name).name, wall_sec=round(wall, 6),
+                 cold_sec=round(wall if tier == "cold" else 0.0, 6))
 
 
 def ptxas_report(name: str) -> str:

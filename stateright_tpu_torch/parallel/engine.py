@@ -46,6 +46,7 @@ from ..checkers.tpu import (
     TpuBfsChecker,
     dense_candidates,
     frontier_props_t,
+    host_read,
     wave_hits,
 )
 from ..ops.fingerprint import fingerprint_u32v_t, fp_to_key, key_to_fp, pack_keys
@@ -60,7 +61,7 @@ from .exchange import (
     route,
     routed_off_shard,
 )
-from .shards import ShardedEngine, fold_discoveries
+from .shards import ShardedEngine, fold_discoveries, shard_row
 
 
 class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
@@ -133,7 +134,7 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
             table = DeviceHashSet.empty(self.capacity, dev)
             _, _, over, _ = insert(table, keys[mine].to(dev), None,
                                    self.probe_rounds)
-            if bool(over.any()):
+            if host_read(over.any()):
                 raise RuntimeError(self._overflow_message("visited",
                                                           shard=s))
             shards.append(dict(
@@ -163,7 +164,8 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
         P = len(props)
         evt_idx = self._eventually_indices(props)
         S, W = self.n_shards, enc.width
-        shards, (unique, generated, depth, waves) = self._mesh_start()
+        shards, (unique, generated, depth, waves) = self._traced_start(
+            self._mesh_start)
         for s, sh in enumerate(shards):
             if sh["frontier"].shape[1] > self.frontier_capacity:
                 raise RuntimeError(self._overflow_message("frontier",
@@ -187,6 +189,7 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
             nonlocal unique, generated, depth, waves
             expand = target_depth is None or depth < target_depth
             routed, rows_out, n_cands, truncs = [], [], [], []
+            n_front = [sh["frontier"].shape[1] for sh in shards]
             for s, sh in enumerate(shards):
                 front = sh["frontier"]
                 cond, eb, f_lo, f_hi = frontier_props_t(
@@ -275,6 +278,16 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
                 if recv.shape[1] > stats["insert_shape"][1]:
                     stats["insert_shape"] = (used[d], recv.shape[1], new)
                 used[d] += new
+            if self._tracer is not None:
+                # dense waves: the enabled pairs are the candidates
+                peak = max(stats["max_cand"], max(n_cands))
+                srows = [shard_row(n_front[d], n_cands[d], n_cands[d],
+                                   counts[d], d, received[d].shape[1],
+                                   flags[d][1], used[d], peak)
+                         for d in range(S)]
+                row = [sum(n_front), sum(n_cands), sum(n_cands), new_total,
+                       unique + new_total, depth, None, None]
+                self._trace_row = (waves, row, srows)
             stats["routed"] += routed_off_shard(counts)
             stats["max_cand"] = max(stats["max_cand"], max(n_cands))
             generated += sum(n_cands)
@@ -299,7 +312,7 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
                 done = self._guarded_wave(lambda: wave(w), w)
             finally:
                 self._publish(token, fps, unique, generated, depth)
-            self._wave_done(w, time.monotonic() - t0, done, buffers)
+            self._wave_done(w, t0, done, buffers)
             w += 1
             if not done and not warned:  # the fullest table's
                 msg = occupancy_warning(

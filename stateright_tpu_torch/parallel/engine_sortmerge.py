@@ -60,6 +60,7 @@ from ..checkers.tpu import (
     REPORT_EVERY_WAVES,
     dense_candidates,
     frontier_props_t,
+    host_read,
     wave_hits,
 )
 from ..checkers.tpu_sortmerge import (
@@ -81,7 +82,7 @@ from .exchange import (
     route,
     routed_off_shard,
 )
-from .shards import ShardedEngine, fold_discoveries
+from .shards import ShardedEngine, fold_discoveries, shard_row
 
 
 @dataclass
@@ -207,7 +208,7 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
         aw = self._resolve_ample_words()
         ample = [None if aw is None else aw.to(d) for d in self.devices]
         token = self._begin_attempt()
-        st = self._start_state()
+        st = self._traced_start(self._start_state)
         for s, sh in enumerate(st.shards):
             if sh.vkeys.numel() > self.capacity:
                 raise RuntimeError(self._overflow_message("visited", shard=s))
@@ -241,7 +242,8 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
             raise ValueError(
                 f"a {st.cold.n_shards}-shard cold store on {S} shards: "
                 f"repartitioned({S}) it first")
-        tier = HotColdTier(st.cold, ceiling, self._tier_limit(ceiling))
+        tier = HotColdTier(st.cold, ceiling, self._tier_limit(ceiling),
+                           engine=type(self).__name__)
         for sh in st.shards:
             tier.plog += [(p.cpu().numpy(), c.cpu().numpy())
                           for p, c in sh.plog]
@@ -260,8 +262,8 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
         succ_t, rows, has_succ, eov, n_chunks = dense_candidates(
             self.encoded, sh.frontier, trivial, chunk_rows)
         keys, hits = successor_keys(succ_t, self.sym_spec)
-        return (succ_t, keys, rows, has_succ, keys.numel(), bool(eov), hits,
-                n_chunks)
+        return (succ_t, keys, rows, has_succ, keys.numel(),
+                bool(host_read(eov)), hits, n_chunks)
 
     def _mesh_waves(self, st: MeshState, ceiling, tier, ample, reporter,
                     token) -> None:
@@ -285,12 +287,19 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
         done = all(sh.frontier.shape[1] == 0 for sh in st.shards)
         fps = dict(self._discovered_fps)
         unique = self._unique_states
+        # per-shard visited counts (hot and cold), for the trace's rows
+        shard_u = st.hot()
+        if st.cold is not None:
+            st.cold.sync()
+            shard_u = [u + c for u, c in zip(shard_u, st.cold.shard_rows())]
 
         def wave(w: int) -> bool:
             nonlocal unique, hits_total
             expand = target_depth is None or st.depth < target_depth
+            depth_in = st.depth
             routed, counts, rows_out = [], [], []
             n_cands, tripped_any, wave_chunks = [], False, 0
+            n_front, n_pairs = [], []
             for s, sh in enumerate(st.shards):
                 cond, eb, f_lo, f_hi = frontier_props_t(
                     enc, props, evt_idx, sh.frontier, sh.ebits, sym)
@@ -310,8 +319,11 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
                 wave_chunks = max(wave_chunks, n_chunks)
                 tripped_any |= bool(tripped)
                 n_cands.append(int(n_cand))
+                n_front.append(n)
+                # the enabled pairs (the candidates on the dense wave)
+                n_pairs.append(rows.numel() if sparse else int(n_cand))
                 if hits is not None:
-                    hits_total += int(hits)
+                    hits_total += host_read(hits)
                 # the routed lanes: state, parent's eventually-bits, key
                 # and, with paths, the parent's key
                 lanes = [succ_t, eb[rows][None], keys[None]]
@@ -398,6 +410,18 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
                 sh.frontier = recv[:W, nf_pos]
                 sh.ebits = recv[W, nf_pos]
             new_total = sum(new_counts)
+            if self._tracer is not None:
+                peak = max(stats["max_cand"], max(n_cands))
+                srows = []
+                for d in range(S):
+                    shard_u[d] += new_counts[d]
+                    srows.append(shard_row(
+                        n_front[d], n_pairs[d], n_cands[d], counts[d], d,
+                        received[d].shape[1], new_counts[d], shard_u[d],
+                        peak))
+                row = [sum(n_front), sum(n_pairs), sum(n_cands), new_total,
+                       unique + new_total, depth_in, None, None]
+                self._trace_row = (st.waves, row, srows)
             st.routed += routed_off_shard(counts)
             st.generated += sum(n_cands)
             st.waves += 1
@@ -425,7 +449,7 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
                 done = self._guarded_wave(lambda: wave(w), w)
             finally:
                 self._publish(token, fps, unique, st.generated, st.depth)
-            self._wave_done(w, time.monotonic() - t0, done,
+            self._wave_done(w, t0, done,
                             lambda: checkpoint.mesh_sortmerge_buffers(
                                 self, st, tier))
             w += 1

@@ -100,8 +100,10 @@ def host_rows(rows: Sequence[torch.Tensor]) -> list:
     """Equal-length int64 rows, one a shard, as host lists in one
     transfer: each row is copied to the first row's device (card to card
     where they differ), and the stack is read once."""
+    from ..checkers.tpu import host_read
+
     dev = rows[0].device
-    return torch.stack([r.to(dev) for r in rows]).tolist()
+    return host_read(torch.stack([r.to(dev) for r in rows]))
 
 
 def exchange(routed: Sequence[torch.Tensor], counts: Sequence[Sequence[int]],

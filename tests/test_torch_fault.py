@@ -11,8 +11,9 @@ OOMs degrade the dense wave, and neither an engine overflow nor a
 sticky CUDA error is retried. On the sharded engines (parallel/, S = 2
 on ``["cpu"] * 2``): a persistent shard fault under
 ``degrade_on_fault`` drops its shard and finishes at S = 1 with the
-host count (JAX ``tests/test_fault.py:259``, counts and warning; the
-trace half waits for the port's tracer, ROADMAP item 17), the degrade
+host count (JAX ``tests/test_fault.py:259``: counts, warning, the
+``fault_degrade`` event and no divergence of its trace from the
+uninterrupted run's), the degrade
 needs opt-in (:305), and a ``collective_seam`` raise recovers (:323).
 """
 
@@ -335,10 +336,10 @@ def test_watchdog_refuses_loudly_without_a_snapshot():
 
 
 def test_cli_runtime_flags():
-    """The checkpoint, watchdog and shard-degrade flags parse as JAX's do
-    and land on a spawned engine (the degrade is harmless on one
-    device); the straggler factor refuses, naming the telemetry item;
-    ``check`` refuses them all."""
+    """The checkpoint, watchdog, shard-degrade and straggler flags parse
+    as JAX's do and land on a spawned engine (the degrade and the
+    straggler detector are harmless on one device); a straggler factor
+    of 1 or less refuses; ``check`` refuses them all."""
     from stateright_tpu_torch.cli import _pop_flags, main
 
     flags, rest = _pop_flags(["2pc", "check-gpu", "3", "--watchdog=6",
@@ -357,9 +358,15 @@ def test_cli_runtime_flags():
     assert c.join().unique_state_count() == 288
     flags = _pop_flags(["--resume-any-sha"])[0]
     assert flags.resume and flags.resume_any_sha
+    flags = _pop_flags(["--straggler-factor=4", "--device", "cpu"])[0]
+    c = flags.spawn(TwoPhaseSys(rm_count=3), capacity=1 << 10)
+    assert c.straggler_factor == 4.0
+    assert c.join().unique_state_count() == 288
+    with pytest.raises(SystemExit, match="apply to check-gpu"):
+        main(["2pc", "check", "3", "--straggler-factor=4"])
     for bad, match in (("--watchdog=0", "must be > 0"),
                        ("--checkpoint-every=0", "must be >= 1"),
-                       ("--straggler-factor=4", "ROADMAP item 17")):
+                       ("--straggler-factor=1", "must be > 1")):
         with pytest.raises(SystemExit, match=match):
             _pop_flags([bad])
     with pytest.raises(SystemExit, match="apply to check-gpu"):
@@ -403,16 +410,32 @@ def test_failure_policy_equals_jax():
 
 
 def test_persistent_shard_fault_degrades_and_continues(tmp_path):
-    base = _mesh2pc4(2).join()
+    from stateright_tpu_torch import telemetry
+
+    tr_base = telemetry.RunTracer()
+    with tr_base.activate():
+        base = _mesh2pc4(2).join()
     assert base.unique_state_count() == HOST_2PC4
+    telemetry.validate_events(tr_base.events)
     c = _mesh2pc4(2, checkpoint_every=1,
                   checkpoint_path=str(tmp_path / "deg.ckpt"))
     c.degrade_on_fault = True
     c.retry_backoff_sec = 0.01
     faultinject.arm("shard_fault", "mid_chunk", 1, shard=1)
-    with warnings.catch_warnings(record=True) as w:
+    tr = telemetry.RunTracer()
+    with tr.activate(), warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         c.join()
+    telemetry.validate_events(tr.events)
+    deg = [e for e in tr.events if e["ev"] == "fault_degrade"]
+    assert len(deg) == 1 and (deg[0]["from_shards"], deg[0]["to_shards"],
+                              deg[0]["excluded_shard"],
+                              deg[0]["reason"]) == (2, 1, 1, "shard_fault")
+    # the degrade-aware alignment: the global counters exact
+    rep = telemetry.diff_traces(tr_base.events, tr.events)
+    assert rep["degrades_b"] and not rep["degrades_a"]
+    assert not rep["divergences"], rep["divergences"]
+    assert rep["ok"]
     assert (c.unique_state_count(), c.state_count(), c.max_depth()) == (
         base.unique_state_count(), base.state_count(), base.max_depth())
     assert c.discovered_property_names() == base.discovered_property_names()

@@ -3,7 +3,8 @@
 increment-lock, register and single-copy-register lanes, at their
 smallest size, the 2pc and register lanes with the reductions on, and
 the host DFS's ``2pc check 2``, and ``2pc check-gpu 3`` with a tiered
-visited set, and checkpointed and resumed), a device simulation, a hybrid race, a hash engine run,
+visited set, and checkpointed and resumed, and traced with its artifacts
+written), a device simulation, a hybrid race, a hash engine run,
 both sharded engines (parallel/) at two shards and a host BFS on the CPU
 loads neither jax nor anything
 of the JAX package, and no source file of the port (nor chip_smoke.py)
@@ -53,6 +54,10 @@ def test_import_and_cli_load_no_jax():
         " '--checkpoint-every=4', p])\n"
         "    main(['2pc', 'check-gpu', '3', '--device', 'cpu', '--resume',"
         " p])\n"
+        "    main(['2pc', 'check-gpu', '2', '--device', 'cpu', '--trace',"
+        " '--trace-root=' + d])\n"
+        "    print('TRACES', sorted(f for f in os.listdir(d)"
+        " if f.startswith('TRACE')))\n"
         "from stateright_tpu_torch.models.two_phase_commit import"
         " TwoPhaseSys\n"
         "sim = TwoPhaseSys(2).checker().spawn_device_simulation("
@@ -100,6 +105,8 @@ def test_import_and_cli_load_no_jax():
     # the tiered run, the checkpointed run and its resume
     assert out.stdout.count("Done. states=1146, unique=288, depth=11") == 3
     assert "resuming from" in out.stdout and ": wave 8, depth 9" in out.stdout
+    assert "TRACES ['TRACE_r01.jsonl', 'TRACE_r01.trace.json']" \
+        in out.stdout
     assert "Checking two phase commit with 2 resource managers.\n" \
         "Done. states=" in out.stdout
     assert "SIM 1088 ['abort agreement', 'commit agreement']" in out.stdout
@@ -125,7 +132,7 @@ def test_no_jax_imports_in_port_sources():
                    "tier.py", "checkpoint.py", "faultinject.py",
                    "parallel/__init__.py", "parallel/exchange.py",
                    "parallel/shards.py", "parallel/engine_sortmerge.py",
-                   "parallel/engine.py"):
+                   "parallel/engine.py", "telemetry.py", "artifacts.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
