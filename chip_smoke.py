@@ -198,8 +198,29 @@ it exits non-zero and prints no result. Phases, each ending in
    uninterrupted trace with no divergence; and ``2pc check-gpu 9
    --trace=deep`` in a process of its own (the ``program_build`` tiers
    of the kernels' libraries and the compile spans).
+27. wave batching and the metrics plane (batch.py, metrics.py): the
+   main path ``batch 2pc rm=7+8+9``, the ``2pc check-gpu 7/8/9`` lanes'
+   checkers in one ``BatchGroup`` of three seats on three threads (one
+   fused hash-engine run, 2^28 slots), three times, each seat giving its
+   solo count (296,448, 1,745,408, 10,340,352) with no fallback, peeling
+   in the order rm=7, rm=8, rm=9, its trace valid and without counter
+   divergence from that lane's solo traced run on the card, and the
+   insert launched once a fused wave plus once for the init states;
+   printed beside the median of three solo hash runs of each lane, with
+   each seat's ``batch_peel`` and ``batch_replay`` spans, peak memory
+   and the fused engine's wall alone and idle share (``stage_profile
+   --batch 7 8 9`` in a process of its own); ``batch paxos 2c/3s x2 + 2pc rm=4 x2``
+   (two groups, 16,668 and 1,568, each seat's trace naming only its own
+   encoding, the same batch on the CPU with equal wave rows); ``batch
+   fallback`` (``increment 2`` with ``2pc rm=3``: JAX's one-line reason,
+   each run solo on the card, the 2pc run launching both Merge Path
+   kernels); and ``2pc check-gpu 9 --metrics-interval=0.5`` in processes
+   of its own, twice between two unmetered ones (its rollup through
+   ``metrics.load_rollup``: 29 waves, 10,340,351 new states). The fused
+   run joins the insert's checks at its widest wave, the fallback's 2pc
+   run the Merge Path kernels' at its shapes.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-26) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-27) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -2880,6 +2901,319 @@ def traced_phases(runs: dict, hashes: dict) -> dict:
     return out
 
 
+# -- phase 27: batching and the metrics plane (batch.py, metrics.py) ---------
+
+#: the 2pc lanes of the fused main path and each one's solo unique count
+BATCH_LANES = {7: 296_448, 8: 1_745_408, 9: 10_340_352}
+
+
+def _lane_checker(n: int, device: str = "cuda"):
+    """The checker ``2pc check-gpu n`` runs (the sort-merge engine)."""
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
+        device=device, **twopc_sizes(n))
+
+
+def _run_seats(checkers, **kw) -> dict:
+    """Seat ``checkers`` in batch groups of their classes
+    (``batch.seat_sessions``) and join each on a thread of its own under
+    a tracer of its own, as a service runs its sessions. Returns the
+    seats, the tracers, the fallback reasons the seats gave, the wall
+    from the threads' start to the last join (ending in
+    ``torch.cuda.synchronize()``) and the launches in it (counts zeroed
+    just before the threads start)."""
+    import threading
+
+    import torch
+
+    from stateright_tpu_torch import telemetry
+    from stateright_tpu_torch.batch import seat_sessions
+
+    notes: list = []
+    seats = seat_sessions(checkers, notify=notes.append, **kw)
+    tracers = [telemetry.RunTracer() for _ in checkers]
+    errors: list = []
+
+    done_at = [None] * len(checkers)
+
+    def run(k, c, tr):
+        try:
+            with tr.activate_thread():
+                c.join()
+            done_at[k] = time.monotonic()
+        except Exception as exc:  # raised again below, on the phase
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(k, c, tr))
+               for k, (c, tr) in enumerate(zip(checkers, tracers))]
+    _zero_launches()
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive(), "a seat's thread did not finish"
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for note in notes:
+        print(f"  {note}", flush=True)
+    for tr in tracers:
+        telemetry.validate_events(tr.events)
+    return dict(seats=seats, tracers=tracers, notes=notes, wall=wall,
+                launches=_read_launches(),
+                seat_secs=[d - t0 for d in done_at])
+
+
+def _wave_counters(events) -> list:
+    """Each wave's ``DIFF_COUNTERS`` of a trace."""
+    from stateright_tpu_torch.telemetry import DIFF_COUNTERS
+
+    return [[e[k] for k in DIFF_COUNTERS] for e in events
+            if e["ev"] == "wave"]
+
+
+@phase("batch 2pc rm=7+8+9 fused (main path)")
+def batch_main():
+    """The ``2pc check-gpu 7/8/9`` lanes' checkers in one
+    ``BatchGroup(max_sessions=3)`` on three threads: one fused hash-engine
+    run over a 2^28-slot table. Each seat gives its solo count, none
+    falls back, they peel rm=7, rm=8, rm=9, each seat's trace validates
+    and diffs against that lane's solo traced run with no counter
+    divergence, and the insert launches once a fused wave (and once for
+    the init states). Prints the fused wall against the sum of the three
+    solo hash-engine walls (each at its lane's capacity), peak memory,
+    and the fused run's idle share from ``stage_profile --batch``."""
+    import torch
+
+    run = _batch_main_run()
+    torch.cuda.empty_cache()  # the fused table went with the run's locals
+    p = subprocess.run(
+        [sys.executable, "-m", "stateright_tpu_torch.stage_profile",
+         "--batch", *map(str, BATCH_LANES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-2000:]
+    prof = json.loads(p.stdout)
+    print(f"  stage_profile --batch: wall {prof['wall_s']:.4f}s, traced "
+          f"{prof['traced_wall_s']:.4f}s, device busy "
+          f"{prof['device_busy_ms']:.2f} ms, idle "
+          f"{prof['idle_share_of_traced_wall']:.4f}, insert share "
+          f"{prof['hash_insert_share_of_device_time']:.4f}, stages "
+          f"{json.dumps(prof['stages_ms'])}", flush=True)
+    return run
+
+
+#: repetitions of the solo hash runs and of the fused group in phase 27
+BATCH_REPS = 3
+
+
+def _batch_main_run() -> dict:
+    """The runs of :func:`batch_main`, ``BATCH_REPS`` times each: the
+    solo hash runs of the three lanes (interleaved), each lane's solo
+    traced sort-merge run once, then the group (every repetition held to
+    the same counts, order, traces and launches)."""
+    import statistics
+
+    import torch
+
+    from stateright_tpu_torch import telemetry
+
+    solo, solo_traces = {n: [] for n in BATCH_LANES}, {}
+    for _ in range(BATCH_REPS):
+        for n in BATCH_LANES:
+            run = run_main(_hash(_models_2pc(n),
+                                 capacity=_lane_checker(n).capacity),
+                           print_lines=0, kernels=HASH_KERNELS)
+            assert run["unique"] == BATCH_LANES[n], run["unique"]
+            solo[n].append(run["sec"])
+    for n in BATCH_LANES:
+        run, solo_traces[n] = _traced(_lane_checker(n), "default",
+                                      print_lines=0)
+        assert run["unique"] == BATCH_LANES[n], run["unique"]
+    walls, engine_walls, first = [], [], None
+    for rep in range(BATCH_REPS):
+        checkers = [_lane_checker(n) for n in BATCH_LANES]
+        base = _mem_base()
+        out = _run_seats(checkers, max_sessions=3, window_sec=30.0)
+        peak = torch.cuda.max_memory_allocated() - base
+        group = out["seats"][0][0].group
+        fused = group.fused
+        assert not out["notes"], out["notes"]
+        assert fused is not None, "the group did not fuse"
+        waves = fused.metrics["waves"]
+        for (n, want), c, tr, m, sec in zip(
+                BATCH_LANES.items(), checkers, out["tracers"],
+                group.members, out["seat_secs"]):
+            prof = [e for e in tr.events if e["ev"] == "latency_profile"][-1]
+            spans = {e["phase"]: e["dur"] for e in tr.events
+                     if e["ev"] == "span" and e["phase"].startswith("batch_")}
+            print(f"  rep {rep} seat rm={n}: unique={c.unique_state_count()}"
+                  f" states={c.state_count()} depth={c.max_depth()} "
+                  f"waves={c.metrics['waves']} peeled after fused wave "
+                  f"{m.payload['upto']}, verdicts at {sec:.4f}s, its share "
+                  f"of the waves' walls {prof['dispatch_sec']:.4f} + "
+                  f"{prof['fetch_sec']:.4f}s, the leader's walk of its "
+                  f"paths {spans['batch_peel']:.4f}s, its replay "
+                  f"{spans['batch_replay']:.4f}s", flush=True)
+            assert c.unique_state_count() == want
+            assert c.metrics["batch_size"] == 3, c.metrics
+            rep_diff = telemetry.diff_traces(tr.events, solo_traces[n])
+            assert rep_diff["divergences"] == [], rep_diff["divergences"][:5]
+            assert c.discovered_property_names() == {"abort agreement",
+                                                     "commit agreement"}
+            for name, path in c.discoveries().items():
+                assert _replays(c.model, path, c.model.property_by_name(name))
+        assert group.settle_order == [0, 1, 2], group.settle_order
+        # the init states' insert, then one a wave
+        assert out["launches"]["hash_insert"] == waves + 1, (
+            out["launches"], waves)
+        assert out["launches"]["member_sorted"] == 0, out["launches"]
+        walls.append(out["wall"])
+        engine_walls.append(fused.duration_sec())
+        if first is None:
+            first = dict(launches=out["launches"],
+                         metrics=dict(fused.metrics),
+                         capacity=fused.capacity, peak_mem_bytes=peak)
+            print(f"  fused run: capacity {fused.capacity}, launches "
+                  f"{out['launches']}, peak memory {peak} B, metrics "
+                  f"{fused.metrics}", flush=True)
+    med = {n: statistics.median(v) for n, v in solo.items()}
+    solo_sum = sum(med.values())
+    wall = statistics.median(walls)
+    print(f"  group wall (threads started to last verdict) median "
+          f"{wall:.4f}s of {[round(w, 4) for w in walls]}, the fused "
+          f"engine's own {[round(w, 4) for w in engine_walls]}; solo hash "
+          f"walls median {[round(v, 4) for v in med.values()]} of "
+          f"{ {n: [round(x, 4) for x in v] for n, v in solo.items()} }, "
+          f"sum {solo_sum:.4f}s: group / sum = {wall / solo_sum:.3f}",
+          flush=True)
+    return dict(first, sec=wall, solo_sum_sec=solo_sum)
+
+
+def _models_2pc(n: int):
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    return TwoPhaseSys(rm_count=n)
+
+
+@phase("batch paxos 2c/3s x2 + 2pc rm=4 x2")
+def batch_pairs():
+    """JAX ``tests/test_serve.py:481`` without the service: two groups of
+    two (16,668 and 1,568), each seat's trace naming only its own
+    encoding; then the same batch with ``device="cpu"`` members, each
+    seat's wave rows equal to the card's."""
+    from stateright_tpu_torch.cli import paxos_checker
+
+    rows = {}
+    for device in ("cuda", "cpu"):
+        checkers = [paxos_checker(2, device), paxos_checker(2, device),
+                    _lane_checker(4, device), _lane_checker(4, device)]
+        out = _run_seats(checkers, max_sessions=2, window_sec=30.0)
+        assert not out["notes"], out["notes"]
+        groups = [m.group for m, _ in out["seats"]]
+        assert groups[0] is groups[1] and groups[2] is groups[3]
+        assert groups[0] is not groups[2]
+        for c, tr, want, enc in zip(
+                checkers, out["tracers"], (16668, 16668, 1568, 1568),
+                ["PaxosEncoded"] * 2 + ["TwoPhaseSysEncoded"] * 2):
+            assert c.unique_state_count() == want
+            assert c.metrics["batch_size"] == 2
+            begins = [e for e in tr.events if e["ev"] == "run_begin"]
+            assert [b["lane"]["encoding"] for b in begins] == [enc]
+        rows[device] = [_wave_counters(tr.events) for tr in out["tracers"]]
+        print(f"  {device}: wall {out['wall']:.4f}s, launches "
+              f"{out['launches']}, seat waves "
+              f"{[c.metrics['waves'] for c in checkers]}", flush=True)
+        if device == "cuda":
+            launches = out["launches"]
+            assert launches["hash_insert"] > 0, launches
+    assert rows["cuda"] == rows["cpu"], "card and CPU lane rows differ"
+    return dict(launches=launches)
+
+
+@phase("batch fallback")
+def batch_fallback():
+    """``increment 2`` and ``2pc rm=3`` land in different classes: each
+    seat gives JAX's one-line reason and runs solo on the card, the 2pc
+    seat's sort-merge run launching both Merge Path kernels (held to
+    their plain versions at its shapes with the other runs)."""
+    from stateright_tpu_torch.cli import increment_checker
+
+    inc, twopc = increment_checker(2, False, "cuda"), _lane_checker(3)
+    out = _run_seats([inc, twopc], max_sessions=2, window_sec=0.5)
+    assert out["notes"] == [
+        "batch: no compatible peers arrived within the batching window; "
+        "running solo via the FIFO gate"] * 2, out["notes"]
+    assert all(m.group.fused is None for m, _ in out["seats"])
+    assert twopc.unique_state_count() == 288
+    assert inc.discovered_property_names() == {"fin"}
+    assert "batch_size" not in twopc.metrics
+    print(f"  launches {out['launches']}; 2pc rm=3 metrics "
+          f"{twopc.metrics}", flush=True)
+    assert all(out["launches"][k] > 0 for k in MERGE_KERNELS), out
+    return dict(launches=out["launches"], metrics=twopc.metrics)
+
+
+def _sec_of(stdout: str) -> float:
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("Done."))
+    return float(line.split("sec=")[1].split(",")[0].split()[0])
+
+
+@phase("2pc check-gpu 9 --metrics-interval=0.5")
+def metered_cli(tmp: str):
+    """The CLI metered in a process of its own, twice, between two
+    unmetered ones:
+    the rollup loads through ``metrics.load_rollup``, its
+    ``stpu_waves_total`` is the run's 29 waves and its
+    ``stpu_new_states_total`` the unique states less the one initial
+    state; both ``sec=`` printed."""
+    from stateright_tpu_torch.metrics import load_rollup
+
+    secs = {"unmetered": [], "metered": []}
+    for k, label in enumerate(("unmetered", "metered", "metered",
+                               "unmetered")):
+        path = os.path.join(tmp, f"metrics{k}.jsonl")
+        extra = ([] if label == "unmetered" else
+                 ["--metrics-interval=0.5", f"--metrics-path={path}"])
+        p = subprocess.run(
+            [sys.executable, "-m", "stateright_tpu_torch", "2pc",
+             "check-gpu", "9", *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        assert p.returncode == 0, p.stderr[-2000:]
+        assert "unique=10340352," in p.stdout, p.stdout[-500:]
+        secs[label].append(_sec_of(p.stdout))
+        if label == "metered":
+            fams = load_rollup(path)["families"]
+            with open(path) as fh:
+                lines = sum(1 for _ in fh)
+
+    def total(name):
+        return sum(v["value"] for v in fams[name]["values"])
+
+    print(f"  sec= metered {secs['metered']} against unmetered "
+          f"{secs['unmetered']} (each in a fresh process, the card's "
+          f"start in it); {lines} rollup lines; waves "
+          f"{total('stpu_waves_total')}, new states "
+          f"{total('stpu_new_states_total')}, chunks "
+          f"{total('stpu_chunks_total')}", flush=True)
+    assert total("stpu_waves_total") == 29
+    assert total("stpu_new_states_total") == 10_340_352 - 1
+
+
+def batch_phases() -> tuple:
+    """Phase 27: ``(hash paths, launch-only paths)`` of the batch and
+    metrics phases."""
+    hashes = {"batch 2pc rm=7+8+9 fused": batch_main()}
+    extra = {"batch paxos 2c/3s x2 + 2pc rm=4 x2": batch_pairs()}
+    runs = {"batch fallback 2pc rm=3": batch_fallback()}
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-metrics-") as tmp:
+        metered_cli(tmp)
+    return runs, hashes, extra
+
+
 def main() -> int:
     import torch
 
@@ -2939,6 +3273,9 @@ def main() -> int:
     runs.update(mesh_runs)
     hashes.update(mesh_hashes)
     traced = traced_phases(runs, hashes)
+    batch_runs, batch_hashes, batched = batch_phases()
+    runs.update(batch_runs)
+    hashes.update(batch_hashes)
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -2958,7 +3295,7 @@ def main() -> int:
     launches = {path: run and run["launches"]
                 for path, run in {**runs, **lanes, **sims, **hybrids,
                                   **hashes, **ckpts, **meshes,
-                                  **traced}.items()}
+                                  **traced, **batched}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

@@ -6,8 +6,9 @@ port's run telemetry needs (telemetry.py): the round numbering of the
 :func:`artifact_path`, :func:`latest_artifact`) and the provenance block
 every artifact embeds (:func:`provenance`). ``TRACE_r*`` pairs share
 one round sequence with the ``BENCH``/``LINT``/``MULTICHIP`` artifacts;
-``MEM_r*`` and ``LAT_r*`` each number in a sequence of their own
-(``next_round(root, stems=("MEM",))``).
+``MEM_r*``, ``LAT_r*`` and ``SLO_r*`` each number in a sequence of
+their own (``next_round(root, stems=("MEM",))``);
+:func:`latest_slo_summary` cross-references the newest SLO gate.
 
 The artifacts' root is :func:`repo_root` unless the caller names one,
 or the ``STPU_TORCH_ARTIFACT_ROOT`` environment variable does.
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import glob
+import json
 import os
 import re
 import subprocess
@@ -171,3 +173,43 @@ def provenance(lane: dict | None = None) -> dict:
     if lane is not None:
         out["lane"] = lane
     return out
+
+
+def latest_slo_summary(root: str | None = None) -> dict | None:
+    """Cross-reference block of the newest ``SLO_r*.json`` (the SLO gate
+    evaluation, metrics.py ``evaluate_slo``): artifact name, the SHA that
+    produced it, whether that is HEAD of a clean tree, the overall
+    verdict and each objective's status. Best effort: a missing,
+    hand-edited or truncated artifact gives None, never a raise."""
+    path = latest_artifact("SLO", root)
+    if path is None:
+        return None
+    try:
+        with open(path) as fh:
+            report = json.load(fh)
+        evaluation = report.get("evaluation")
+        if not isinstance(evaluation, dict):
+            return None
+        objectives = {
+            o["objective"]: o["status"]
+            for o in evaluation.get("objectives") or []
+            if isinstance(o, dict)
+        }
+        prov = report.get("provenance")
+        slo_sha = prov.get("git_sha") if isinstance(prov, dict) else None
+    except (OSError, ValueError, TypeError, AttributeError, KeyError):
+        return None
+    repo = repo_root() if root is None else root
+    head = _git_sha(repo)
+    dirty = _git_dirty(repo)
+    return {
+        "artifact": os.path.basename(path),
+        "git_sha": slo_sha,
+        "sha_matches_head": (
+            slo_sha == head
+            if slo_sha is not None and head is not None and dirty is False
+            else None
+        ),
+        "ok": bool(evaluation.get("ok")),
+        "objectives": dict(sorted(objectives.items())),
+    }

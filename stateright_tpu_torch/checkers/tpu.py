@@ -81,14 +81,42 @@ class HostReads:
     rest of the wave its ``dispatch_sec``. Other implicit syncs (a
     ``nonzero`` on the card sizes its output) count as dispatch.
 
-    ``sync_before`` is the deep trace level's one extra sync: set by the
-    wave loop before a wave, it makes the wave's first read call
-    ``torch.cuda.synchronize`` on those devices first and add the wait
-    to ``device_sec``. Tracing at the default level makes no read of
-    its own: ``calls`` is the same with a tracer and without."""
+    ``calls``, ``sec`` and ``device_sec`` count every thread's reads.
+    A wave's own walls come from its thread's :class:`ReadTally`
+    (:meth:`local`), which a watchdog's worker thread shares with the
+    wave loop that started it (:meth:`bind`), so runs on concurrent
+    threads (a batch group's leader beside a solo seat, batch.py) never
+    count each other's reads.
+
+    A tally's ``sync_before`` is the deep trace level's one extra sync:
+    set by the wave loop before a wave, it makes the wave's first read
+    call ``torch.cuda.synchronize`` on those devices first and add the
+    wait to ``device_sec``. Tracing at the default level makes no read
+    of its own: ``calls`` is the same with a tracer and without."""
 
     def __init__(self):
         self.calls = 0
+        self.sec = 0.0
+        self.device_sec = 0.0
+        self._tls = threading.local()
+
+    def local(self) -> "ReadTally":
+        """This thread's tally (made on first use)."""
+        tally = getattr(self._tls, "tally", None)
+        if tally is None:
+            tally = self._tls.tally = ReadTally()
+        return tally
+
+    def bind(self, tally: "ReadTally") -> None:
+        """Make ``tally`` this thread's."""
+        self._tls.tally = tally
+
+
+class ReadTally:
+    """One thread's reads: their wall, the deep level's device wait, and
+    the devices to sync before the next read (None: no sync)."""
+
+    def __init__(self):
         self.sec = 0.0
         self.device_sec = 0.0
         self.sync_before = None
@@ -101,17 +129,22 @@ READS = HostReads()
 def host_read(x, numpy: bool = False):
     """``x.tolist()`` (a Python scalar for a 0-d tensor), or with
     ``numpy`` the host copy ``x.cpu().numpy()``: one blocking read,
-    counted and timed in :data:`READS`."""
-    devs, READS.sync_before = READS.sync_before, None
+    counted and timed in :data:`READS` and in this thread's tally."""
+    tally = READS.local()
+    devs, tally.sync_before = tally.sync_before, None
     if devs:
         t0 = time.monotonic()
         for dev in devs:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        READS.device_sec += time.monotonic() - t0
+        wait = time.monotonic() - t0
+        READS.device_sec += wait
+        tally.device_sec += wait
     t0 = time.monotonic()
     out = x.cpu().numpy() if numpy else x.tolist()
-    READS.sec += time.monotonic() - t0
+    dt = time.monotonic() - t0
+    READS.sec += dt
+    tally.sec += dt
     READS.calls += 1
     return out
 
@@ -273,6 +306,9 @@ class TpuBfsChecker(Checker):
         if cand_capacity is not None and cand_capacity < 1:
             raise ValueError(f"cand_capacity must be >= 1: {cand_capacity}")
         self.capacity = capacity
+        #: visited slots over every device (the sharded engines: S
+        #: times ``capacity``)
+        self.total_capacity = capacity
         self.frontier_capacity = frontier_capacity or capacity
         self.cand_capacity = cand_capacity
         self.probe_rounds = probe_rounds
@@ -292,6 +328,9 @@ class TpuBfsChecker(Checker):
         #: the resident-buffer ledger of the last run (memplan.py): see
         #: :meth:`_memory_plan_of`
         self.memory_plan: Optional[dict] = None
+        #: a context manager every wave's issue and sync run inside (a
+        #: batch group's gate, batch.py), or None
+        self.dispatch_gate = None
         self._init_durability(checkpoint_every, checkpoint_path)
 
     # -- checkpoints and supervision (checkpoint.py) ------------------------
@@ -413,15 +452,24 @@ class TpuBfsChecker(Checker):
         self._max_depth = depth
 
     def _guarded_wave(self, thunk, w: int):
-        """Run one wave's issue and sync: inline, or with
+        """Run one wave's issue and sync, inside ``dispatch_gate`` when
+        one is installed (JAX ``_guarded_dispatch``): inline, or with
         ``watchdog_factor`` set on a daemon worker thread that the host
         waits on at most the derived deadline, raising
         ``checkpoint.WatchdogTimeout`` past it (the thread is abandoned:
         a CUDA sync cannot be cancelled) after a ``watchdog_timeout``
         event."""
-        self._wave_reads0 = (READS.sec, READS.device_sec)
+        gate = self.dispatch_gate
+        if gate is not None:
+            with gate:
+                return self._supervised_wave(thunk, w)
+        return self._supervised_wave(thunk, w)
+
+    def _supervised_wave(self, thunk, w: int):
+        tally = READS.local()
+        self._wave_reads0 = (tally, tally.sec, tally.device_sec)
         if self._tracer is not None and self._tracer.level == "deep":
-            READS.sync_before = self._trace_devices()
+            tally.sync_before = self._trace_devices()
         if not self.watchdog_factor:
             return thunk()
         deadline = checkpoint.watchdog_deadline(
@@ -432,6 +480,7 @@ class TpuBfsChecker(Checker):
         done = threading.Event()
 
         def run():
+            READS.bind(tally)  # the wave's reads count as this loop's
             try:
                 box["out"] = thunk()
             except BaseException as exc:  # raised on the host side
@@ -455,16 +504,16 @@ class TpuBfsChecker(Checker):
         return box["out"]
 
     def _wave_done(self, w: int, t0: float, done: bool,
-                   buffers_fn) -> None:
+                   buffers_fn) -> float:
         """After wave ``w`` of this attempt, begun at ``t0`` (its sync
         done): record it in the trace, feed the watchdog, write the
         snapshot when the cadence asks (never on the last wave), then
         fire the ``chunk_boundary`` fault site — JAX's order, so a kill
         there leaves the snapshot committed. ``buffers_fn()`` gives
-        ``(buffers, tier block)``."""
+        ``(buffers, tier block)``. Returns the wave's end."""
         t1 = time.monotonic()
         wave_sec = t1 - t0
-        READS.sync_before = None
+        READS.local().sync_before = None
         if self._tracer is not None:
             self._trace_wave(w, t0, t1)
         if self.watchdog_factor and (self._wd_roll_max is None
@@ -502,6 +551,7 @@ class TpuBfsChecker(Checker):
                         chunk_sec=round(wave_sec, 6))
                 self._ckpt_auto_every = new
         faultinject.fire("chunk_boundary", w, shards=self._fault_shards())
+        return t1
 
     # -- run telemetry (telemetry.py) ---------------------------------------
 
@@ -573,9 +623,9 @@ class TpuBfsChecker(Checker):
         from ..memplan import device_bytes_in_use
 
         tracer = self._tracer
-        r0, d0 = self._wave_reads0
-        fetch = READS.sec - r0
-        dev = (READS.device_sec - d0) if tracer.level == "deep" else None
+        fetch, dev = self._wave_read_walls()
+        if tracer.level != "deep":
+            dev = None
         mem_now, src = device_bytes_in_use(self.device)
         if mem_now is not None:
             self._mem_src = src
@@ -601,6 +651,12 @@ class TpuBfsChecker(Checker):
                              expectation=prop.expectation.name.lower(),
                              kind="discovery", wave=wave_no + 1,
                              depth=self._max_depth, chunk=w)
+
+    def _wave_read_walls(self) -> tuple:
+        """``(read wall, device wait)`` of the current wave so far, from
+        the tally it started with."""
+        tally, r0, d0 = self._wave_reads0
+        return tally.sec - r0, tally.device_sec - d0
 
     def _note_shard_health(self, srows, wave_no: int) -> None:
         """The straggler detector (the sharded engines override)."""
@@ -765,6 +821,43 @@ class TpuBfsChecker(Checker):
             )
         return msg
 
+    # -- the fused-engine seams (batch.py) ----------------------------------
+    #
+    # The wave batcher subclasses the hash engine and extends its wave
+    # through these seams instead of forking it (JAX ``_seed_extra``,
+    # ``_body_extra``, ``_stats_extra``, ``_on_chunk_stats``). Each is a
+    # no-op here: the base engine's counts, launches and reads do not
+    # change.
+
+    def _seed_extra(self, table, parents, front) -> None:
+        """After an attempt's start state is up: its table, parent array
+        (updated in place by every wave) and first frontier."""
+
+    def _wave_encoding(self, front):
+        """The encoding a wave over the frontier ``front`` evaluates its
+        properties and steps through."""
+        return self.encoded
+
+    def _body_extra(self, front, rows, is_new) -> list:
+        """Extra 1-D int64 device lanes that ride the wave's one host
+        read, from its frontier, its candidates' source rows and
+        ``is_new``."""
+        return []
+
+    def _stats_extra(self, extra: list, new_count: int, fps: dict):
+        """The host values of :meth:`_body_extra`'s lanes, after the
+        read, with the wave's new count and the attempt's discoveries.
+        Returns None (every winner enters the next frontier) or the
+        ``(start, stop)`` spans of the winners, in row order, that do."""
+        return None
+
+    def _on_chunk_stats(self, w: int, t0: float, t1: float,
+                        done: bool) -> None:
+        """Host observation of wave ``w`` (from ``t0`` to ``t1``; the
+        last when ``done``) after the wave is recorded, every wave: the
+        port runs one wave a chunk. What it does is outside the wave's
+        wall and the watchdog's."""
+
     # -- the hash wave loop -------------------------------------------------
 
     def _visited_bytes_per_row(self) -> int:
@@ -884,6 +977,7 @@ class TpuBfsChecker(Checker):
         dev = self.device
         (table, parents, front, ebits, unique, generated, depth,
          waves) = self._traced_start(self._hash_start)
+        self._seed_extra(table, parents, front)
         self._unique_states, self._total_states = unique, generated
         self._max_depth = depth
         fps = dict(self._discovered_fps)  # this attempt's discoveries
@@ -900,7 +994,8 @@ class TpuBfsChecker(Checker):
         def wave(w: int) -> bool:
             nonlocal front, ebits, unique, generated, depth, waves
             nonlocal max_cand, insert_shape
-            cond, eb, f_lo, f_hi = frontier_props_t(enc, props, evt_idx,
+            wenc = self._wave_encoding(front)
+            cond, eb, f_lo, f_hi = frontier_props_t(wenc, props, evt_idx,
                                                     front, ebits)
             if target_depth is not None and depth >= target_depth:
                 # the wave at the target depth evaluates its frontier and
@@ -910,7 +1005,7 @@ class TpuBfsChecker(Checker):
                 has_succ = torch.ones_like(eb, dtype=torch.bool)
             else:
                 succ_t, rows, has_succ, trunc, _ = dense_candidates(
-                    enc, front, trivial, chunk_rows)
+                    wenc, front, trivial, chunk_rows)
             # the fault site between the wave's issue and its sync
             faultinject.fire("mid_chunk", w)
             if self._abandoned(token):
@@ -928,11 +1023,15 @@ class TpuBfsChecker(Checker):
             keys = pack_keys(*fingerprint_u32v_t(succ_t))
             _, is_new, over, slot = insert(table, keys, None,
                                            self.probe_rounds)
-            # one transfer: table overflow, winner count, truncation
+            # one transfer: table overflow, winner count, truncation, and
+            # the lanes of the fused-engine seam
             flags = [over.any(), is_new.sum()]
             if trunc is not None:
                 flags.append(trunc)
-            flags = host_read(torch.stack([f.to(torch.int64) for f in flags]))
+            head = torch.stack([f.to(torch.int64) for f in flags])
+            extra = self._body_extra(front, rows, is_new)
+            packed = host_read(torch.cat([head, *extra]) if extra else head)
+            flags, extra = packed[:len(flags)], packed[len(flags):]
             new_count = flags[1]
             # the JAX engine's order of verdicts
             if flags[0]:
@@ -944,10 +1043,17 @@ class TpuBfsChecker(Checker):
             if len(flags) > 2 and flags[2]:
                 raise RuntimeError(self._overflow_message("encoding", fps))
 
+            spans = self._stats_extra(extra, new_count, fps)
             new_idx = is_new.nonzero().squeeze(1)  # winners in row order
             par_row = rows[new_idx]
             if self.track_paths and new_count:
                 parents[slot[new_idx]] = pack_keys(f_lo, f_hi)[par_row]
+            kept = new_count
+            if spans is not None:  # the winners that go on
+                new_idx = torch.cat([new_idx[a:b] for a, b in spans]
+                                    or [new_idx[:0]])
+                par_row = rows[new_idx]
+                kept = sum(b - a for a, b in spans)
             front = succ_t[:, new_idx]
             ebits = eb[par_row]
             generated += n_cand
@@ -963,7 +1069,7 @@ class TpuBfsChecker(Checker):
                 self._trace_row = (waves - 1, None, None)
             all_disc = bool(props) and len(fps) == len(props)
             target_hit = target_states is not None and unique >= target_states
-            finished = new_count == 0 or all_disc or target_hit
+            finished = kept == 0 or all_disc or target_hit
             if not finished:
                 depth += 1
             return finished
@@ -980,7 +1086,8 @@ class TpuBfsChecker(Checker):
                 done = self._guarded_wave(lambda: wave(w), w)
             finally:
                 self._publish(token, fps, unique, generated, depth)
-            self._wave_done(w, t0, done, buffers)
+            t1 = self._wave_done(w, t0, done, buffers)
+            self._on_chunk_stats(w, t0, t1, done)
             w += 1
             if not done and not warned:  # once a run, where JAX warns a sync
                 warned = self._maybe_warn_occupancy(unique / self.capacity)
@@ -1010,12 +1117,18 @@ class TpuBfsChecker(Checker):
             **self._ckpt_metrics(),
         )
         if self.track_paths:
-            # the log stays on the device: each path step is one
-            # device-side lookup
-            logged = table.occupied() & (parents != EMPTY)
-            self._plog = (table.keys[logged], parents[logged])
-            for name, fp in self._discovered_fps.items():
-                self._discoveries[name] = self._reconstruct(fp)
+            self._decode_paths(table, parents)
+
+    def _decode_paths(self, table, parents) -> None:
+        """Each discovery's path, at the run's end, from the parent log
+        compacted out of the table (the fused engine decodes when asked,
+        batch.py)."""
+        # the log stays on the device: each path step is one device-side
+        # lookup
+        logged = table.occupied() & (parents != EMPTY)
+        self._plog = (table.keys[logged], parents[logged])
+        for name, fp in self._discovered_fps.items():
+            self._discoveries[name] = self._reconstruct(fp)
 
     # -- results ----------------------------------------------------------
 

@@ -74,12 +74,19 @@ the artifacts' root: the repository root, or ``--trace-root=DIR``, or
 ``mem_report.py`` read it. ``--trace=deep`` syncs the device before each
 wave's first read, so the wave walls split into device and host time.
 ``--straggler-factor=F`` arms the straggler detector of a traced
-sharded run (a no-op on the CLI's one-device lanes). The live metrics
-plane (``--metrics-interval``) waits for ``metrics.py`` (ROADMAP item
-17).
+sharded run (a no-op on the CLI's one-device lanes).
+
+``--metrics-interval=N`` (seconds) on any lane runs a tracer for it
+(trace artifacts only with ``--trace``) and every N seconds folds its
+events through the tracer->metrics bridge (metrics.py
+``bridge_events``) into one cumulative ``metrics_rollup`` JSONL line,
+plus a final line at exit, failed runs included: into
+``--metrics-path=FILE``, by default ``stateright_tpu_torch.metrics.jsonl``
+in the working directory. ``metrics.load_rollup`` reads it back.
 
     python -m stateright_tpu_torch 2pc check-gpu 9 --trace=deep
     python -m stateright_tpu_torch paxos check 2 --trace --trace-root=/tmp/t
+    python -m stateright_tpu_torch 2pc check-gpu 9 --metrics-interval=0.5
 """
 
 from __future__ import annotations
@@ -579,6 +586,10 @@ def _usage() -> None:
           "[--watchdog[=FACTOR]] [--degrade-on-fault]: a snapshot every "
           "N waves (checkpoint.py; default path stateright_tpu_torch.ckpt),"
           " a failed wave retried from it, --resume continues from it")
+    print("       every lane takes [--trace[=deep]] [--trace-root=DIR] "
+          "[--metrics-interval=N [--metrics-path=FILE]]: a metrics_rollup "
+          "JSONL line every N seconds and at exit (metrics.py; default "
+          "path " + DEFAULT_METRICS_PATH + ")")
     print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "
@@ -596,8 +607,7 @@ def _usage() -> None:
 def _pop_trace_flags(argv: list[str]):
     """``(level or None, artifacts' root or None, the other arguments)``:
     ``--trace`` / ``--trace=LEVEL`` and ``--trace-root=DIR`` from
-    anywhere on the line. An unknown level, and the metrics plane's
-    flags, are refused."""
+    anywhere on the line. An unknown level is refused."""
     level = root = None
     rest = []
     for a in argv:
@@ -611,33 +621,79 @@ def _pop_trace_flags(argv: list[str]):
                     "--trace=deep)")
         elif a.startswith("--trace-root="):
             root = a.split("=", 1)[1]
-        elif a.startswith(("--metrics-interval", "--metrics-path")):
-            raise SystemExit(
-                f"{a.split('=', 1)[0]}: the live metrics plane "
-                "(metrics.py) is not ported yet (ROADMAP item 17)")
         else:
             rest.append(a)
     return level, root, rest
 
 
+#: where ``--metrics-interval`` writes its rollup lines without
+#: ``--metrics-path`` (relative to the working directory)
+DEFAULT_METRICS_PATH = "stateright_tpu_torch.metrics.jsonl"
+
+
+def _pop_metrics_flags(argv: list[str]):
+    """``(interval or None, path or None, the other arguments)``:
+    ``--metrics-interval=N`` and ``--metrics-path=FILE`` from anywhere on
+    the line, with the JAX CLI's refusals of a cadence that is not > 0,
+    a bare ``--metrics-interval`` and a path without an interval."""
+    interval = path = None
+    rest = []
+    for a in argv:
+        if a.startswith("--metrics-interval="):
+            val = a.split("=", 1)[1]
+            interval = float(val)
+            if interval <= 0:
+                raise SystemExit(
+                    f"--metrics-interval={val}: must be > 0 seconds")
+        elif a == "--metrics-interval":
+            raise SystemExit(
+                "--metrics-interval needs a cadence: "
+                "--metrics-interval=N (seconds)")
+        elif a.startswith("--metrics-path="):
+            path = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    if interval is None and path is not None:
+        raise SystemExit("--metrics-path requires --metrics-interval=N")
+    return interval, path, rest
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     level, root, argv = _pop_trace_flags(argv)
+    interval, metrics_path, argv = _pop_metrics_flags(argv)
     flags, argv = _pop_flags(argv)
     if len(argv) < 2 or argv[0] not in _MODELS:
         _usage()
         return
-    if level is None:
+    if level is None and interval is None:
         _MODELS[argv[0]](argv[1], argv[2:], flags)
         return
     from .telemetry import RunTracer, write_artifacts
 
-    tracer = RunTracer(level=level)
+    # --metrics-interval runs a tracer (the rollup is bridged from its
+    # events) but writes trace artifacts only with --trace
+    tracer = RunTracer(level=level or "default")
+    rollup = None
+    if interval is not None:
+        from .metrics import Rollup, bridge_events
+
+        def registry_now():
+            with tracer._lock:
+                events = list(tracer.events)
+            return bridge_events(events)
+
+        rollup = Rollup(metrics_path or DEFAULT_METRICS_PATH, interval,
+                        source=registry_now).start()
     try:
         with tracer.activate():
             _MODELS[argv[0]](argv[1], argv[2:], flags)
     finally:
+        if rollup is not None:
+            # the final line: a run shorter than one interval leaves
+            # its totals too
+            rollup.stop()
         # a failed run's partial trace is the one a diagnosis needs
-        if tracer.events:
+        if level is not None and tracer.events:
             jsonl, chrome = write_artifacts(tracer, root=root)
             print(f"trace: wrote {jsonl} + {chrome}", file=sys.stderr)

@@ -94,6 +94,19 @@ def session_resident_bytes(checker) -> dict:
     )
 
 
+
+def fused_session_bytes(fused, n_sessions: int) -> dict:
+    """The admission floor of a fused batch of ``n_sessions`` sessions
+    (batch.py): :func:`session_resident_bytes` over the fused engine's
+    configuration, plus ``n_sessions`` and ``per_session_bytes``, each
+    session's even share. Configuration only, as the solo floor. A lane
+    is :data:`LANE_BYTES` here, where the JAX function prices it at 4
+    bytes (see :func:`session_resident_bytes`)."""
+    plan = session_resident_bytes(fused)
+    plan["n_sessions"] = int(n_sessions)
+    plan["per_session_bytes"] = plan["total_bytes"] // max(1, int(n_sessions))
+    return plan
+
 def v_class_entries(v_ladder, nf_max: int) -> list:
     """Per-visited-class merge-scratch rows: the member and merge
     passes read ``[0, V_v)`` and write the merged ``[0, V_v + NF)``

@@ -353,3 +353,20 @@ def contains(table: DeviceHashSet, keys: torch.Tensor,
         idx = (idx + r + 1) & mask
     return found
 
+
+def find(table: DeviceHashSet, keys: torch.Tensor,
+         rounds: int = PROBE_ROUNDS) -> torch.Tensor:
+    """The slot of each key, -1 where it is absent: :func:`contains`'s
+    probe, keeping the slot where it met the key. Every round's slot is
+    gathered at once (round ``r`` probes ``hash + r(r+1)/2``), so a
+    lookup of a few keys from the host is a handful of launches and no
+    read back."""
+    mask = table.capacity - 1
+    r = torch.arange(rounds, dtype=torch.int64, device=keys.device)
+    idx = (_slot_hash(keys, mask).unsqueeze(-1) + r * (r + 1) // 2) & mask
+    cur = table.keys[idx]
+    hit = cur == keys.unsqueeze(-1)
+    # the first round that met the key or an empty slot ends the probe
+    first = (hit | (cur == EMPTY)).to(torch.int32).argmax(-1, keepdim=True)
+    return torch.where(hit.gather(-1, first), idx.gather(-1, first),
+                       torch.full_like(first, -1)).squeeze(-1)

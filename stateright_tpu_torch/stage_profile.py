@@ -16,6 +16,7 @@
     python -m stateright_tpu_torch.stage_profile --shards 4 paxos 4
     python -m stateright_tpu_torch.stage_profile --shards 2 --hash 9
     python -m stateright_tpu_torch.stage_profile --shards 4 --devices cuda:0,cuda:1,cuda:2,cuda:3 9
+    python -m stateright_tpu_torch.stage_profile --batch 7 8 9
 
 The runs are ``2pc check-gpu N``, ``paxos check-gpu N`` and
 ``2pc-actors check-gpu N`` as the CLI runs them, and ABD with C
@@ -42,7 +43,9 @@ the waits for it and the cold membership searches (:func:`_tier_split`).
 over S shards, each with the per-shard sizes of :func:`sharded_sizes`,
 all on ``cuda:0`` unless ``--devices`` lists one device a shard, and
 adds the shard route's and the exchange's device time and the host
-wall of the engine's per-wave syncs (:func:`_shard_split`).
+wall of the engine's per-wave syncs (:func:`_shard_split`). ``--batch
+N1 N2 ...`` profiles the fused run of the ``2pc check-gpu N1``, ``N2``,
+... lanes' checkers (batch.py ``FusedWaveChecker``, one session a lane).
 
 Needs a CUDA device. After a warm-up run (kernel build, CUDA context,
 caching allocator), it times one untraced run with a host clock ending
@@ -255,6 +258,17 @@ def _hash_checker(model: str, n: int, cfg: dict):
     return m.checker().spawn_hash(device="cuda", **cfg)
 
 
+def _batch_checker(rms: list):
+    """The fused engine over the ``2pc check-gpu N`` lanes' checkers."""
+    from .batch import FusedWaveChecker
+    from .cli import twopc_sizes
+    from .models.two_phase_commit import TwoPhaseSys
+
+    return FusedWaveChecker([
+        TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(**twopc_sizes(n))
+        for n in rms])
+
+
 def _check(model: str, n: int, extra: list, sparse=None, flags=None,
            make=None):
     """One run, timed to the device's end (the encoding is built
@@ -334,6 +348,9 @@ def main(argv=None) -> int:
     hashed = "--hash" in argv
     if hashed:
         argv.remove("--hash")
+    batch = "--batch" in argv
+    if batch:
+        argv.remove("--batch")
     devices = None
     if "--devices" in argv:
         i = argv.index("--devices")
@@ -386,6 +403,10 @@ def main(argv=None) -> int:
         make = lambda: _sim_checker(model, n, cfg)  # noqa: E731
         warm = lambda: _sim_checker(  # noqa: E731
             model, min(n, WARM[model]), dict(cfg, n_walks=1024))
+    elif batch:
+        rms = [n, *map(int, extra)]
+        make = lambda: _batch_checker(rms)  # noqa: E731
+        warm = lambda: _batch_checker([3, 4])  # noqa: E731
     elif hashed:
         cfg = HASH_CFG[model]
         make = lambda: _hash_checker(model, n, cfg)  # noqa: E731
@@ -465,6 +486,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": card,
         "model": " ".join((["hash"] if hashed else [])
+                          + (["batch"] if batch else [])
                           + [model, str(n), *extra]
                           + ([f"--shards={len(devices)}"]
                              if devices is not None else [])

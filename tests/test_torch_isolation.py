@@ -4,8 +4,9 @@ increment-lock, register and single-copy-register lanes, at their
 smallest size, the 2pc and register lanes with the reductions on, and
 the host DFS's ``2pc check 2``, and ``2pc check-gpu 3`` with a tiered
 visited set, and checkpointed and resumed, and traced with its artifacts
-written), a device simulation, a hybrid race, a hash engine run,
-both sharded engines (parallel/) at two shards and a host BFS on the CPU
+written, and metered with its rollup read back), a device simulation, a
+hybrid race, a hash engine run, both sharded engines (parallel/) at two
+shards, a batched pair of sessions (batch.py) and a host BFS on the CPU
 loads neither jax nor anything
 of the JAX package, and no source file of the port (nor chip_smoke.py)
 imports either."""
@@ -58,6 +59,12 @@ def test_import_and_cli_load_no_jax():
         " '--trace-root=' + d])\n"
         "    print('TRACES', sorted(f for f in os.listdir(d)"
         " if f.startswith('TRACE')))\n"
+        "    m = os.path.join(d, 'm.jsonl')\n"
+        "    main(['2pc', 'check-gpu', '2', '--device', 'cpu',"
+        " '--metrics-interval=5', '--metrics-path=' + m])\n"
+        "    from stateright_tpu_torch.metrics import load_rollup\n"
+        "    f = load_rollup(m)['families']\n"
+        "    print('ROLLUP', f['stpu_waves_total']['values'][0]['value'])\n"
         "from stateright_tpu_torch.models.two_phase_commit import"
         " TwoPhaseSys\n"
         "sim = TwoPhaseSys(2).checker().spawn_device_simulation("
@@ -77,6 +84,16 @@ def test_import_and_cli_load_no_jax():
         "devices=['cpu'] * 2, capacity=1 << 10).join()\n"
         "print('MESH', ms.unique_state_count(), mh.unique_state_count(),"
         " ms.metrics['shard_unique'])\n"
+        "import threading\n"
+        "from stateright_tpu_torch.batch import seat_sessions\n"
+        "pair = [TwoPhaseSys(n).checker().spawn_sortmerge(capacity=1 << 12,"
+        " device='cpu') for n in (4, 3)]\n"
+        "seat_sessions(pair, max_sessions=2, window_sec=30)\n"
+        "ts = [threading.Thread(target=c.join) for c in pair]\n"
+        "[t.start() for t in ts]\n"
+        "[t.join() for t in ts]\n"
+        "print('BATCH', [c.unique_state_count() for c in pair],"
+        " [c.metrics['batch_size'] for c in pair])\n"
         "b = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
         "print('BFS', b.unique_state_count(), b.state_count(),"
         " sorted(b.discoveries()))\n"
@@ -116,6 +133,8 @@ def test_import_and_cli_load_no_jax():
     assert "BFS 288 1146 ['abort agreement', 'commit agreement']" \
         in out.stdout
     assert "MESH 288 288 [141, 147]" in out.stdout
+    assert "ROLLUP 8.0" in out.stdout
+    assert "BATCH [1568, 288] [2, 2]" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
@@ -132,7 +151,8 @@ def test_no_jax_imports_in_port_sources():
                    "tier.py", "checkpoint.py", "faultinject.py",
                    "parallel/__init__.py", "parallel/exchange.py",
                    "parallel/shards.py", "parallel/engine_sortmerge.py",
-                   "parallel/engine.py", "telemetry.py", "artifacts.py"):
+                   "parallel/engine.py", "telemetry.py", "artifacts.py",
+                   "batch.py", "metrics.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

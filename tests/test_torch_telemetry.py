@@ -677,9 +677,15 @@ def test_cli_trace_levels_and_failed_run(tmp_path, capsys):
 
     with pytest.raises(SystemExit, match="unknown level"):
         main(["2pc", "check-gpu", "2", "--device", "cpu", "--trace=verbose"])
-    with pytest.raises(SystemExit, match="ROADMAP item 17"):
+    # the metrics plane's flag is taken (a rollup, no trace artifact);
+    # a cadence that is not > 0 is refused
+    with pytest.raises(SystemExit, match="must be > 0 seconds"):
         main(["2pc", "check-gpu", "2", "--device", "cpu",
-              "--metrics-interval=1"])
+              "--metrics-interval=0"])
+    rollup = tmp_path / "m.jsonl"
+    main(["2pc", "check-gpu", "2", "--device", "cpu",
+          "--metrics-interval=1", f"--metrics-path={rollup}"])
+    assert rollup.exists() and not list(tmp_path.glob("TRACE_*"))
     root = f"--trace-root={tmp_path}"
     main(["--trace=deep", "2pc", "check-gpu", "2", "--device", "cpu", root])
     main(["2pc", "check", "2", "--trace", root])
