@@ -219,8 +219,33 @@ it exits non-zero and prints no result. Phases, each ending in
    ``metrics.load_rollup``: 29 waves, 10,340,351 new states). The fused
    run joins the insert's checks at its widest wave, the fallback's 2pc
    run the Merge Path kernels' at its shapes.
+28. the resident checking service (serve.py), in this process and then
+   in processes of its own: ``CheckService(device="cuda")`` with its
+   HTTP server on an ephemeral port and the ``2pc,3`` Explorer mounted;
+   ``2pc check-gpu 9`` and ``paxos check-gpu 4`` as two concurrent
+   ``--connect`` clients (``client_main`` on two threads): phase 4 and
+   6's counts, each session's launches while it held the FIFO gate equal
+   to its solo run's and the two together equal to the process's, the
+   same widest kernel shapes (so phases 4 and 6's kernel checks cover
+   them); the ``2pc check-gpu 9`` re-check, a warm start with zero waves
+   and the same report and discoveries (its snapshot read inside its
+   run, nothing written), then once more with the warm start off (a cold
+   run in the resident process); ``2pc check-gpu 7``, ``8`` and ``9``
+   batched three to a group (each its solo count, the insert once a
+   fused wave plus once); an admission refusal at a 1,024-byte budget
+   (no launch, no wave); ``GET /.status``, one ``GET /.states/...`` and
+   ``POST /.runtocompletion`` (288); and ``POST /.serve/trace`` (valid,
+   its ``serve_summary`` printed). Then ``python -m stateright_tpu_torch
+   serve 127.0.0.1:PORT`` and ``--connect=127.0.0.1:PORT 2pc check-gpu
+   9`` twice from processes of their own (cold, then warm, 10,340,352),
+   the daemon stopped in a ``finally`` (exit 0, its spool removed). Each session prints its time to
+   verdict, queue wait, warm or cold, run and session walls, retention
+   wall and snapshot bytes; then the group's wall against phase 27's
+   solo sum, the daemon's time to first wave against phase 26's fresh
+   process's, and peak memory. Every request, thread and process has a
+   timeout.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-27) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-28) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -2868,6 +2893,9 @@ def rm9_cli_traced_process(tmp: str):
                 if e["ev"] == "span" and e["phase"] == "compile"]
     print(f"  program_build: {builds}; compile spans {compiles}", flush=True)
     print(f"  latency_profile: {_profile_line(events)}", flush=True)
+    HAND["fresh process ttfw"] = next(
+        e for e in events
+        if e["ev"] == "latency_profile")["time_to_first_wave_sec"]
     assert any(b["program"] == "merge_path" for b in builds), builds
     assert all(b["tier"] in ("disk", "in_process", "cold") for b in builds)
 
@@ -3214,6 +3242,377 @@ def batch_phases() -> tuple:
     return runs, hashes, extra
 
 
+# -- phase 28: the resident service (serve.py) -------------------------------
+
+#: seconds any one request, thread or process of phase 28 may take
+SERVE_TIMEOUT = 600
+#: the lanes of the concurrent sessions and what each must report
+SERVE_LANES = {("2pc", "check-gpu", "9"): ("2pc rm=9", 10_340_352),
+               ("paxos", "check-gpu", "4"): ("paxos 4c", 2_372_188)}
+
+
+def _http(port: int, path: str, body=None) -> dict:
+    """``GET`` (or, with ``body``, ``POST`` of JSON) on the service at
+    ``port``, bounded by ``SERVE_TIMEOUT``."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as r:
+        raw = r.read()
+    return json.loads(raw) if raw else {}
+
+
+def _clients(port: int, lanes: list) -> list:
+    """Each lane through ``client_main`` (``--connect``) on a thread of
+    its own, all started together: ``[(exit code, report, seconds)]``,
+    each report captured on its own thread."""
+    import threading
+
+    from stateright_tpu_torch.serve import _stdout_proxy, client_main
+
+    out = [None] * len(lanes)
+
+    def run(i, argv):
+        proxy = _stdout_proxy()
+        buf = io.StringIO()
+        proxy.push(buf)
+        t0 = time.monotonic()
+        try:
+            rc = client_main(f"127.0.0.1:{port}", list(argv),
+                             timeout=SERVE_TIMEOUT)
+        finally:
+            proxy.pop()
+        out[i] = (rc, buf.getvalue(), time.monotonic() - t0)
+
+    threads = [threading.Thread(target=run, args=(i, a))
+               for i, a in enumerate(lanes)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT)
+        assert not t.is_alive(), "a --connect client did not return"
+    return out
+
+
+def _done_fields(report: str) -> str:
+    """The ``Done.`` line of a report, ``sec=`` cut."""
+    line = next(ln for ln in report.splitlines() if ln.startswith("Done."))
+    return line.split(", sec=")[0]
+
+
+def _session_line(s) -> str:
+    """One session's figures: time to verdict (the last verdict event
+    after its run began), queue wait, warm or cold, the run's wall, the
+    retention write and snapshot bytes, and its launches."""
+    evs = s.tracer.events
+    t_run = next(e["t"] for e in evs if e["ev"] == "run_begin")
+    ttv = max((e["t"] - t_run for e in evs if e["ev"] == "verdict"),
+              default=None)
+    ttv_text = "none" if ttv is None else f"{ttv:.4f}s"
+    retain = ("none" if s.retain_sec is None
+              else f"{s.retain_sec:.4f}s for {s.snapshot_bytes} B")
+    return (f"{' '.join(s.argv)}: {'warm' if s.warm_start else 'cold'}, "
+            f"time to verdict {ttv_text}, queue wait "
+            f"{s.gate_wait_sec:.4f}s, run {s.checker.duration_sec():.4f}s, "
+            f"session {s.t_end - s.t_start:.4f}s, retention {retain}, "
+            f"launches {s.launches}")
+
+
+def _new_sessions(service, n_before: int) -> dict:
+    """The check sessions submitted since the service held ``n_before``
+    sessions, by argv (concurrent sessions register in any order)."""
+    return {s.argv: s for s in service._sessions[n_before:]
+            if s.kind == "check"}
+
+
+def _serve_launches(s) -> dict:
+    return {k: s.launches.get(k, 0) for k in (*MERGE_KERNELS,
+                                              *HASH_KERNELS)}
+
+
+@phase("resident service (main path)")
+def serve_main(runs: dict, batched: dict | None, tmp: str) -> dict:
+    """``CheckService(device="cuda")`` with its HTTP server on an
+    ephemeral port: ``2pc check-gpu 9`` and ``paxos check-gpu 4`` as two
+    concurrent ``--connect`` clients (phases 4 and 6's counts, each
+    session's gate-held launches equal to its solo run's, the same
+    widest kernel shapes); the ``2pc check-gpu 9`` re-check, a warm start
+    with zero waves and equal report, its snapshot read inside its run
+    and nothing written, and again with the warm start off; ``2pc
+    check-gpu 7/8/9`` batched three to a group (each its solo count, the
+    insert once a fused wave plus once); an admission refusal at a 1 KiB
+    budget (no launch, no wave); the ``2pc,3`` Explorer mount
+    (``/.status``, one ``/.states/...``, ``POST /.runtocompletion`` to
+    288); and ``POST /.serve/trace`` (valid, with the serve summary
+    printed)."""
+    import threading
+
+    import torch
+
+    from stateright_tpu_torch import telemetry
+    from stateright_tpu_torch.serve import (
+        CheckService,
+        explorer_builder,
+        serve_summary,
+    )
+
+    service = CheckService(device="cuda",
+                           spool_dir=os.path.join(tmp, "spool"),
+                           batch_window_sec=30.0)
+    service.mount_explorer(explorer_builder("2pc", 3), "2pc")
+    server = service.http_server("127.0.0.1", 0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    paths: dict = {}
+    try:
+        base = _mem_base()
+        _zero_launches()
+        n0 = len(service._sessions)
+        t0 = time.monotonic()
+        outs = _clients(port, list(SERVE_LANES))
+        wall = time.monotonic() - t0
+        together = _read_launches()
+        by_argv = _new_sessions(service, n0)
+        sessions = [by_argv[argv] for argv in SERVE_LANES]
+        for (argv, (label, want)), (rc, report, sec), s in zip(
+                SERVE_LANES.items(), outs, sessions):
+            solo = runs[label]
+            assert rc == 0 and s.state == "done", (rc, s.error, report[-500:])
+            assert f"unique={want}," in report, report[-500:]
+            assert s.checker.state_count() == solo["states"]
+            assert _serve_launches(s) == solo["launches"], (
+                label, s.launches, solo["launches"])
+            for k in ("member_shape", "merge_shape"):
+                assert s.checker.metrics[k] == solo["metrics"][k], k
+            print(f"  {_session_line(s)}; client {sec:.4f}s", flush=True)
+            paths[f"serve {' '.join(argv)}"] = dict(
+                launches=_serve_launches(s))
+        assert together == {k: sum(runs[lab]["launches"][k]
+                                   for lab, _ in SERVE_LANES.values())
+                            for k in together}, together
+        print(f"  concurrent: wall {wall:.4f}s against the solo runs' "
+              f"sec= {runs['2pc rm=9']['sec']:.4f} + "
+              f"{runs['paxos 4c']['sec']:.4f}; peak memory above the start "
+              f"{torch.cuda.max_memory_allocated() - base} B", flush=True)
+
+        cold = sessions[0]
+        _zero_launches()
+        (rc, report, sec), = _clients(port, [cold.argv])
+        warm = service._sessions[-1]
+        assert rc == 0 and warm.warm_start, (rc, warm.error)
+        assert _done_fields(report) == _done_fields(outs[0][1])
+        assert not [e for e in warm.tracer.events if e["ev"] == "wave"]
+        assert warm.checker.discovery_fingerprints() == \
+            cold.checker.discovery_fingerprints()
+        # the read is inside the run (its time to verdict counts it), and
+        # the warm session writes nothing
+        t_run = next(e["t"] for e in warm.tracer.events
+                     if e["ev"] == "run_begin")
+        read, = [e for e in warm.tracer.events
+                 if e["ev"] == "span" and e["phase"] == "restore_read"]
+        assert read["t0"] >= t_run and warm.retain_sec is None, warm.retain_sec
+        load = warm.checker._ckpt_stats
+        print(f"  {_session_line(warm)}; client {sec:.4f}s; warm against "
+              f"cold run {warm.checker.duration_sec():.4f}s / "
+              f"{cold.checker.duration_sec():.4f}s, session "
+              f"{warm.t_end - warm.t_start:.4f}s / "
+              f"{cold.t_end - cold.t_start:.4f}s (restore_read span "
+              f"{read['dur']:.4f}s: snapshot read "
+              f"{load.get('resume_load_sec')}s; upload "
+              f"{load.get('resume_upload_sec')}s)", flush=True)
+        paths["serve 2pc check-gpu 9 (warm)"] = dict(
+            launches=_read_launches())
+        # the same re-check with the warm start off: a cold run in the
+        # resident process, no snapshot read or written
+        service.warm_start = False
+        _zero_launches()
+        (rc, report, sec), = _clients(port, [cold.argv])
+        service.warm_start = True
+        again = service._sessions[-1]
+        assert rc == 0 and not again.warm_start, (rc, again.error)
+        assert _done_fields(report) == _done_fields(outs[0][1])
+        assert _serve_launches(again) == _serve_launches(cold)
+        print(f"  {_session_line(again)}; client {sec:.4f}s (the warm start "
+              f"off)", flush=True)
+        paths["serve 2pc check-gpu 9 (no warm start)"] = dict(
+            launches=_read_launches())
+
+        # the batch: 2pc 9's snapshot would warm-start it solo, so
+        # retention is off for the group
+        service.warm_start, service.batch_sessions = False, 3
+        _zero_launches()
+        n0 = len(service._sessions)
+        lanes = [("2pc", "check-gpu", str(n)) for n in BATCH_LANES]
+        t0 = time.monotonic()
+        outs = _clients(port, lanes)
+        wall = time.monotonic() - t0
+        service.warm_start, service.batch_sessions = True, None
+        launches = _read_launches()
+        by_argv = _new_sessions(service, n0)
+        seats = [by_argv[argv] for argv in lanes]
+        fused = seats[0]._group.fused
+        for (n, want), (rc, report, sec), s in zip(BATCH_LANES.items(),
+                                                   outs, seats):
+            assert rc == 0 and s.state == "done", (rc, s.error)
+            assert f"unique={want}," in report, report[-500:]
+            assert s.batch["size"] == 3, s.batch
+            print(f"  {_session_line(s)}; client {sec:.4f}s", flush=True)
+        assert launches["hash_insert"] == fused.metrics["waves"] + 1, (
+            launches, fused.metrics["waves"])
+        solo_sum = (batched or {}).get("solo_sum_sec")
+        print(f"  batch 2pc 7/8/9: wall {wall:.4f}s against phase 27's solo "
+              f"hash runs' sum {solo_sum}; fused waves "
+              f"{fused.metrics['waves']}, launches {launches}", flush=True)
+        paths["serve batch 2pc 7+8+9"] = dict(launches=launches)
+
+        service.device_budget_bytes = 1024
+        _zero_launches()
+        (rc, report, _), = _clients(port, [("2pc", "check-gpu", "5")])
+        refused = service._sessions[-1]
+        service.device_budget_bytes = None
+        assert rc == 1 and refused.state == "refused", (rc, refused.state)
+        assert "REFUSED: admission refused" in report
+        assert _read_launches() == {k: 0 for k in launches}
+        assert not [e for e in refused.tracer.events
+                    if e["ev"] in ("chunk", "wave")]
+        print(f"  refused: {refused.error[:160]}", flush=True)
+
+        status = _http(port, "/.status")
+        views = _http(port, "/.states/")
+        step = _http(port, f"/.states/{views[0]['fingerprint']}")
+        _http(port, "/.runtocompletion", body={})
+        done = _http(port, "/.status")
+        print(f"  explorer: {status['model']}, {len(views)} init and "
+              f"{len(step)} next views, after run to completion "
+              f"unique={done['unique_state_count']} done={done['done']}",
+              flush=True)
+        assert done["done"] and done["unique_state_count"] == 288
+
+        os.environ["STPU_TORCH_ARTIFACT_ROOT"] = tmp
+        try:
+            written = _http(port, "/.serve/trace", body={})
+        finally:
+            del os.environ["STPU_TORCH_ARTIFACT_ROOT"]
+        events = telemetry.load_trace(written["jsonl"])
+        telemetry.validate_events(events)
+        summary = serve_summary(events)
+        for row in summary["sessions"]:
+            print(f"  summary: {row['lane']} {row['state']} warm="
+                  f"{row['warm_start']} ttv={row['time_to_verdict_sec']} "
+                  f"ttfw={row['time_to_first_wave_sec']} queue="
+                  f"{row['queue_wait_sec']} waves={row['waves']}",
+                  flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return paths
+
+
+@phase("serve and --connect in processes of their own")
+def serve_processes(tmp: str) -> dict:
+    """``python -m stateright_tpu_torch serve 127.0.0.1:PORT`` on the
+    card, and ``--connect=127.0.0.1:PORT 2pc check-gpu 9`` from two
+    processes in turn: cold, then warm, both 10,340,352. The daemon's
+    time to first wave against phase 26's fresh process's; the daemon
+    is stopped whatever happens, and a terminated daemon exits 0 with
+    its snapshot spool removed."""
+    import socket
+
+    from stateright_tpu_torch import telemetry
+    from stateright_tpu_torch.serve import serve_summary
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.join(tmp, "daemon")
+    daemon_tmp = os.path.join(tmp, "daemon_tmp")
+    os.makedirs(root)
+    os.makedirs(daemon_tmp)
+    env = dict(os.environ, STPU_TORCH_ARTIFACT_ROOT=root, TMPDIR=daemon_tmp)
+    log = open(os.path.join(tmp, "daemon.log"), "w+")
+    t0 = time.monotonic()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "stateright_tpu_torch", "serve",
+         f"127.0.0.1:{port}"], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        while True:
+            try:
+                _http(port, "/.serve/sessions")
+                break
+            except OSError:
+                assert daemon.poll() is None, "the daemon exited"
+                assert time.monotonic() - t0 < 120, "the daemon never served"
+                time.sleep(0.2)
+        print(f"  daemon serving after {time.monotonic() - t0:.3f}s",
+              flush=True)
+        reports = []
+        for _ in range(2):
+            t1 = time.monotonic()
+            p = subprocess.run(
+                [sys.executable, "-m", "stateright_tpu_torch",
+                 f"--connect=127.0.0.1:{port}", "2pc", "check-gpu", "9"],
+                cwd=ROOT, capture_output=True, text=True,
+                timeout=SERVE_TIMEOUT)
+            assert p.returncode == 0, p.stderr[-2000:]
+            assert "unique=10340352," in p.stdout, p.stdout[-500:]
+            reports.append(p.stdout)
+            print(f"  client process: exit 0 in {time.monotonic() - t1:.3f}s"
+                  f", {_done_fields(p.stdout)} sec={_sec_of(p.stdout)}",
+                  flush=True)
+        assert _done_fields(reports[0]) == _done_fields(reports[1])
+        sessions = _http(port, "/.serve/sessions")["sessions"]
+        assert [s["warm_start"] for s in sessions] == [False, True]
+        written = _http(port, "/.serve/trace", body={})
+        events = telemetry.load_trace(written["jsonl"])
+        telemetry.validate_events(events)
+        rows = serve_summary(events)["sessions"]
+        # the warm re-check ran no wave: its trace has no chunk
+        assert rows[1]["warm_start"] and rows[1]["waves"] is None, rows[1]
+        assert rows[0]["waves"] == 29, rows[0]
+        for row in rows:
+            print(f"  daemon session {row['session']}: warm="
+                  f"{row['warm_start']} ttv={row['time_to_verdict_sec']} "
+                  f"ttfw={row['time_to_first_wave_sec']} duration="
+                  f"{row['duration_sec']} builds={row['builds']}",
+                  flush=True)
+        print(f"  daemon's cold time to first wave "
+              f"{rows[0]['time_to_first_wave_sec']}s against phase 26's "
+              f"fresh process {HAND.get('fresh process ttfw')}s", flush=True)
+    finally:
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait(timeout=30)
+        log.seek(0)
+        tail = log.read()[-1500:]
+        log.close()
+        if tail.strip():
+            print(f"  daemon output: {tail}", flush=True)
+    left = os.listdir(daemon_tmp)
+    print(f"  daemon exit {daemon.returncode}, left in its TMPDIR {left}",
+          flush=True)
+    assert daemon.returncode == 0 and not left, (daemon.returncode, left)
+    return {}
+
+
+def serve_phases(runs: dict, batched: dict | None) -> dict:
+    """Phase 28: the service in this process, then in processes of its
+    own; its files in a temporary directory deleted at the end."""
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-serve-") as tmp:
+        paths = serve_main(runs, batched, tmp)
+        serve_processes(tmp)
+    if paths is None:
+        FAILED.append("resident service paths")
+    return paths or {}
+
+
 def main() -> int:
     import torch
 
@@ -3276,6 +3675,8 @@ def main() -> int:
     batch_runs, batch_hashes, batched = batch_phases()
     runs.update(batch_runs)
     hashes.update(batch_hashes)
+    served = serve_phases(runs, batch_hashes.get(
+        "batch 2pc rm=7+8+9 fused"))
     sims = {"simulation 2pc rm=5": sim_rm5(),
             "simulation 2pc rm=9": sim_rm9(),
             "simulation paxos 4": sim_paxos4()}
@@ -3295,7 +3696,8 @@ def main() -> int:
     launches = {path: run and run["launches"]
                 for path, run in {**runs, **lanes, **sims, **hybrids,
                                   **hashes, **ckpts, **meshes,
-                                  **traced, **batched}.items()}
+                                  **traced, **batched,
+                                  **served}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

@@ -235,6 +235,103 @@ class ActorModel(Model):
             return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
         return repr(action)
 
+    def as_svg(self, path) -> Optional[str]:
+        """Render the path as a message sequence chart (the Explorer's
+        per-state diagram; counterpart of model.rs:476-640).
+
+        One vertical lifeline per actor; each step row shows its
+        action: Deliver as an arrow from the sender's lifeline at the
+        step where the envelope first appeared in the network, Timeout
+        and Crash as labeled marks on the affected lifeline.
+        """
+        from html import escape
+
+        steps = path.steps
+        states = [s for s, _ in steps]
+        actions = [a for _, a in steps if a is not None]
+        n_actors = len(states[0].actor_states)
+        names = [
+            f"{i} {a.name()}".strip() for i, a in enumerate(self.actors)
+        ]
+        spacing = max(100, 10 * max((len(n) for n in names), default=0))
+        row_h = 30
+
+        def x(actor: int) -> int:
+            return actor * spacing
+
+        def y(row: int) -> int:
+            return row * row_h
+
+        rows = len(actions) + 1
+        width = x(n_actors) + 300
+        height = y(rows) + 40
+        out = [
+            f"<svg version='1.1' baseProfile='full' width='{width}' "
+            f"height='{height}' viewBox='-20 -20 {width + 20} "
+            f"{height + 20}' xmlns='http://www.w3.org/2000/svg'>",
+            "<defs><marker class='svg-event-shape' id='arrow' "
+            "markerWidth='12' markerHeight='10' refX='12' refY='5' "
+            "orient='auto'><polygon points='0 0, 12 5, 0 10' /></marker>"
+            "</defs>",
+        ]
+        for i, name in enumerate(names):
+            out.append(
+                f"<line x1='{x(i)}' y1='{y(0)}' x2='{x(i)}' "
+                f"y2='{y(rows)}' class='svg-actor-timeline' "
+                "stroke='#aaa' />"
+            )
+            out.append(
+                f"<text x='{x(i)}' y='{y(0) - 5}' "
+                f"class='svg-actor-label'>{escape(name)}</text>"
+            )
+
+        def send_row(env: Envelope, deliver_row: int) -> int:
+            # The arrow starts where the envelope first existed.
+            for row in range(deliver_row, -1, -1):
+                if env not in set(states[row].network.iter_all()):
+                    return row + 1
+            return 0
+
+        for row, action in enumerate(actions, start=1):
+            if isinstance(action, Deliver):
+                env = Envelope(action.src, action.dst, action.msg)
+                src_row = send_row(env, row - 1)
+                out.append(
+                    f"<line x1='{x(int(action.src))}' y1='{y(src_row)}' "
+                    f"x2='{x(int(action.dst))}' y2='{y(row)}' "
+                    "marker-end='url(#arrow)' class='svg-event-line' "
+                    "stroke='#333' />"
+                )
+                out.append(
+                    f"<text x='{x(int(action.dst)) + 6}' y='{y(row) - 4}' "
+                    f"class='svg-event-label'>{escape(repr(action.msg))}"
+                    "</text>"
+                )
+            elif isinstance(action, Timeout):
+                out.append(
+                    f"<circle cx='{x(int(action.id))}' cy='{y(row)}' "
+                    "r='4' class='svg-event-shape' />"
+                )
+                out.append(
+                    f"<text x='{x(int(action.id)) + 6}' y='{y(row) - 4}' "
+                    f"class='svg-event-label'>timeout "
+                    f"{escape(repr(action.timer))}</text>"
+                )
+            elif isinstance(action, Crash):
+                out.append(
+                    f"<text x='{x(int(action.id)) - 5}' y='{y(row)}' "
+                    "class='svg-event-shape'>✗</text>"
+                )
+            elif isinstance(action, Drop):
+                env = action.envelope
+                out.append(
+                    f"<text x='{x(int(env.src)) + 6}' y='{y(row) - 4}' "
+                    f"class='svg-event-label'>drop "
+                    f"{escape(repr(env.msg))}</text>"
+                )
+        out.append("</svg>")
+        return "".join(out)
+
     # -- internals -------------------------------------------------------
 
     def _process_commands(

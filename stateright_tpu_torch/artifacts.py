@@ -8,7 +8,8 @@ every artifact embeds (:func:`provenance`). ``TRACE_r*`` pairs share
 one round sequence with the ``BENCH``/``LINT``/``MULTICHIP`` artifacts;
 ``MEM_r*``, ``LAT_r*`` and ``SLO_r*`` each number in a sequence of
 their own (``next_round(root, stems=("MEM",))``);
-:func:`latest_slo_summary` cross-references the newest SLO gate.
+:func:`latest_slo_summary` cross-references the newest SLO gate and
+:func:`latest_serve_summary` the newest service report (``SERVE_r*``).
 
 The artifacts' root is :func:`repo_root` unless the caller names one,
 or the ``STPU_TORCH_ARTIFACT_ROOT`` environment variable does.
@@ -173,6 +174,56 @@ def provenance(lane: dict | None = None) -> dict:
     if lane is not None:
         out["lane"] = lane
     return out
+
+
+def latest_serve_summary(root: str | None = None) -> dict | None:
+    """Cross-reference block of the newest ``SERVE_r*.json`` (the
+    resident service's session report, serve.py
+    ``write_serve_artifact``): artifact name, the SHA that produced it,
+    whether that is HEAD of a clean tree, the session count, the first
+    warm-vs-cold pairing (cold and warm time to verdict, the compile and
+    dispatch deltas). Best effort: a missing, hand-edited or truncated artifact
+    gives None, never a raise."""
+    path = latest_artifact("SERVE", root)
+    if path is None:
+        return None
+    try:
+        with open(path) as fh:
+            report = json.load(fh)
+        sessions = report.get("sessions")
+        if not isinstance(sessions, list) or not sessions:
+            return None
+        prov = report.get("provenance")
+        serve_sha = (prov.get("git_sha")
+                     if isinstance(prov, dict) else None)
+        wvc = report.get("warm_vs_cold")
+        warm_block = None
+        if isinstance(wvc, list) and wvc:
+            wvc = wvc[0]
+        if isinstance(wvc, dict):
+            warm_block = {
+                k: wvc.get(k)
+                for k in ("cold_ttv_sec", "warm_ttv_sec",
+                          "ttv_delta_sec", "compile_delta_sec",
+                          "dispatch_net_delta_sec", "warm_start")
+            }
+    except (OSError, ValueError, TypeError, AttributeError, KeyError):
+        return None
+    repo = repo_root() if root is None else root
+    head = _git_sha(repo)
+    dirty = _git_dirty(repo)
+    return {
+        "artifact": os.path.basename(path),
+        "git_sha": serve_sha,
+        "sha_matches_head": (
+            serve_sha == head
+            if serve_sha is not None and head is not None
+            and dirty is False
+            else None
+        ),
+        "sessions": len(sessions),
+        "warm_vs_cold": warm_block,
+    }
 
 
 def latest_slo_summary(root: str | None = None) -> dict | None:

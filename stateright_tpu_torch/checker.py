@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import time
 from enum import Enum
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 from .model import Expectation, Model, State
 from .path import Path
@@ -181,6 +181,14 @@ class CheckerBuilder:
         return ShardedTpuBfsChecker(
             self, n_shards=n_shards, devices=devices, **kwargs)
 
+    def serve(self, addr: str):
+        """Serve the Explorer web UI for this model (checker.rs:139-146,
+        explorer/server.py): blocks until interrupted and returns the
+        on-demand checker."""
+        from .explorer.server import serve
+
+        return serve(self, addr)
+
 
 class Checker:
     """Common checker result interface (checker.rs:273-557)."""
@@ -300,6 +308,14 @@ class Checker:
         end = self._finished_at if self._finished_at is not None else time.monotonic()
         return end - self._started_at
 
+    # -- on-demand hooks (checker.rs:278-285); overridden by OnDemand ----
+
+    def check_fingerprint(self, fp: int) -> None:
+        pass
+
+    def run_to_completion(self) -> None:
+        self._ensure_run()
+
     # -- discoveries (checker.rs:287-300) --------------------------------
 
     def discoveries(self) -> dict[str, Path]:
@@ -331,6 +347,9 @@ class Checker:
         reporter.report_discoveries(self)
         return self
 
+    def join_and_report(self, reporter: Reporter) -> "Checker":
+        return self.report(reporter)
+
     # -- assertion helpers (checker.rs:447-556) --------------------------
 
     def assert_properties(self) -> None:
@@ -353,6 +372,16 @@ class Checker:
         if path is not None:
             raise AssertionError(
                 f"unexpected discovery for {name!r}: {path.encode()}\n{path!r}"
+            )
+
+    def assert_discovery(self, name: str, actions: Sequence[Any]) -> None:
+        """Assert a discovery exists and matches the given action sequence
+        (checker.rs:506-556)."""
+        path = self.assert_any_discovery(name)
+        if list(path.actions()) != list(actions):
+            raise AssertionError(
+                f"discovery for {name!r} has actions {path.actions()!r}, "
+                f"expected {list(actions)!r}"
             )
 
     # -- shared engine internals ----------------------------------------

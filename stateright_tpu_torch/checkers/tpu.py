@@ -329,8 +329,16 @@ class TpuBfsChecker(Checker):
         #: :meth:`_memory_plan_of`
         self.memory_plan: Optional[dict] = None
         #: a context manager every wave's issue and sync run inside (a
-        #: batch group's gate, batch.py), or None
+        #: batch group's gate, batch.py; the resident service's FIFO
+        #: gate, serve.py), or None
         self.dispatch_gate = None
+        #: keep what a finished run ends in as ``_final_carry``, for
+        #: ``checkpoint.retain_final_snapshot`` (the service's warm start)
+        self.keep_final_carry = False
+        self._final_carry = None
+        #: set by the resident service: other sessions share the device,
+        #: so the device bytes this run's trace reads are the process's
+        self.memory_scope = None
         self._init_durability(checkpoint_every, checkpoint_path)
 
     # -- checkpoints and supervision (checkpoint.py) ------------------------
@@ -406,6 +414,7 @@ class TpuBfsChecker(Checker):
         self.metrics = {}
         self._plog = None
         self.memory_plan = None
+        self._final_carry = None
 
     def _degrade_memory_lean(self) -> bool:
         """The supervisor's hook after two OOMs: the hash engine has no
@@ -697,6 +706,17 @@ class TpuBfsChecker(Checker):
         tracer = getattr(self, "_tracer", None)
         if tracer is None or getattr(self, "cancelled", False):
             return
+        # a run that started settled (a warm start from a finished run's
+        # snapshot) ran no wave to report its discoveries at
+        for prop in self.model.properties():
+            if (prop.name in self._discovered_fps
+                    and prop.name not in self._verdicts_seen):
+                self._verdicts_seen.add(prop.name)
+                tracer.event("verdict", property=prop.name,
+                             expectation=prop.expectation.name.lower(),
+                             kind="discovery",
+                             wave=int(self.metrics.get("waves") or 0),
+                             depth=self._max_depth)
         if self.memory_plan is not None:
             tracer.event("memory_plan", **self.memory_plan)
         tier = self._tier_headroom()
@@ -707,7 +727,9 @@ class TpuBfsChecker(Checker):
             polls=int(self._mem_polls),
             cold_tier_bytes=None if tier is None else tier["cold_bytes_total"],
             headroom=self._memory_headroom(),
-            projection=self._memory_projection())
+            projection=self._memory_projection(),
+            **({} if self.memory_scope is None
+               else dict(scope=self.memory_scope)))
 
     def _lane_config(self) -> dict:
         lane = super()._lane_config()
@@ -1102,6 +1124,9 @@ class TpuBfsChecker(Checker):
         #: the tensors the run kept between waves, as it ended
         self._final = dict(table=table, parents=parents, frontier=front,
                            ebits=ebits)
+        if self.keep_final_carry:
+            self._final_carry = dict(self._final, depth=depth, waves=waves,
+                                     generated=generated, unique=unique)
         self.memory_plan = self._memory_plan_of(
             dict(table=table.keys if table.entries is None
                  else table.entries, parents=parents, frontier=front,

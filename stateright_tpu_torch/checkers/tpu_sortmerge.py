@@ -741,6 +741,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             self.metrics.update(tier.metrics(st.vkeys.numel()))
         self.metrics.update(self._ckpt_metrics())
         self._final = st
+        if self.keep_final_carry:
+            self._final_carry = (st, tier)
         if self.track_paths and not self.cancelled:
             if tier is None:
                 # the log stays on the device: each path step is one

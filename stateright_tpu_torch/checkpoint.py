@@ -117,6 +117,7 @@ anything else raises through. Where the port differs from JAX:
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -579,6 +580,47 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
         unique=manifest["unique"], snapshot_bytes=total,
         wall_sec=round(time.monotonic() - t0, 6))
     return manifest
+
+
+def retain_final_snapshot(checker, path: str) -> Optional[dict]:
+    """The warm start of the resident service (serve.py): write a
+    FINISHED run's state as an ordinary snapshot at ``path``, so a later
+    checker whose :func:`encoding_fingerprint` matches can
+    :func:`resume_from` it and settle with zero new waves, with the cold
+    run's counts, depth, discovery fingerprints and paths (an edited
+    model changes the fingerprint and is refused: the service then runs
+    cold). The run must have kept its final state
+    (``checker.keep_final_carry = True`` before its join). The search is
+    over, so the snapshot holds no frontier (JAX keeps the frontier and
+    a ``done`` flag; the port's format has no flag). A tiered run keeps
+    both tiers: the cold runs and the host parent log are in the format.
+    Returns the manifest, or None when there is nothing to retain: no
+    final state, a run that raised or was cancelled, or a tiered run
+    whose cold store is gone (the device tier alone would warm-start
+    from a subset and explore again)."""
+    carry = getattr(checker, "_final_carry", None)
+    if (carry is None or checker._run_error is not None
+            or getattr(checker, "cancelled", False)):
+        return None
+    counters = dict(depth=int(checker._max_depth),
+                    waves=int(checker.metrics.get("waves") or 0))
+    if checker._checkpoint_family() == "sortmerge":
+        st, tier = carry
+        if checker.metrics.get("tier_spills") and (
+                tier is None or st.cold is None):
+            return None
+        settled = copy.copy(st)
+        settled.frontier, settled.ebits = st.frontier[:, :0], st.ebits[:0]
+        buffers, tier_block = sortmerge_buffers(checker, settled, tier)
+    else:
+        counters.update(generated=int(carry["generated"]),
+                        unique=int(carry["unique"]))
+        buffers = hash_buffers(
+            checker, carry["table"], carry["parents"],
+            carry["frontier"][:, :0], carry["ebits"][:0], **counters)
+        tier_block = None
+    return write_snapshot(checker, buffers, path, chunk=counters["waves"],
+                          tier_block=tier_block)
 
 
 # -- resume -------------------------------------------------------------------

@@ -87,12 +87,25 @@ in the working directory. ``metrics.load_rollup`` reads it back.
     python -m stateright_tpu_torch 2pc check-gpu 9 --trace=deep
     python -m stateright_tpu_torch paxos check 2 --trace --trace-root=/tmp/t
     python -m stateright_tpu_torch 2pc check-gpu 9 --metrics-interval=0.5
+
+``explore [COUNT] [ADDRESS]`` serves the Explorer web UI over the
+model's on-demand checker (explorer/server.py). ``serve [HOST:PORT]``
+runs the resident checking service (serve.py) until interrupted, every
+session on its ``--device``; ``--connect=HOST:PORT`` on any lane ships
+the lane to it and prints its report. Every lane reaches the service
+through one seam, :func:`_report`, where the service's per-thread
+session hook meets the freshly spawned checker before its first join.
+
+    python -m stateright_tpu_torch 2pc explore 3 localhost:3000
+    python -m stateright_tpu_torch serve 127.0.0.1:3000
+    python -m stateright_tpu_torch --connect=127.0.0.1:3000 2pc check-gpu 9
 """
 
 from __future__ import annotations
 
 import math
 import sys
+import threading
 from dataclasses import dataclass
 
 from .report import WriteReporter
@@ -234,23 +247,60 @@ def _pop_flags(argv: list[str]):
                     **{n: True for n in on}), rest
 
 
-def _check(header: str, model, flags: RunFlags) -> None:
-    """The ``check`` subcommand: ``header``, then the host DFS of
-    ``model`` with the reference-format report."""
+#: the resident service's per-thread session hook (serve.py): the service
+#: sets ``hook`` around each session's call of :func:`main`, and
+#: :func:`_report` runs it on the freshly spawned checker before its first
+#: join (admission, warm start, the FIFO gate, retention). Thread-local,
+#: so concurrent sessions never see each other's hook.
+_SESSION_HOOK = threading.local()
+
+
+def _report(checker) -> None:
+    """The one reporting path of every check lane: the session hook, if
+    one is set, then the reference-format report (report.rs:60-98) to
+    ``sys.stdout``, read at call time (the service's per-thread capture
+    replaces it)."""
+    hook = getattr(_SESSION_HOOK, "hook", None)
+    if hook is not None:
+        hook(checker)
+    checker.report(WriteReporter(sys.stdout))
+
+
+def _host_only(flags: RunFlags, sub: str) -> None:
+    """Refuse the device flags on a host subcommand."""
     if (flags.symmetry or flags.ample_set or flags.unsound_ok
             or flags.tier_hot_rows is not None):
         raise SystemExit(
             "--symmetry, --ample-set, --unsound-ok and --tier-hot-rows "
-            "apply to check-gpu; check runs the plain host DFS"
+            f"apply to check-gpu; {sub} runs on the host"
         )
     if flags.durable():
         raise SystemExit(
             "--checkpoint-every, --resume, --watchdog, --degrade-on-fault "
-            "and --straggler-factor apply to check-gpu; check runs the "
-            "plain host DFS"
+            f"and --straggler-factor apply to check-gpu; {sub} runs on the "
+            "host"
         )
+
+
+def _check(header: str, model, flags: RunFlags) -> None:
+    """The ``check`` subcommand: ``header``, then the host DFS of
+    ``model`` with the reference-format report."""
+    _host_only(flags, "check")
     print(header)
-    model.checker().spawn_dfs().report(WriteReporter(sys.stdout))
+    _report(model.checker().spawn_dfs())
+
+
+def _explore(model, args: list[str], flags: RunFlags,
+             what: str | None = None) -> None:
+    """The ``explore [COUNT] [ADDRESS]`` subcommand: the Explorer web UI
+    over ``model``'s on-demand checker (explorer/server.py) at ADDRESS
+    (default ``localhost:3000``), until interrupted. ``what`` names the
+    model in the JAX lane's header line."""
+    _host_only(flags, "explore")
+    address = args[1] if len(args) > 1 else "localhost:3000"
+    if what is not None:
+        print(f"Exploring state space for {what} on {address}.")
+    model.checker().serve(address)
 
 
 def _network(args: list[str], index: int):
@@ -280,6 +330,10 @@ def _2pc(sub: str, args: list[str], flags: RunFlags) -> None:
         _check(f"Checking two phase commit with {rm_count} resource "
                "managers.", TwoPhaseSys(rm_count=rm_count), flags)
         return
+    if sub == "explore":
+        _explore(TwoPhaseSys(rm_count=rm_count), args, flags,
+                 f"two phase commit with {rm_count} resource managers")
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -289,8 +343,7 @@ def _2pc(sub: str, args: list[str], flags: RunFlags) -> None:
     )
     checker = flags.spawn(TwoPhaseSys(rm_count=rm_count), symmetric=True,
                           **twopc_sizes(rm_count))
-    # the reference-format reporter (report.rs:60-98), as the JAX lane
-    checker.report(WriteReporter(sys.stdout))
+    _report(checker)
 
 
 def paxos_checker(client_count: int, flags="cuda", sparse=None):
@@ -324,6 +377,13 @@ def _paxos(sub: str, args: list[str], flags: RunFlags) -> None:
         _check(f"Model checking Single Decree Paxos with {client_count} "
                "clients.", paxos_model(cfg, _network(args, 1)), flags)
         return
+    if sub == "explore":
+        from .models.paxos import PaxosModelCfg, paxos_model
+
+        cfg = PaxosModelCfg(client_count=client_count, server_count=3)
+        _explore(paxos_model(cfg, _network(args, 2)), args, flags,
+                 f"Single Decree Paxos with {client_count} clients")
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -332,7 +392,7 @@ def _paxos(sub: str, args: list[str], flags: RunFlags) -> None:
         f"Model checking Single Decree Paxos with {client_count} "
         f"clients on the {_where(flags)} wave engine."
     )
-    checker.report(WriteReporter(sys.stdout))
+    _report(checker)
 
 
 def _where(flags: RunFlags) -> str:
@@ -354,6 +414,11 @@ def _2pc_actors(sub: str, args: list[str], flags: RunFlags) -> None:
                f"{rm_count} resource managers.",
                two_phase_sys_actor_model(rm_count), flags)
         return
+    if sub == "explore":
+        _explore(two_phase_sys_actor_model(rm_count), args, flags,
+                 f"two phase commit (compiled actor model) with "
+                 f"{rm_count} resource managers")
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -367,7 +432,7 @@ def _2pc_actors(sub: str, args: list[str], flags: RunFlags) -> None:
         encoded=two_phase_sys_compiled_encoded(rm_count),
         **twopc_sizes(rm_count),
     )
-    checker.report(WriteReporter(sys.stdout))
+    _report(checker)
 
 
 def _paxos_compiled(sub: str, args: list[str], flags: RunFlags) -> None:
@@ -407,7 +472,7 @@ def _paxos_compiled(sub: str, args: list[str], flags: RunFlags) -> None:
         paxos_model(cfg), encoded=paxos_compiled_encoded(cfg),
         capacity=1 << 15, frontier_capacity=1 << 13,
     )
-    checker.report(WriteReporter(sys.stdout))
+    _report(checker)
 
 
 def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
@@ -418,10 +483,14 @@ def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
 
     client_count = int(args[0]) if args else 2
     cfg = AbdModelCfg(client_count=client_count)
-    network = _network(args, 1)
     if sub == "check":
         _check("Model checking a linearizable register with "
-               f"{client_count} clients.", abd_model(cfg, network), flags)
+               f"{client_count} clients.", abd_model(cfg, _network(args, 1)),
+               flags)
+        return
+    if sub == "explore":
+        _explore(abd_model(cfg, _network(args, 2)), args, flags,
+                 f"a linearizable register with {client_count} clients")
         return
     if sub != "check-gpu":
         _usage()
@@ -432,10 +501,11 @@ def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
         "encoding)."
     )
     checker = flags.spawn(
-        abd_model(cfg, network), capacity=1 << (9 + 2 * client_count),
+        abd_model(cfg, _network(args, 1)),
+        capacity=1 << (9 + 2 * client_count),
         frontier_capacity=1 << (7 + client_count),
     )
-    checker.report(WriteReporter(sys.stdout))
+    _report(checker)
 
 
 #: engine sizes of the increment lanes: the largest space the encoding
@@ -464,6 +534,10 @@ def _increment(sub: str, args: list[str], flags: RunFlags,
         _check(f"Model checking {name} with {thread_count} threads.",
                model, flags)
         return
+    if sub == "explore":
+        _explore((IncrementLock if locked else Increment)(thread_count),
+                 args, flags)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -471,8 +545,7 @@ def _increment(sub: str, args: list[str], flags: RunFlags,
         f"Model checking {name} with {thread_count} threads on the "
         f"{_where(flags)} wave engine."
     )
-    increment_checker(thread_count, locked, flags).report(
-        WriteReporter(sys.stdout))
+    _report(increment_checker(thread_count, locked, flags))
 
 
 def _increment_lock(sub: str, args: list[str], flags: RunFlags) -> None:
@@ -501,6 +574,12 @@ def _register(sub: str, args: list[str], flags: RunFlags) -> None:
         _check(f"Checking the write-once register with {n_clients} "
                "clients.", NClientRegSys(n_clients=n_clients), flags)
         return
+    if sub == "explore":
+        from .models.nclient_register import NClientRegSys
+
+        _explore(NClientRegSys(n_clients=n_clients), args, flags,
+                 f"the write-once register with {n_clients} clients")
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -508,7 +587,7 @@ def _register(sub: str, args: list[str], flags: RunFlags) -> None:
         f"Checking the write-once register with {n_clients} clients on "
         f"the {_where(flags)} wave engine."
     )
-    register_checker(n_clients, flags).report(WriteReporter(sys.stdout))
+    _report(register_checker(n_clients, flags))
 
 
 def single_copy_checker(client_count: int, flags="cuda"):
@@ -539,6 +618,17 @@ def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
                    SingleCopyRegisterCfg(client_count=client_count),
                    _network(args, 1)), flags)
         return
+    if sub == "explore":
+        from .models.single_copy_register import (
+            SingleCopyRegisterCfg,
+            single_copy_register_model,
+        )
+
+        _explore(single_copy_register_model(
+            SingleCopyRegisterCfg(client_count=client_count),
+            _network(args, 2)), args, flags,
+            f"a single-copy register with {client_count} clients")
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -546,8 +636,7 @@ def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
         f"Model checking a single-copy register with {client_count} "
         f"clients on the {_where(flags)} wave engine."
     )
-    single_copy_checker(client_count, flags).report(
-        WriteReporter(sys.stdout))
+    _report(single_copy_checker(client_count, flags))
 
 
 _MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
@@ -555,6 +644,12 @@ _MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
            "linearizable-register": _linearizable,
            "increment": _increment, "increment-lock": _increment_lock,
            "register": _register, "single-copy-register": _single_copy}
+
+
+#: the lanes with an ``explore`` subcommand (JAX's, less the timers and
+#: interaction lanes the port has not)
+_EXPLORE = ("2pc", "2pc-actors", "register", "paxos", "increment",
+            "increment-lock", "single-copy-register", "linearizable-register")
 
 
 def _usage() -> None:
@@ -594,6 +689,22 @@ def _usage() -> None:
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "
           "single-copy-register and linearizable-register)")
+    print("  python -m stateright_tpu_torch {" + "|".join(_EXPLORE)
+          + "} explore [COUNT] [ADDRESS] [NETWORK]")
+    print("       explore serves the Explorer web UI over the on-demand "
+          "checker (explorer/server.py; default localhost:3000)")
+    print("  python -m stateright_tpu_torch serve [HOST:PORT] "
+          "[--device cuda|cpu] [--explore=MODEL[,COUNT]] "
+          "[--device-budget-bytes=N] "
+          "[--no-warm-start] [--batch-sessions[=N]] [--batch-window-sec=S] "
+          "[--snapshot-budget-bytes=N] [--metrics-interval=N "
+          "[--metrics-path=FILE]]")
+    print("       serve runs the resident checking service (serve.py): one "
+          "process on one device, a FIFO gate over the sessions' waves, "
+          "admission against a byte budget, warm start of a re-check from "
+          "the finished run's snapshot, batched sessions, an optional "
+          "Explorer mount; --connect=HOST:PORT on any check-gpu or check "
+          "lane ships it to a running service (the service's device)")
     print("       --symmetry on 2pc/register check-gpu runs the device "
           "symmetry reduction (canonical-form fingerprints before dedup, "
           "ops/canonical.py; 2pc rm=5: 8,832 -> 314 states); --ample-set "
@@ -658,8 +769,32 @@ def _pop_metrics_flags(argv: list[str]):
     return interval, path, rest
 
 
+def _pop_connect_flag(argv: list[str]):
+    """``(HOST:PORT or None, the other arguments)``: ``--connect=HOST:PORT``
+    from anywhere on the line, the client mode that ships the lane to a
+    resident service (serve.py) instead of running it here."""
+    addr, rest = None, []
+    for a in argv:
+        if a.startswith("--connect="):
+            addr = a.split("=", 1)[1]
+        elif a == "--connect":
+            raise SystemExit("--connect needs an address: --connect=HOST:PORT")
+        else:
+            rest.append(a)
+    return addr, rest
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
+    connect, argv = _pop_connect_flag(argv)
+    if argv and argv[0] == "serve":
+        from .serve import daemon_main
+
+        raise SystemExit(daemon_main(argv[1:]))
+    if connect is not None:
+        from .serve import client_main
+
+        raise SystemExit(client_main(connect, argv))
     level, root, argv = _pop_trace_flags(argv)
     interval, metrics_path, argv = _pop_metrics_flags(argv)
     flags, argv = _pop_flags(argv)

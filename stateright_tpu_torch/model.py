@@ -78,6 +78,16 @@ class Model:
     def format_action(self, action: Action) -> str:
         return str(action)
 
+    def format_step(self, last_state: State, action: Action) -> Optional[str]:
+        """The outcome of ``action`` the Explorer shows: the next state's
+        repr, or None where the action is ignored."""
+        next_state = self.next_state(last_state, action)
+        return None if next_state is None else repr(next_state)
+
+    def as_svg(self, path: Any) -> Optional[str]:
+        """Optional visualization of a path for the Explorer."""
+        return None
+
     def next_steps(self, state: State) -> list[tuple[Action, State]]:
         """(action, successor) pairs of ``state`` (src/lib.rs
         next_steps)."""

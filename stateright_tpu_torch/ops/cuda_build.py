@@ -19,6 +19,12 @@ XLA compile-cache ledger: tier ``cold`` where nvcc ran (``wall_sec`` and
 ``cold_sec`` are its seconds, :data:`BUILD_SECONDS`), ``disk`` where a
 built library was loaded from ``build/kernels/``, ``in_process`` where
 the process had it loaded already.
+
+One lock serializes the build and the load of every source, so two
+threads whose first launch lands together (two sessions of the resident
+service, serve.py) neither both run nvcc nor load a library another is
+still writing; a thread that finds the library loaded takes no lock.
+A loaded library stays loaded for the life of the process.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import weakref
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -40,10 +48,14 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}
+#: held around each source's build and load (see the module docstring)
+_LOAD_LOCK = threading.Lock()
 #: seconds spent in nvcc per source name, for the smoke report.
 BUILD_SECONDS: dict = {}
-#: source name -> (tracer, run index) its last ``program_build`` went to
-_TRACED: dict = {}
+#: tracer -> {source name: the run index its last ``program_build`` of
+#: that source went to}: one event a source a run, for each of the
+#: tracers of concurrent sessions (serve.py) alike
+_TRACED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def nvcc_path() -> str:
@@ -97,20 +109,30 @@ def finish_build(name: str, pending) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from ``csrc/<name>``, built on first
     use and cached for the process."""
+    lib, tier, wall = load_timed(name)
+    _trace_build(name, tier, wall)
+    return lib
+
+
+def load_timed(name: str) -> tuple:
+    """``(library, tier, seconds)``: :func:`load` without its trace
+    event. The tier is ``in_process``, ``disk`` or ``cold`` (nvcc ran);
+    the seconds are the load's wall, nvcc's at the ``cold`` tier."""
     lib = _LOADED.get(name)
     if lib is not None:
-        _trace_build(name, "in_process", 0.0)
-        return lib
-    t0 = time.monotonic()
-    pending = start_build(name)
-    finish_build(name, pending)
-    lib = ctypes.CDLL(str(library_path(name)))
-    _LOADED[name] = lib
+        return lib, "in_process", 0.0
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:  # another thread loaded it meanwhile
+            return lib, "in_process", 0.0
+        t0 = time.monotonic()
+        pending = start_build(name)
+        finish_build(name, pending)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
     if pending is None:
-        _trace_build(name, "disk", time.monotonic() - t0)
-    else:
-        _trace_build(name, "cold", BUILD_SECONDS[name])
-    return lib
+        return lib, "disk", time.monotonic() - t0
+    return lib, "cold", BUILD_SECONDS[name]
 
 
 def _trace_build(name: str, tier: str, wall: float) -> None:
@@ -120,11 +142,10 @@ def _trace_build(name: str, tier: str, wall: float) -> None:
     tracer = telemetry.current_tracer()
     if tracer is None:
         return
-    run = (tracer, tracer._run_idx)
-    prev = _TRACED.get(name)
-    if prev is not None and prev[0] is run[0] and prev[1] == run[1]:
+    seen = _TRACED.setdefault(tracer, {})
+    if seen.get(name) == tracer._run_idx:
         return
-    _TRACED[name] = run
+    seen[name] = tracer._run_idx
     tracer.event("program_build", program=Path(name).stem, tier=tier,
                  key=library_path(name).name, wall_sec=round(wall, 6),
                  cold_sec=round(wall if tier == "cold" else 0.0, 6))

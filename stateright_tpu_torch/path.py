@@ -61,6 +61,15 @@ class Path:
         steps.append((state, None))
         return Path(steps)
 
+    @staticmethod
+    def final_state_of(model: Model, fps: Sequence[int]) -> Optional[State]:
+        """Replay just far enough to return the last state (path.rs:134-165),
+        or None where the trace does not replay."""
+        try:
+            return Path.from_fingerprints(model, fps).last_state()
+        except RuntimeError:
+            return None
+
     def last_state(self) -> State:
         return self.steps[-1][0]
 

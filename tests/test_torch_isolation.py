@@ -6,8 +6,9 @@ the host DFS's ``2pc check 2``, and ``2pc check-gpu 3`` with a tiered
 visited set, and checkpointed and resumed, and traced with its artifacts
 written, and metered with its rollup read back), a device simulation, a
 hybrid race, a hash engine run, both sharded engines (parallel/) at two
-shards, a batched pair of sessions (batch.py) and a host BFS on the CPU
-loads neither jax nor anything
+shards, a batched pair of sessions (batch.py), a host BFS, a resident
+service's cold and warm session (serve.py) and the Explorer's views
+(explorer/) on the CPU loads neither jax nor anything
 of the JAX package, and no source file of the port (nor chip_smoke.py)
 imports either."""
 
@@ -95,6 +96,14 @@ def test_import_and_cli_load_no_jax():
         "print('BATCH', [c.unique_state_count() for c in pair],"
         " [c.metrics['batch_size'] for c in pair])\n"
         "b = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
+        "from stateright_tpu_torch.serve import CheckService\n"
+        "svc = CheckService(device='cpu')\n"
+        "ss = [svc.check(['2pc', 'check-gpu', '2']) for _ in range(2)]\n"
+        "print('SERVE', [(x.state, x.unique, x.warm_start) for x in ss])\n"
+        "from stateright_tpu_torch.explorer.server import state_views\n"
+        "v, _ = state_views(TwoPhaseSys(2).checker().spawn_on_demand(),"
+        " '/')\n"
+        "print('EXPLORER', len(v))\n"
         "print('BFS', b.unique_state_count(), b.state_count(),"
         " sorted(b.discoveries()))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
@@ -135,6 +144,8 @@ def test_import_and_cli_load_no_jax():
     assert "MESH 288 288 [141, 147]" in out.stdout
     assert "ROLLUP 8.0" in out.stdout
     assert "BATCH [1568, 288] [2, 2]" in out.stdout
+    assert "SERVE [('done', 56, False), ('done', 56, True)]" in out.stdout
+    assert "EXPLORER 1" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
@@ -152,7 +163,8 @@ def test_no_jax_imports_in_port_sources():
                    "parallel/__init__.py", "parallel/exchange.py",
                    "parallel/shards.py", "parallel/engine_sortmerge.py",
                    "parallel/engine.py", "telemetry.py", "artifacts.py",
-                   "batch.py", "metrics.py"):
+                   "batch.py", "metrics.py", "serve.py",
+                   "explorer/__init__.py", "explorer/server.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
