@@ -244,8 +244,24 @@ it exits non-zero and prints no result. Phases, each ending in
    solo sum, the daemon's time to first wave against phase 26's fresh
    process's, and peak memory. Every request, thread and process has a
    timeout.
+29. the host layer and the compiled pinger (models/timers.py
+   ``pinger_compiled``: the pinger of timers.rs at its full width, 3
+   servers, through the actor→encoding compiler, its closure bound
+   covering the run's ``target_max_depth``): at depth 8 on the
+   sort-merge and the hash engine, paths on, each equal to the port's
+   host BFS of the same model (5,323 unique, its ``states=`` and
+   depth); the main path, the sort-merge engine at depths 22, 23 and 24
+   (25,726,524, 40,167,523 and 61,872,524 unique; memory, not time,
+   bounds the depth) and the hash engine at depth 24 (2^28 slots), the
+   two equal in unique, ``states=`` and depth, each printing ``sec=``,
+   the launches of the four kernels, the widest wave's shapes and peak
+   memory; then ``2pc check-sym 5`` (665), ``register check-sym 3``
+   (13), ``interaction check 12`` (368) and ``panic check`` (the panic
+   propagates) through the CLI's ``main``. The pinger runs join the
+   kernel checks at their widest waves. The UDP runtime is not started
+   here: it touches no device.
 
-Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-28) prints
+Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-29) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
 engine's ``metrics`` (with the dense chunk count of a dense run, the
 canonical hits: candidates whose canonical form differed, and a hash
@@ -3613,6 +3629,169 @@ def serve_phases(runs: dict, batched: dict | None) -> dict:
     return paths or {}
 
 
+# -- phase 29: the host layer and the compiled pinger -----------------------
+
+#: the pinger's width: 3 servers, the CLI's default and timers.rs's
+PINGER_SERVERS = 3
+#: the depth at which the card is held to the port's host BFS: 5,323
+#: unique states (the JAX host BFS's count too)
+PINGER_BFS_DEPTH = 8
+PINGER_BFS_UNIQUE = 5323
+#: the depths the sort-merge engine runs, each with its unique states;
+#: the last is the deepest both engines run. Memory bounds it, not time:
+#: a sort-merge wave holds all its candidates at once (~360 B each), and
+#: on an H100 80GB depth 24 peaks near 62 GB in about a second, where
+#: depth 25 would need ~1.5 times that (PERF.md §6)
+PINGER_LADDER = {22: 25_726_524, 23: 40_167_523, 24: 61_872_524}
+PINGER_DEPTH = max(PINGER_LADDER)
+#: bounds of the sort-merge runs (the engine sizes each wave exactly;
+#: these only bound it) and the hash engine's slots (2^28: a load of 0.23
+#: at depth 24)
+PINGER_SIZES = dict(capacity=1 << 30, frontier_capacity=1 << 28)
+PINGER_SLOTS = 1 << 28
+
+
+def _pinger(depth: int):
+    """``(model, encoding)``: the pinger compiled for a run to ``depth``
+    (models/timers.py ``pinger_compiled``), its host compile wall printed
+    apart."""
+    from stateright_tpu_torch.models.timers import (
+        PingerModelCfg,
+        pinger_compiled,
+    )
+
+    t0 = time.monotonic()
+    model, enc = pinger_compiled(PingerModelCfg(PINGER_SERVERS), depth)
+    print(f"  host compile {time.monotonic() - t0:.3f}s: width {enc.width} "
+          f"lanes, {enc.max_actions} slots", flush=True)
+    return model, enc
+
+
+def _four_kernels(run: dict) -> dict:
+    """The launches of the path's four CUDA kernels: the Merge Path pair
+    (one a wrapper call) and the insert's two kernels (both in every
+    ``hash_insert`` call)."""
+    n = run["launches"]
+    return {"member_tile_kernel": n["member_sorted"],
+            "merge_tile_kernel": n["merge_sorted"],
+            "probe_claim_kernel": n["hash_insert"],
+            "winner_kernel": n["hash_insert"]}
+
+
+def _pinger_line(label: str, run: dict) -> None:
+    m = run["metrics"]
+    print(f"  {label}: sec={run['sec']:.3f} unique={run['unique']} "
+          f"states={run['states']} depth={run['depth']} "
+          f"waves={m.get('waves')} kernels={_four_kernels(run)} widest "
+          f"member={m.get('member_shape')} merge={m.get('merge_shape')} "
+          f"insert={m.get('insert_shape')} "
+          f"peak_mem_bytes={run['peak_mem_bytes']}", flush=True)
+
+
+@phase("pinger depth 8, card vs host BFS")
+def pinger_bfs() -> tuple:
+    """The compiled pinger on both engines to depth 8, paths on, held to
+    the port's host BFS of the same model: unique, states and depth."""
+    D = PINGER_BFS_DEPTH
+    model, enc = _pinger(D)
+    sm = run_main(model.checker().target_max_depth(D).spawn_sortmerge(
+        encoded=enc, capacity=1 << 16, frontier_capacity=1 << 14),
+        print_lines=1)
+    hs = run_main(model.checker().target_max_depth(D).spawn_hash(
+        encoded=enc, capacity=1 << 16), print_lines=1, kernels=HASH_KERNELS)
+    t0 = time.monotonic()
+    host = model.checker().target_max_depth(D).spawn_bfs().join()
+    print(f"  host bfs: states={host.state_count()} "
+          f"unique={host.unique_state_count()} depth={host.max_depth()} "
+          f"sec={time.monotonic() - t0:.3f}", flush=True)
+    assert host.unique_state_count() == PINGER_BFS_UNIQUE
+    for label, run in (("sort-merge", sm), ("hash", hs)):
+        _pinger_line(label, run)
+        assert (run["unique"], run["states"], run["depth"]) == (
+            host.unique_state_count(), host.state_count(),
+            host.max_depth()), (label, run["unique"])
+    return sm, hs
+
+
+@phase(f"pinger depth {PINGER_DEPTH}, sort-merge vs hash (main path)")
+def pinger_deep() -> tuple:
+    """The compiled pinger, paths off, on the sort-merge engine at each
+    depth of the ladder, then on the hash engine at the deepest: the
+    same unique count, states and depth. Each prints its wall and peak
+    memory, so the ladder shows what bounds the depth."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  device memory: {torch.cuda.memory_allocated()} B allocated, "
+          f"{free} of {total} B free", flush=True)
+    for D, unique in PINGER_LADDER.items():
+        model, enc = _pinger(D)
+        sm = run_main(model.checker().target_max_depth(D).spawn_sortmerge(
+            encoded=enc, track_paths=False, **PINGER_SIZES), print_lines=1)
+        _pinger_line(f"sort-merge depth {D}", sm)
+        assert (sm["unique"], sm["depth"]) == (unique, D), sm["unique"]
+        if D < PINGER_DEPTH:
+            sm = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    hs = run_main(model.checker().target_max_depth(D).spawn_hash(
+        encoded=enc, track_paths=False, capacity=PINGER_SLOTS),
+        print_lines=1, kernels=HASH_KERNELS)
+    _pinger_line(f"hash depth {D}", hs)
+    assert (sm["unique"], sm["states"], sm["depth"]) == (
+        hs["unique"], hs["states"], hs["depth"]), (sm["unique"], hs["unique"])
+    return sm, hs
+
+
+#: the host lanes phase 29 runs through the CLI, and the report line each
+#: must print (the JAX lanes' counts)
+HOST_LANES = (
+    (["2pc", "check-sym", "5"], "Done. states=4091, unique=665, depth=17"),
+    (["register", "check-sym", "3"], "Done. states=26, unique=13, depth=7"),
+    (["interaction", "check", "12"], "Done. states=787, unique=368, depth=12"),
+    (["panic", "check"], "Checker propagated the panic: panic!"),
+)
+
+
+@phase("host lanes through the CLI")
+def host_lanes() -> None:
+    """``check-sym``, ``interaction check`` and ``panic check`` through the
+    CLI's ``main`` in this process (host-only lanes: no kernel runs)."""
+    import contextlib
+
+    from stateright_tpu_torch import cli
+
+    for argv, want in HOST_LANES:
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        text = out.getvalue()
+        last = [line for line in text.splitlines()
+                if line.startswith(("Done.", "Checker"))]
+        print(f"  {' '.join(argv)}: {last[-1][:160] if last else text[:160]} "
+              f"({time.monotonic() - t0:.3f}s)", flush=True)
+        assert want in text, (argv, text[-400:])
+
+
+def pinger_phases() -> tuple:
+    """Phase 29: ``(runs, hashes)`` of the compiled pinger's paths, whose
+    kernels join the checks at their widest waves; then the host lanes."""
+    bfs = pinger_bfs() or (None, None)
+    deep = pinger_deep() or (None, None)
+    host_lanes()
+    D = PINGER_DEPTH
+    runs = {f"pinger depth {PINGER_BFS_DEPTH}": bfs[0],
+            f"pinger depth {D}": deep[0]}
+    hashes = {f"hash pinger depth {PINGER_BFS_DEPTH}": bfs[1],
+              f"hash pinger depth {D}": deep[1]}
+    return runs, hashes
+
+
 def main() -> int:
     import torch
 
@@ -3687,6 +3866,9 @@ def main() -> int:
     # one (a side cancelled before its first wave has no shapes)
     runs.update({path: run for path, run in hybrids.items()
                  if run is None or run["metrics"].get("waves")})
+    pinger_runs, pinger_hashes = pinger_phases()
+    runs.update(pinger_runs)
+    hashes.update(pinger_hashes)
     # each kernel held to its plain version at every path's own shapes
     # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])

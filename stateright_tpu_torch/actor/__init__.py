@@ -1,13 +1,13 @@
 """Actor framework: model-checkable message-driven state machines.
 
 A copy of the JAX package's ``actor`` package (reference src/actor.rs
-and src/actor/*), cut to what the Paxos and compiled lanes use: the
-``Actor`` protocol, the ``ActorModel`` bridge into the checkable
-``Model`` protocol, the network semantics, the register client/server
-(``actor/register.py``) and the actor→encoding compiler
-(``actor/compile.py``). Not ported yet: ``choice``,
-``ordered_reliable_link``, ``spawn`` (the UDP runtime) and
-``write_once_register``.
+and src/actor/*): the ``Actor`` protocol, the ``ActorModel`` bridge into
+the checkable ``Model`` protocol, the network semantics, timers,
+crash/loss fault injection, the register client/server
+(``actor/register.py``), the adapters (``choice``,
+``ordered_reliable_link``, ``write_once_register``), a real UDP runtime
+for the same actor code (``spawn``) and the actor→encoding compiler
+(``actor/compile.py``).
 """
 
 from .base import (
@@ -28,6 +28,8 @@ from .base import (
 from .network import Envelope, Network, Ordered, UnorderedDuplicating, UnorderedNonDuplicating
 from .model import ActorModel, ActorModelAction, Crash, Deliver, Drop, Timeout
 from .model_state import ActorModelState
+from .choice import Choice, ScriptedActor
+from .ordered_reliable_link import OrderedReliableLink
 
 __all__ = [
     "Actor",
@@ -35,6 +37,9 @@ __all__ = [
     "ActorModelAction",
     "ActorModelState",
     "CancelTimer",
+    "Choice",
+    "OrderedReliableLink",
+    "ScriptedActor",
     "Command",
     "Cow",
     "Crash",

@@ -68,7 +68,10 @@ the truncation flag, and the engine raises. Lossy ordered networks are
 rejected. Non-duplicating envelope counts ride in 8-bit fields; a
 successor whose count reaches 128 is pruned and raises unless the
 boundary would prune it anyway. Component domains must close within
-``max_domain``.
+``max_domain``. A local state outside ``closure_actor_bound`` is kept
+but not expanded, so its transitions are not in the tables: a run that
+expands a state holding one raises the truncation error (the JAX
+compiler leaves those transitions out silently, and undercounts).
 """
 
 from __future__ import annotations
@@ -754,6 +757,16 @@ class CompiledActorEncoding(EncodedModelBase):
         self.hidx = {h: k for k, h in enumerate(self.H)}
         self._expandable_s = expandable_s
         self._expandable_h = expandable_h
+        #: per actor, over ``S[i]``: the local states the overapprox
+        #: closure kept without expanding (outside closure_actor_bound).
+        #: Their deliver and timeout transitions are not in the tables,
+        #: so a run that expands a state holding one raises
+        #: (:meth:`unexpanded_rows`) instead of undercounting.
+        self._unexpanded = [
+            np.array([self.closure_mode == "overapprox"
+                      and not expandable_s[i][s] for s in self.S[i]], bool)
+            for i in range(self.n)
+        ]
 
     def _harvest_reachable(self, model, init, add_actor_state,
                            add_envelope, add_timer, add_history,
@@ -1577,6 +1590,27 @@ class CompiledActorEncoding(EncodedModelBase):
         )
         return cache[device]
 
+    def unexpanded_rows(self, states_t: torch.Tensor):
+        """``bool[N]``: the rows of a ``[W, N]`` block holding a local
+        state the closure kept without expanding, or None when it
+        expanded every state. Such a row's deliver and timeout
+        transitions are missing from the tables, so expanding it would
+        undercount: the dense step ORs this into its ``trunc``, and the
+        sort-merge engine's sparse wave checks its frontier with it
+        once a wave (checkers/tpu_sortmerge.py); either way the engine
+        raises the truncation error. The JAX compiler does not flag
+        them."""
+        dev = states_t.device
+        cache = self.__dict__.setdefault("_unexpanded_dev", {})
+        if dev not in cache:
+            cache[dev] = [(i, torch.from_numpy(u).to(dev))
+                          for i, u in enumerate(self._unexpanded) if u.any()]
+        rows = None
+        for i, u in cache[dev]:
+            hit = _take(u, _field(states_t, self.f_actor[i]))
+            rows = hit if rows is None else rows | hit
+        return rows
+
     def enabled_bits_cols(self, states_t: torch.Tensor) -> torch.Tensor:
         """``int64[N, L]`` packed enabled words (ops/bitmask.py layout)
         over a ``[W, N]`` block: presence words (coalesced bit runs,
@@ -1667,7 +1701,9 @@ class CompiledActorEncoding(EncodedModelBase):
         on lanes some effect can touch (an untouched lane is the
         input's). ``trunc`` (count or queue bound) and ``hard``
         (un-harvested history transition) are ``bool[N]``, or ``None``
-        where the plan can never set them."""
+        where the plan can never set them. A source state holding an
+        actor state the closure did not expand is not flagged here: the
+        engine checks its frontier (:meth:`unexpanded_rows`)."""
         c = self._device_consts(states_t.device)
         plan = self._opt
         W = self.width
@@ -1929,7 +1965,8 @@ class CompiledActorEncoding(EncodedModelBase):
         ``trunc`` marks rows where an otherwise-valid, in-boundary
         successor was pruned by the implicit count bound (the top bit
         of an 8-bit envelope field) or a FIFO queue bound, or where an
-        un-harvested history transition made it unrepresentable; the
+        un-harvested history transition made it unrepresentable, and
+        rows holding an actor state the closure did not expand; the
         engine raises on it. The lanes are uint32 values in int64: every
         lane write is masked to 32 bits, as a uint32 store wraps."""
         c = self._dense_consts(states_t.device)
@@ -2083,6 +2120,9 @@ class CompiledActorEncoding(EncodedModelBase):
                 s[f.lane] = s[f.lane] & ~f.mask
             emit(s, ~crashed & (n_crashed < self.max_crashes))
 
+        unexpanded = self.unexpanded_rows(states_t)
+        if unexpanded is not None:
+            trunc = trunc | unexpanded
         return (*stack_slots(succs, valids), trunc)
 
     def property_conditions_cols(self,

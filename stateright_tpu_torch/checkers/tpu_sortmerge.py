@@ -156,6 +156,19 @@ def frontier_enabled_bits(enc, frontier_t, ample_words=None):
     return bits, popcount_words(bits)
 
 
+def frontier_unexpanded(enc, frontier_t):
+    """Whether a row of the ``[W, n]`` frontier holds a local state the
+    compiled closure kept without expanding (``None`` where the encoding
+    has no such state, else a ``bool`` tensor): the pair tables lack
+    that state's transitions, so the wave raises the truncation error
+    rather than expand it short (actor/compile.py
+    ``unexpanded_rows``). One check a wave over the frontier, not one a
+    pair; the dense step makes it itself."""
+    fn = getattr(enc, "unexpanded_rows", None)
+    rows = None if fn is None else fn(frontier_t)
+    return None if rows is None else rows.any()
+
+
 def sparse_pair_candidates(bits, k: int):
     """The enabled (row, slot) pairs as ``(rows, slots)`` int64 tensors,
     in (row, ascending slot) order — the order the JAX engine's peel and
@@ -824,12 +837,17 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         count, the encoding-bound overflow and the canonical hits
         (``None`` without symmetry)."""
         enc = self.encoded
+        cut = frontier_unexpanded(enc, front)
         bits, cnt = frontier_enabled_bits(enc, front, ample_words)
         rows, slots = sparse_pair_candidates(bits, K)
         succ_t, keys, ok, eov, hits = eval_pairs(
             enc, front, rows, slots, trivial, self.sym_spec)
+        if cut is not None:
+            eov = cut if eov is None else eov | cut
         tripped = False
         if ok is None:
+            if eov is not None:
+                tripped = bool(host_read(eov))
             return (succ_t, keys, rows, cnt > 0, rows.numel(), tripped,
                     hits)
         has_succ = torch.zeros(front.shape[1], dtype=torch.bool,

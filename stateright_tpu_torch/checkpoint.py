@@ -58,8 +58,11 @@ What the port writes differs from the JAX engine's by design, and JAX's
   shard counts, single ⇄ sharded included, through the (owner, fp)
   route. Unlike JAX, a hash snapshot re-shards single ⇄ sharded too (by
   re-insertion; a single-device table of another slot count is still
-  refused). A tiered mesh snapshot is refused: the sharded tier is not
-  ported (ROADMAP item 15).
+  refused). A tiered mesh snapshot of the port's (packed) resumes and
+  re-shards like any other; a JAX tiered mesh snapshot (its blocks at
+  the padded strides, maybe a pending wave) is refused
+  (:func:`_mesh_tier_runs`): the fold of its pending wave is ported for
+  one device only (ROADMAP item 15).
 * **Telemetry** (telemetry.py): a traced run gets JAX's ``checkpoint``
   event for each snapshot written, ``fault_recovery`` and
   ``fault_degrade`` from the supervisor, and from the engines

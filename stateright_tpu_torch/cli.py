@@ -99,6 +99,18 @@ session hook meets the freshly spawned checker before its first join.
     python -m stateright_tpu_torch 2pc explore 3 localhost:3000
     python -m stateright_tpu_torch serve 127.0.0.1:3000
     python -m stateright_tpu_torch --connect=127.0.0.1:3000 2pc check-gpu 9
+
+The host lanes of the JAX CLI are here too: ``check-sym [COUNT]`` on
+``2pc``, ``increment``, ``increment-lock`` and ``register`` (the host DFS
+over each state's ``representative()``); ``timers check`` (the pinger's
+unbounded DFS), ``interaction check [DEPTH]`` and ``panic check``; and
+``spawn`` on ``paxos``, ``single-copy-register`` and
+``linearizable-register``, the verified actors as UDP servers
+(actor/spawn.py). :data:`SUBCOMMANDS` lists every lane's subcommands.
+
+    python -m stateright_tpu_torch 2pc check-sym 5
+    python -m stateright_tpu_torch interaction check 12
+    python -m stateright_tpu_torch paxos spawn
 """
 
 from __future__ import annotations
@@ -290,6 +302,23 @@ def _check(header: str, model, flags: RunFlags) -> None:
     _report(model.checker().spawn_dfs())
 
 
+def _check_sym(header: str, model, flags: RunFlags) -> None:
+    """The ``check-sym`` subcommand: ``header``, then the host DFS of
+    ``model`` with symmetry reduction (each visited key the fingerprint
+    of the state's ``representative()``), as the JAX lane runs it."""
+    _host_only(flags, "check-sym")
+    print(header)
+    _report(model.checker().symmetry().spawn_dfs())
+
+
+def _spawn(flags: RunFlags, cluster) -> None:
+    """The ``spawn`` subcommand: ``cluster()`` runs the lane's actors as
+    UDP servers on 127.0.0.1 from port 3000 (actor/spawn.py), until
+    interrupted."""
+    _host_only(flags, "spawn")
+    cluster()
+
+
 def _explore(model, args: list[str], flags: RunFlags,
              what: str | None = None) -> None:
     """The ``explore [COUNT] [ADDRESS]`` subcommand: the Explorer web UI
@@ -329,6 +358,11 @@ def _2pc(sub: str, args: list[str], flags: RunFlags) -> None:
     if sub == "check":
         _check(f"Checking two phase commit with {rm_count} resource "
                "managers.", TwoPhaseSys(rm_count=rm_count), flags)
+        return
+    if sub == "check-sym":
+        _check_sym(f"Checking two phase commit with {rm_count} resource "
+                   "managers using symmetry reduction.",
+                   TwoPhaseSys(rm_count=rm_count), flags)
         return
     if sub == "explore":
         _explore(TwoPhaseSys(rm_count=rm_count), args, flags,
@@ -383,6 +417,11 @@ def _paxos(sub: str, args: list[str], flags: RunFlags) -> None:
         cfg = PaxosModelCfg(client_count=client_count, server_count=3)
         _explore(paxos_model(cfg, _network(args, 2)), args, flags,
                  f"Single Decree Paxos with {client_count} clients")
+        return
+    if sub == "spawn":
+        from .actor.spawn import spawn_paxos_cluster
+
+        _spawn(flags, spawn_paxos_cluster)
         return
     if sub != "check-gpu":
         _usage()
@@ -492,6 +531,11 @@ def _linearizable(sub: str, args: list[str], flags: RunFlags) -> None:
         _explore(abd_model(cfg, _network(args, 2)), args, flags,
                  f"a linearizable register with {client_count} clients")
         return
+    if sub == "spawn":
+        from .actor.spawn import spawn_abd_cluster
+
+        _spawn(flags, spawn_abd_cluster)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -534,6 +578,11 @@ def _increment(sub: str, args: list[str], flags: RunFlags,
         _check(f"Model checking {name} with {thread_count} threads.",
                model, flags)
         return
+    if sub == "check-sym":
+        model = (IncrementLock if locked else Increment)(thread_count)
+        _check_sym(f"Model checking {name} with {thread_count} threads "
+                   "using symmetry reduction.", model, flags)
+        return
     if sub == "explore":
         _explore((IncrementLock if locked else Increment)(thread_count),
                  args, flags)
@@ -573,6 +622,13 @@ def _register(sub: str, args: list[str], flags: RunFlags) -> None:
 
         _check(f"Checking the write-once register with {n_clients} "
                "clients.", NClientRegSys(n_clients=n_clients), flags)
+        return
+    if sub == "check-sym":
+        from .models.nclient_register import NClientRegSys
+
+        _check_sym(f"Checking the write-once register with {n_clients} "
+                   "clients using symmetry reduction.",
+                   NClientRegSys(n_clients=n_clients), flags)
         return
     if sub == "explore":
         from .models.nclient_register import NClientRegSys
@@ -629,6 +685,11 @@ def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
             _network(args, 2)), args, flags,
             f"a single-copy register with {client_count} clients")
         return
+    if sub == "spawn":
+        from .actor.spawn import spawn_single_copy_cluster
+
+        _spawn(flags, spawn_single_copy_cluster)
+        return
     if sub != "check-gpu":
         _usage()
         return
@@ -639,17 +700,120 @@ def _single_copy(sub: str, args: list[str], flags: RunFlags) -> None:
     _report(single_copy_checker(client_count, flags))
 
 
+def _timers(sub: str, args: list[str], flags: RunFlags) -> None:
+    """The pinger workload (models/timers.py, reference
+    examples/timers.rs). ``check`` is the unbounded host DFS, as the
+    reference runs it; on the card the pinger runs compiled and
+    depth-bounded (``timers.pinger_compiled``), a library entry."""
+    from .models.timers import PingerModelCfg, pinger_model
+
+    cfg = PingerModelCfg(server_count=int(args[0]) if args else 3)
+    if sub == "check":
+        _check("Model checking Pingers", pinger_model(cfg, _network(args, 1)),
+               flags)
+        return
+    if sub == "explore":
+        _explore(pinger_model(cfg, _network(args, 2)), args, flags,
+                 "Pingers")
+        return
+    _usage()
+
+
+def _interaction(sub: str, args: list[str], flags: RunFlags) -> None:
+    """The user-interaction model (models/interaction.py, reference
+    examples/interaction.rs): ``check [DEPTH]`` is the host BFS bounded
+    at DEPTH (default 30, interaction.rs:44), its properties asserted;
+    ``explore [ADDRESS]`` serves the Explorer at depth 30."""
+    from .models.interaction import interaction_model
+
+    if sub == "check":
+        _host_only(flags, "check")
+        depth = int(args[0]) if args else 30
+        checker = (
+            interaction_model().checker().target_max_depth(depth).spawn_bfs()
+        )
+        _report(checker)
+        checker.assert_properties()
+        return
+    if sub == "explore":
+        _host_only(flags, "explore")
+        address = args[0] if args else "localhost:3000"
+        print(f"Exploring the interaction model on {address}.")
+        interaction_model().checker().target_max_depth(30).serve(address)
+        return
+    _usage()
+
+
+def _panic(sub: str, args: list[str], flags: RunFlags) -> None:
+    """Counterpart of reference examples/panic.rs: a model whose action
+    enumeration raises mid-search. The checker must surface the error to
+    the caller unchanged, not hang; the lane exits non-zero if it does
+    not."""
+    from .model import Model, Property
+
+    class Adder(Model):
+        def init_states(self):
+            return [0]
+
+        def actions(self, state):
+            if state >= 5000:
+                raise RuntimeError(
+                    "panic! (the examples/panic.rs trigger: action "
+                    f"enumeration raised at state {state})"
+                )
+            return [1, 2, 3, 4, 5]
+
+        def next_state(self, state, action):
+            return state + action
+
+        def properties(self):
+            return [Property.always("true", lambda m, s: True)]
+
+    if sub != "check":
+        _usage()
+        return
+    _host_only(flags, "check")
+    print(
+        "Checking the panicking adder (examples/panic.rs): the "
+        "search must fail loudly, not hang."
+    )
+    try:
+        Adder().checker().spawn_dfs().join()
+    except RuntimeError as e:
+        if "panic!" not in str(e):
+            raise  # an unrelated checker failure, not the trigger
+        print(f"Checker propagated the panic: {e}")
+        return
+    raise SystemExit("ERROR: the panic did not propagate")
+
+
 _MODELS = {"2pc": _2pc, "paxos": _paxos, "2pc-actors": _2pc_actors,
            "paxos-compiled": _paxos_compiled,
            "linearizable-register": _linearizable,
            "increment": _increment, "increment-lock": _increment_lock,
-           "register": _register, "single-copy-register": _single_copy}
+           "register": _register, "single-copy-register": _single_copy,
+           "timers": _timers, "interaction": _interaction, "panic": _panic}
 
 
-#: the lanes with an ``explore`` subcommand (JAX's, less the timers and
-#: interaction lanes the port has not)
-_EXPLORE = ("2pc", "2pc-actors", "register", "paxos", "increment",
-            "increment-lock", "single-copy-register", "linearizable-register")
+#: the subcommands of each lane, JAX's ``_MODELS`` with ``check-tpu``
+#: named ``check-gpu``
+SUBCOMMANDS = {
+    "2pc": ("check", "check-sym", "check-gpu", "explore"),
+    "2pc-actors": ("check", "check-gpu", "explore"),
+    "register": ("check", "check-sym", "check-gpu", "explore"),
+    "paxos": ("check", "check-gpu", "explore", "spawn"),
+    "paxos-compiled": ("check", "check-gpu"),
+    "increment": ("check", "check-sym", "check-gpu", "explore"),
+    "increment-lock": ("check", "check-sym", "check-gpu", "explore"),
+    "single-copy-register": ("check", "check-gpu", "explore", "spawn"),
+    "linearizable-register": ("check", "check-gpu", "explore", "spawn"),
+    "timers": ("check", "explore"),
+    "interaction": ("check", "explore"),
+    "panic": ("check",),
+}
+
+#: the lanes with an ``explore`` subcommand
+_EXPLORE = tuple(m for m, subs in SUBCOMMANDS.items() if "explore" in subs)
 
 
 def _usage() -> None:
@@ -685,14 +849,34 @@ def _usage() -> None:
           "[--metrics-interval=N [--metrics-path=FILE]]: a metrics_rollup "
           "JSONL line every N seconds and at exit (metrics.py; default "
           "path " + DEFAULT_METRICS_PATH + ")")
-    print("  python -m stateright_tpu_torch {" + "|".join(_MODELS)
+    print("  python -m stateright_tpu_torch {" + "|".join(
+        m for m in _MODELS if m not in ("interaction", "panic"))
           + "} check [COUNT] [NETWORK]")
     print("       check runs the host depth-first search (NETWORK: paxos, "
-          "single-copy-register and linearizable-register)")
-    print("  python -m stateright_tpu_torch {" + "|".join(_EXPLORE)
+          "single-copy-register, linearizable-register and timers; timers "
+          "check is unbounded, as the reference runs it)")
+    print("  python -m stateright_tpu_torch {" + "|".join(
+        m for m, subs in SUBCOMMANDS.items() if "check-sym" in subs)
+          + "} check-sym [COUNT]")
+    print("       check-sym runs the host depth-first search with symmetry "
+          "reduction (each state's representative(); 2pc rm=5: 665)")
+    print("  python -m stateright_tpu_torch interaction check [DEPTH]")
+    print("       the host breadth-first search to DEPTH (default 30), "
+          "its properties asserted")
+    print("  python -m stateright_tpu_torch panic check")
+    print("       a model that raises mid-search: the error must "
+          "propagate (exit 1 if it does not)")
+    print("  python -m stateright_tpu_torch {" + "|".join(
+        m for m in _EXPLORE if m != "interaction")
           + "} explore [COUNT] [ADDRESS] [NETWORK]")
+    print("  python -m stateright_tpu_torch interaction explore [ADDRESS]")
     print("       explore serves the Explorer web UI over the on-demand "
           "checker (explorer/server.py; default localhost:3000)")
+    print("  python -m stateright_tpu_torch {" + "|".join(
+        m for m, subs in SUBCOMMANDS.items() if "spawn" in subs)
+          + "} spawn")
+    print("       spawn runs the lane's actors as UDP servers on "
+          "127.0.0.1 from port 3000 (actor/spawn.py) until interrupted")
     print("  python -m stateright_tpu_torch serve [HOST:PORT] "
           "[--device cuda|cpu] [--explore=MODEL[,COUNT]] "
           "[--device-budget-bytes=N] "

@@ -89,7 +89,11 @@ class SparseEncodedModel(Protocol):
       ``trivial_boundary`` is True when it is all-true, so the engine
       skips it;
     * ``encode(state)`` / ``init_vecs()`` — host numpy ``uint32``
-      vectors; encoding must be canonical (equal states encode equal).
+      vectors; encoding must be canonical (equal states encode equal);
+    * optional ``unexpanded_rows(states_t)`` — ``[W, N] -> bool[N]``
+      or ``None``: rows whose transitions the pair step lacks (a
+      compiled closure's unexpanded states). The engine checks each
+      wave's frontier with it and raises, as for ``hard``.
 
     An encoding may offer both contracts; each is held to its JAX twin
     on its own (a compiled encoding's two emissions may count

@@ -488,7 +488,8 @@ class CheckService:
         from . import cli
 
         # only a model's check lanes are sessions: `serve` would nest a
-        # daemon and `explore` would serve forever on this thread
+        # daemon, and `explore` and `spawn` would serve forever on this
+        # thread
         if not argv or argv[0] not in cli._MODELS:
             raise ValueError(
                 f"unknown session lane {argv[:1] or '(empty)'}: "
@@ -498,6 +499,10 @@ class CheckService:
             raise ValueError(
                 "explore is not a session lane: mount the model on the "
                 "service (serve --explore=MODEL[,COUNT])")
+        if argv[1:2] == ["spawn"]:
+            raise ValueError(
+                "spawn is not a session lane: it runs UDP servers until "
+                "interrupted (python -m stateright_tpu_torch MODEL spawn)")
 
         session = Session(next(self._ids), "check", argv)
         session.tracer = telemetry.RunTracer()

@@ -9,8 +9,9 @@ hybrid race, a hash engine run, both sharded engines (parallel/) at two
 shards, a batched pair of sessions (batch.py), a host BFS, a resident
 service's cold and warm session (serve.py) and the Explorer's views
 (explorer/) on the CPU loads neither jax nor anything
-of the JAX package, and no source file of the port (nor chip_smoke.py)
-imports either."""
+of the JAX package; nor do the host layer's lanes (``check-sym``,
+``interaction``, ``panic``), the compiled pinger and the UDP runtime;
+and no source file of the port (nor chip_smoke.py) imports either."""
 
 import ast
 import os
@@ -149,6 +150,62 @@ def test_import_and_cli_load_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
+def test_host_layer_lanes_load_no_jax():
+    """``2pc check-sym 3``, ``interaction check 6``, ``panic check``, the
+    compiled pinger on both engines and a UDP ping-pong round trip in
+    one process load neither jax nor the JAX package."""
+    code = (
+        "import sys, socket, time\n"
+        "from stateright_tpu_torch.cli import main\n"
+        "main(['2pc', 'check-sym', '3'])\n"
+        "main(['interaction', 'check', '6'])\n"
+        "main(['panic', 'check'])\n"
+        "from stateright_tpu_torch.models.timers import PingerModelCfg,"
+        " pinger_compiled\n"
+        "m, e = pinger_compiled(PingerModelCfg(3), 4)\n"
+        "runs = [getattr(m.checker().target_max_depth(4), s)(encoded=e,"
+        " capacity=1 << 10, device='cpu').join().unique_state_count()"
+        " for s in ('spawn_sortmerge', 'spawn_hash')]\n"
+        "print('PINGER', runs)\n"
+        "from stateright_tpu_torch.actor import Id\n"
+        "from stateright_tpu_torch.actor.spawn import json_serde, spawn\n"
+        "from stateright_tpu_torch.models.ping_pong import Ping, Pong,"
+        " PingPongActor\n"
+        "socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)"
+        " for _ in range(2)]\n"
+        "[s.bind(('127.0.0.1', 0)) for s in socks]\n"
+        "ids = [Id.from_addr('127.0.0.1', s.getsockname()[1])"
+        " for s in socks]\n"
+        "[s.close() for s in socks]\n"
+        "hs = spawn(*json_serde([Ping, Pong]), [(ids[0],"
+        " PingPongActor(serve_to=ids[1])), (ids[1], PingPongActor(None))])\n"
+        "end = time.monotonic() + 10\n"
+        "while time.monotonic() < end and not all((h.state or 0) >= 3"
+        " for h in hs):\n"
+        "    time.sleep(0.02)\n"
+        "[h.stop() for h in hs]\n"
+        "[h.join(2) for h in hs]\n"
+        "print('SPAWN', [(h.state or 0) >= 3 for h in hs])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
+        " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
+        " 'stateright_tpu.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "using symmetry reduction.\nDone. states=411, unique=107, " \
+        "depth=11" in out.stdout
+    assert "Done. states=23, unique=18, depth=6" in out.stdout
+    assert "Checker propagated the panic: panic!" in out.stdout
+    assert "PINGER [97, 97]" in out.stdout
+    assert "SPAWN [True, True]" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
 def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "stateright_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -164,7 +221,14 @@ def test_no_jax_imports_in_port_sources():
                    "parallel/shards.py", "parallel/engine_sortmerge.py",
                    "parallel/engine.py", "telemetry.py", "artifacts.py",
                    "batch.py", "metrics.py", "serve.py",
-                   "explorer/__init__.py", "explorer/server.py"):
+                   "explorer/__init__.py", "explorer/server.py",
+                   "symmetry.py", "utils/densenatmap.py",
+                   "utils/vector_clock.py", "semantics/vec.py",
+                   "semantics/write_once_register.py",
+                   "semantics/sequential_consistency.py",
+                   "models/timers.py", "models/interaction.py",
+                   "actor/choice.py", "actor/ordered_reliable_link.py",
+                   "actor/write_once_register.py", "actor/spawn.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
