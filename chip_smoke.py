@@ -74,7 +74,12 @@ it exits non-zero and prints no result. Phases, each ending in
    ``2pc rm=9 --symmetry --ample-set`` and ``register 8 --symmetry``
    (1 + 8·9 = 73 orbits); every ``--symmetry`` run is held to the same
    run on the CPU (counts, ``states=``, depth, canonical hits,
-   discovery fingerprints and paths, each path replayed);
+   discovery fingerprints and paths, each path replayed). Each passed
+   the soundness analyzer's gate at spawn (analysis/soundness.py): the
+   analyzer's memo is emptied before each spawn, and the spawn, not the
+   run, must have made the certificate (its seconds printed); its lane
+   config — the trace's ``run_begin`` lane — carries
+   ``symmetry``, ``ample_set`` and ``soundness_certified: true``;
 15. for every run of phases 4, 6-9, 11, 14, 20, 23 and 24, each kernel against its
    plain version (exactly) and timed at that run's widest wave's
    shapes, each launch with L2 cold as the engine's calls find it;
@@ -260,6 +265,30 @@ it exits non-zero and prints no result. Phases, each ending in
    propagates) through the CLI's ``main``. The pinger runs join the
    kernel checks at their widest waves. The UDP runtime is not started
    here: it touches no device.
+30. ``analyze soundness``: ``python -m stateright_tpu_torch analyze
+   soundness --no-artifact`` in a process of its own on the card (2pc
+   rm=4 and the register n=4 certified, every obligation ok), and with
+   ``--device cpu`` (the same lines); then each target's certificate
+   made on the card and on the CPU in this process, equal obligation by
+   obligation (``battery_rows`` included), with the analyzer's seconds
+   on each beside the card's name and power limit; then, in a fresh
+   process, the seconds of ``import torch``, of the package's import
+   and of 2pc rm=9's first certificate on the card, with no
+   ``torch._dynamo`` and no sympy imported; and the time to verdict of
+   ``2pc check-gpu 9 --symmetry`` and ``--ample-set``, each in a fresh
+   process: its wall, its ``sec=`` and the rest (``chip_smoke.py
+   --cold-gate TREE ...`` times the same for the checkouts given, in
+   that order, e.g. a parent commit unpacked beside this one:
+   ``--cold-gate PARENT . . PARENT``);
+31. the reduction gate on the card: a 2pc rm=9 encoding whose ample
+   mask drops every RM's spontaneous abort (the JAX analyzer's
+   ``BadAmple`` mutant) refuses at its spawn naming
+   ``ample-non-suppression``; with ``unsound_ok()`` it runs, launching
+   both Merge Path kernels, its lane saying ``soundness_certified:
+   false``; the compiled ``two_phase_sys_compiled_encoded(2,
+   device_rewrite_spec=…, ample_mask=(1,))`` gets the JAX analyzer's
+   verdict (``JAX_COMPILED_VERDICT``) and its spawn refuses naming
+   ``transition-equivariance``.
 
 Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-29) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
@@ -300,6 +329,18 @@ HASH_SOURCE = "stateright_tpu_torch/csrc/hashset.cu"
 #: time measured here
 HASH_THREE_PASS_MS = {"empty table": 3.698, "half-full table": 1.713,
                "hash 2pc rm=9": 2.179, "hash paxos 4": 0.137}
+#: the JAX analyzer's verdict (on the CPU, held to the port's by
+#: tests/test_torch_analysis.py) on the compiled 2pc-actors encoding at
+#: 2 RMs with the spec swapping the RMs' 2-bit fields and the one-slot
+#: ample mask (1,): (rule, severity) of each obligation, and the battery
+#: row its transition-equivariance failure names
+JAX_COMPILED_VERDICT = (
+    [("group-closure", "info"), ("orbit-structure", "info"),
+     ("fingerprint-invariance", "info"), ("property-invariance", "info"),
+     ("transition-equivariance", "error"), ("ample-enabledness", "error"),
+     ("ample-non-suppression", "error")],
+    6,
+)
 #: the kernels each engine's main path must launch
 MERGE_KERNELS = ("member_sorted", "merge_sorted")
 HASH_KERNELS = ("hash_insert",)
@@ -1204,10 +1245,26 @@ def _reduced_checker(flags, lane: str, n: int, sparse=None):
 def reduced_run(lane: str, n: int, sparse=None, **reductions) -> dict:
     """One reduced run on the card (``run_main``); a ``--symmetry``
     run is held to the same run on the CPU."""
+    from stateright_tpu_torch.analysis import soundness
     from stateright_tpu_torch.cli import RunFlags
 
+    # each spawn makes its own certificate, so that every reduction's
+    # gate is seen to run at spawn, outside the run's clock
+    soundness._CERT_CACHE.clear()
+    t0 = time.monotonic()
     checker = _reduced_checker(RunFlags(**reductions), lane, n, sparse)
+    print(f"  spawn with its soundness gate {time.monotonic() - t0:.3f}s",
+          flush=True)
+    assert len(soundness._CERT_CACHE) == 1, "the spawn ran no gate"
     run = run_main(checker, print_lines=1)
+    # the lane config every trace's run_begin embeds: the spawn gate
+    # certified the reduction
+    cfg = checker._lane_config()
+    assert (cfg["symmetry"], cfg["ample_set"], cfg["soundness_certified"]
+            ) == (bool(reductions.get("symmetry")),
+                  bool(reductions.get("ample_set")), True), cfg
+    print(f"  lane: symmetry={cfg['symmetry']} ample_set={cfg['ample_set']}"
+          f" soundness_certified={cfg['soundness_certified']}", flush=True)
     if not reductions.get("symmetry"):
         return run
     t0 = time.monotonic()
@@ -1270,6 +1327,196 @@ def register8_sym():
     run = reduced_run("register", 8, symmetry=True)
     assert run["unique"] == 1 + 8 * 9 == 73, run["unique"]
     assert run["names"] == {"all done", "lost write"}, run["names"]
+    return run
+
+
+# -- the reduction soundness analyzer and its gate --------------------------
+
+
+def _analyze_cli(*extra) -> list:
+    """``analyze soundness --no-artifact`` in a process of its own: its
+    lines, each target's timing bracket dropped."""
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "stateright_tpu_torch", "analyze",
+         "soundness", "--no-artifact", *extra],
+        capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    for line in out.stdout.splitlines():
+        print(f"  {line[:160]}", flush=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    print(f"  process wall {wall:.3f}s {' '.join(extra) or '(the card)'}",
+          flush=True)
+    lines = out.stdout.splitlines()
+    for name, enc in (("2pc", "TwoPhaseSysEncoded(4)"),
+                      ("register", "NClientRegEncoded(4)")):
+        assert any(ln.startswith(f"{name} ({enc}): certified [")
+                   for ln in lines), name
+    assert not any(ln.strip().startswith("FAIL") for ln in lines)
+    return [ln.split(" [")[0] if "): " in ln else ln for ln in lines]
+
+
+COLD_GATE_FLAG = "--cold-gate"
+
+
+def cold_certificate() -> None:
+    """In a fresh process: the seconds of ``import torch``, of the
+    package's import and of 2pc rm=9's first certificate on the card;
+    neither ``torch._dynamo`` nor sympy may be imported on the way."""
+    code = (
+        "import sys, time\n"
+        "t0 = time.monotonic()\n"
+        "import torch\n"
+        "t1 = time.monotonic()\n"
+        "from stateright_tpu_torch.analysis.soundness import "
+        "certify_encoding\n"
+        "from stateright_tpu_torch.models.two_phase_commit_tpu import "
+        "TwoPhaseSysEncoded\n"
+        "t2 = time.monotonic()\n"
+        "assert certify_encoding(TwoPhaseSysEncoded(9)).certified\n"
+        "torch.cuda.synchronize()\n"
+        "t3 = time.monotonic()\n"
+        "print(t1 - t0, t2 - t1, t3 - t2, sorted(\n"
+        "    m for m in ('torch._dynamo', 'sympy') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    imp, pkg, cert, heavy = out.stdout.strip().split(" ", 3)
+    print(f"  fresh process: import torch {float(imp):.3f}s, the package "
+          f"{float(pkg):.3f}s, 2pc rm=9's first certificate on the card "
+          f"{float(cert):.3f}s; compiler modules imported: {heavy}",
+          flush=True)
+    assert heavy == "[]", heavy
+
+
+def cold_gate(trees, build: bool = True) -> list:
+    """Time to verdict of a gated run in a fresh process: ``python -m
+    stateright_tpu_torch 2pc check-gpu 9 --symmetry``, then
+    ``--ample-set``, from each checkout in ``trees`` in the order given
+    (with ``build``, each first builds its kernels in an untimed ``2pc
+    check-gpu 3``). Prints each process's wall, the run's ``sec=`` and
+    the rest (Python's and torch's start, CUDA's, the spawn and its
+    gate)."""
+    for tree in dict.fromkeys(trees) if build else ():
+        subprocess.run([sys.executable, "-m", "stateright_tpu_torch", "2pc",
+                        "check-gpu", "3"], cwd=tree, capture_output=True,
+                       timeout=900, check=True)
+    recs = []
+    for flag in ("--symmetry", "--ample-set"):
+        for tree in trees:
+            t0 = time.monotonic()
+            out = subprocess.run(
+                [sys.executable, "-m", "stateright_tpu_torch", "2pc",
+                 "check-gpu", "9", flag], cwd=tree, capture_output=True,
+                text=True, timeout=600)
+            wall = time.monotonic() - t0
+            assert out.returncode == 0, out.stderr[-3000:]
+            done = [ln for ln in out.stdout.splitlines()
+                    if ln.startswith("Done.")][-1]
+            sec = float(done.rsplit("sec=", 1)[1].split()[0])
+            print(f"  2pc check-gpu 9 {flag} in a fresh process ({tree}): "
+                  f"wall {wall:.3f}s, sec={sec:.3f}, outside the run "
+                  f"{wall - sec:.3f}s; {done}", flush=True)
+            recs.append((tree, flag, wall, sec))
+    return recs
+
+
+@phase("analyze soundness")
+def analyze_soundness(card: str) -> dict:
+    from stateright_tpu_torch.analysis.registry import SOUNDNESS_TARGETS
+    from stateright_tpu_torch.analysis.soundness import certify_encoding
+
+    assert _analyze_cli() == _analyze_cli("--device", "cpu")
+    secs = {}
+    for name, factory in SOUNDNESS_TARGETS:
+        certs = {}
+        for device in ("cuda", "cpu"):
+            # the second of two: the first pays each device's warm-up
+            certify_encoding(factory(None), use_cache=False, device=device)
+            certs[device] = certify_encoding(factory(None), use_cache=False,
+                                             device=device)
+        card_d, cpu_d = (certs[d].as_dict() for d in ("cuda", "cpu"))
+        secs[name] = (card_d.pop("analyzer_sec"), cpu_d.pop("analyzer_sec"))
+        assert certs["cuda"].certified, card_d
+        assert all(f.severity == "info" for f in certs["cuda"].obligations)
+        assert certs["cuda"].collapsed == []
+        assert card_d == cpu_d, (card_d, cpu_d)
+        rows = sorted({f.data["battery_rows"] for f in certs["cuda"].obligations
+                       if "battery_rows" in f.data})
+        print(f"  {name} ({certs['cuda'].encoding}): analyzer "
+              f"{secs[name][0]:.4f}s on the card, {secs[name][1]:.4f}s on "
+              f"the host, equal certificates, battery_rows={rows} "
+              f"({card})", flush=True)
+    cold_certificate()
+    cold_gate(["."], build=False)  # the build phase built the kernels
+    return secs
+
+
+@phase("reduction gate")
+def reduction_gate() -> dict:
+    import numpy as np
+
+    from stateright_tpu_torch.analysis.soundness import certify_encoding
+    from stateright_tpu_torch.cli import twopc_sizes
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.models.two_phase_commit_actors import (
+        two_phase_sys_actor_model,
+        two_phase_sys_compiled_encoded,
+    )
+    from stateright_tpu_torch.models.two_phase_commit_tpu import (
+        TwoPhaseSysEncoded,
+    )
+    from stateright_tpu_torch.ops.bitmask import pack_bits_host
+    from stateright_tpu_torch.ops.canonical import (
+        DeviceRewriteSpec,
+        MemberField,
+    )
+
+    class BadAmple(TwoPhaseSysEncoded):
+        """The JAX analyzer's mutant: every RM's spontaneous abort
+        dropped, so no dropped slot has a symmetric kept image."""
+
+        def ample_mask_host(self):
+            keep = np.ones(self.max_actions, dtype=bool)
+            keep[[4 + 5 * rm for rm in range(self.rm_count)]] = False
+            return pack_bits_host(keep)
+
+    n = 9
+    res = certify_encoding(BadAmple(n), use_cache=False, device="cuda")
+    assert [f.rule for f in res.obligations if f.severity == "error"] == [
+        "ample-non-suppression"], res.as_dict()
+    try:
+        TwoPhaseSys(rm_count=n).checker().spawn_sortmerge(
+            encoded=BadAmple(n), ample_set=True, **twopc_sizes(n))
+    except ValueError as e:
+        assert "obligation 'ample-non-suppression' failed" in str(e), e
+        print(f"  refused: {str(e)[:150]}...", flush=True)
+    else:
+        raise AssertionError("the uncertified mask ran without a waiver")
+    waived = TwoPhaseSys(rm_count=n).checker().unsound_ok().spawn_sortmerge(
+        encoded=BadAmple(n), ample_set=True, **twopc_sizes(n))
+    run = run_main(waived, print_lines=1)
+    assert 0 < run["unique"] < 10_340_352, run["unique"]
+    assert waived._lane_config()["soundness_certified"] is False
+
+    spec = DeviceRewriteSpec(2, (MemberField(0, 0, 2, 2, sort_key=True),))
+    enc = two_phase_sys_compiled_encoded(2, device_rewrite_spec=spec,
+                                         ample_mask=(1,))
+    res = certify_encoding(enc, use_cache=False, device="cuda")
+    want, row = JAX_COMPILED_VERDICT
+    assert [(f.rule, f.severity) for f in res.obligations] == want, \
+        res.as_dict()
+    assert res.failed("symmetry").data["row"] == row
+    print(f"  compiled 2pc-actors rm=2: the JAX verdict, failed "
+          f"{[r for r, sev in want if sev == 'error']}, row {row}",
+          flush=True)
+    try:
+        two_phase_sys_actor_model(2).checker().symmetry().spawn_sortmerge(
+            encoded=enc)
+    except ValueError as e:
+        assert "obligation 'transition-equivariance' failed" in str(e), e
+    else:
+        raise AssertionError("the compiled spec spawned without a waiver")
     return run
 
 
@@ -1386,16 +1633,29 @@ def sim_device_ops(max_steps: int) -> int:
                if ev.device_type == DeviceType.CUDA)
 
 
-def _device_kernels(max_steps: int) -> int:
-    """``sim_device_ops`` in a process of its own: a second profiler
-    session in one process can come back empty, and the last phase
-    takes this process's one session."""
-    out = subprocess.run([sys.executable, __file__, SIM_OPS_FLAG,
-                          str(max_steps)], capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        raise RuntimeError(f"device-op count failed: {out.stderr[-2000:]}")
-    return int(out.stdout.split()[-1])
+def _device_kernels(*max_steps: int) -> list:
+    """``sim_device_ops`` for each of ``max_steps``, each in a process
+    of its own, all started together: a second profiler session in one
+    process can come back empty, and the last phase takes this
+    process's one session."""
+    procs = [subprocess.Popen([sys.executable, __file__, SIM_OPS_FLAG,
+                               str(n)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for n in max_steps]
+    counts = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"device-op count failed: {err[-2000:]}")
+            counts.append(int(out.split()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return counts
 
 
 @phase("simulation paxos check 4")
@@ -1406,7 +1666,7 @@ def sim_paxos4():
     run = sim_run(_paxos_sim(SIM_PAXOS_STEPS))
     assert run["states"] == 16_384 * (1 + SIM_PAXOS_STEPS)
     assert run["names"] <= {"value chosen"}, run["names"]
-    one, two = _device_kernels(1), _device_kernels(2)
+    one, two = _device_kernels(1, 2)
     run["kernels_a_step"] = two - one
     print(f"  kernels a walk step: {two - one} (1-step run {one}, 2-step "
           f"run {two})", flush=True)
@@ -3834,6 +4094,8 @@ def main() -> int:
     runs["2pc rm=9 --ample-set"] = rm9_ample()
     runs["2pc rm=9 --symmetry --ample-set"] = rm9_sym_ample()
     runs["register 8 --symmetry"] = register8_sym()
+    analyze_soundness(card)
+    gated = {"2pc rm=9 --ample-set waived (BadAmple)": reduction_gate()}
     hashes = {"hash 2pc rm=5": hash_rm5(), "hash paxos 2c/3s": hash_paxos2(),
               "hash 2pc rm=9": hash_rm9(), "hash paxos 4": hash_paxos4()}
     host_bfs_rm5()
@@ -3879,7 +4141,7 @@ def main() -> int:
                 for path, run in {**runs, **lanes, **sims, **hybrids,
                                   **hashes, **ckpts, **meshes,
                                   **traced, **batched,
-                                  **served}.items()}
+                                  **served, **gated}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())
@@ -3929,5 +4191,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [SIM_OPS_FLAG]:
         print(sim_device_ops(int(sys.argv[2])))
+        sys.exit(0)
+    if sys.argv[1:2] == [COLD_GATE_FLAG] and sys.argv[2:]:
+        print(f"card: {card_line()}", flush=True)
+        cold_gate(sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

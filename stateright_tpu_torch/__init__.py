@@ -17,9 +17,10 @@ framework with its adapters (``choice``, ``ordered_reliable_link``,
 linearizability and sequential-consistency testers and the
 actor→encoding compiler; host symmetry (``symmetry.py``, the generic
 actor representative included), device symmetry reduction and the
-static ample-set filter (``ops/canonical.py``, gated by
-``soundness.py``); the hash wave engine (``spawn_hash``, the JAX
-``spawn_tpu``), its open-addressing insert a CUDA kernel
+static ample-set filter (``ops/canonical.py``), gated by the
+reduction soundness analyzer (``analysis/``); the hash wave engine
+(``spawn_hash``, the JAX ``spawn_tpu``), its open-addressing insert a
+CUDA kernel
 (``csrc/hashset.cu``); the host checkers (``spawn_bfs``, ``spawn_dfs``,
 ``spawn_on_demand``, ``spawn_simulation``), the device simulation
 (``spawn_device_simulation``), the hybrid racer of the DFS and the
@@ -36,7 +37,7 @@ on the device or ``check N`` on the host, ``check-sym`` on ``2pc``,
 ``increment``, ``increment-lock`` and ``register``, ``explore``, and
 ``spawn`` on ``paxos``, ``single-copy-register`` and
 ``linearizable-register``; the ``timers``, ``interaction`` and
-``panic`` lanes; ``serve`` and ``--connect``.
+``panic`` lanes; ``serve`` and ``--connect``; ``analyze soundness``.
 """
 
 from .checker import Checker, CheckerBuilder, DiscoveryClassification

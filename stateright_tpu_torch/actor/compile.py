@@ -53,7 +53,8 @@ runs the sparse one unless asked for ``sparse=False``. ``optimize=False``
 (the naive sparse emission, an ablation baseline) raises
 ``NotImplementedError``. The symmetry and ample-set declarations
 (``device_rewrite_spec``, ``ample_mask``) are taken, with the JAX
-package's validation, and the engines gate them (soundness.py).
+package's validation, and the engines gate them on the soundness
+analyzer's certificate (analysis/soundness.py).
 
 The encoding's identity (:meth:`CompiledActorEncoding.cache_key`, which
 a snapshot's encoding fingerprint reads, checkpoint.py) is the port's
@@ -331,8 +332,9 @@ def compile_actor_model(
     declares the encoding's interchangeable limb group for device
     symmetry reduction — validated against the compiled lane layout.
     ``ample_mask`` is a packed slot-word tuple (ops/bitmask.py layout)
-    for the static ample-set filter. Neither is on the port's certified
-    list (soundness.py), so the engine runs them only with
+    for the static ample-set filter. The engine runs each only once the
+    soundness analyzer certifies it (analysis/soundness.py) — it names
+    the obligation that fails otherwise — or with
     ``CheckerBuilder.unsound_ok()``.
 
     ``optimize`` (default True) runs the post-``_build_tables`` codegen

@@ -6,10 +6,11 @@ port's run telemetry needs (telemetry.py): the round numbering of the
 :func:`artifact_path`, :func:`latest_artifact`) and the provenance block
 every artifact embeds (:func:`provenance`). ``TRACE_r*`` pairs share
 one round sequence with the ``BENCH``/``LINT``/``MULTICHIP`` artifacts;
-``MEM_r*``, ``LAT_r*`` and ``SLO_r*`` each number in a sequence of
-their own (``next_round(root, stems=("MEM",))``);
-:func:`latest_slo_summary` cross-references the newest SLO gate and
-:func:`latest_serve_summary` the newest service report (``SERVE_r*``).
+``MEM_r*``, ``LAT_r*``, ``SLO_r*`` and ``SOUND_r*`` each number in a
+sequence of their own (``next_round(root, stems=("MEM",))``);
+:func:`latest_slo_summary` cross-references the newest SLO gate,
+:func:`latest_serve_summary` the newest service report (``SERVE_r*``)
+and :func:`latest_soundness_summary` the newest soundness certificate.
 
 The artifacts' root is :func:`repo_root` unless the caller names one,
 or the ``STPU_TORCH_ARTIFACT_ROOT`` environment variable does.
@@ -263,4 +264,47 @@ def latest_slo_summary(root: str | None = None) -> dict | None:
         ),
         "ok": bool(evaluation.get("ok")),
         "objectives": dict(sorted(objectives.items())),
+    }
+
+
+def latest_soundness_summary(root: str | None = None) -> dict | None:
+    """Cross-reference block of the newest ``SOUND_r*.json`` (reduction
+    soundness certificates, analysis/soundness.py): artifact name, clean
+    flag (every checked spec certified), the SHA that produced it,
+    whether that is HEAD of a clean tree, and the per-spec status map.
+    Best effort: a missing, hand-edited or truncated artifact gives
+    None, never a raise."""
+    path = latest_artifact("SOUND", root)
+    if path is None:
+        return None
+    try:
+        with open(path) as fh:
+            report = json.load(fh)
+        specs_block = report.get("specs")
+        if not isinstance(specs_block, dict) or not specs_block:
+            return None
+        specs = {
+            str(name): str(s["status"])
+            for name, s in specs_block.items()
+            if isinstance(s, dict) and "status" in s
+        }
+        prov = report.get("provenance")
+        sound_sha = prov.get("git_sha") if isinstance(prov, dict) else None
+    except (OSError, ValueError, TypeError, AttributeError, KeyError):
+        return None
+    if not specs:
+        return None
+    repo = repo_root() if root is None else root
+    head = _git_sha(repo)
+    dirty = _git_dirty(repo)
+    return {
+        "artifact": os.path.basename(path),
+        "clean": bool(report.get("clean")),
+        "git_sha": sound_sha,
+        "sha_matches_head": (
+            sound_sha == head
+            if sound_sha is not None and head is not None and dirty is False
+            else None
+        ),
+        "specs": dict(sorted(specs.items())),
     }

@@ -43,7 +43,7 @@ class CheckerBuilder:
         self._visitor: Optional[CheckerVisitor] = None
 
     def unsound_ok(self) -> "CheckerBuilder":
-        """Waive the reduction gate (soundness.py): a declared
+        """Waive the reduction gate (analysis/soundness.py): a declared
         ``DeviceRewriteSpec`` or ample mask that is not certified runs
         anyway instead of refusing at spawn (``--unsound-ok`` on the
         CLI) — the run's counts carry no soundness guarantee."""

@@ -47,7 +47,7 @@ def symmetry_refusal(engine: str,
 def soundness_refusal(engine: str, reduction: str, obligation: str,
                       detail: str) -> ValueError:
     """The certificate refusal: a declared spec or mask is not
-    certified (soundness.py), so the engine refuses to trust it.
+    certified (analysis/soundness.py), so the engine refuses to trust it.
     ``reduction`` is ``"symmetry"`` or ``"ample-set"``; ``obligation``
     names what could not be shown."""
     parts = [
@@ -55,7 +55,7 @@ def soundness_refusal(engine: str, reduction: str, obligation: str,
         f"failed — {detail}",
         "pass --unsound-ok (CheckerBuilder.unsound_ok()) to run the "
         "uncertified reduction anyway "
-        "(stateright_tpu_torch/soundness.py)",
+        "(stateright_tpu_torch/analysis/soundness.py)",
     ]
     return reduction_refusal(reduction, engine, parts)
 

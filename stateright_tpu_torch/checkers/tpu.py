@@ -293,6 +293,9 @@ class TpuBfsChecker(Checker):
                 )
             encoded = to_encoded()
         self.encoded = encoded
+        #: the device every wave runs on: the CUDA device unless the
+        #: caller asks for the CPU.
+        self.device = torch.device(device if device is not None else "cuda")
         #: waive the reduction gate (``CheckerBuilder.unsound_ok()``)
         self.unsound_ok = builder._unsound_ok
         #: the device symmetry spec when the reduction is on: candidates
@@ -313,9 +316,6 @@ class TpuBfsChecker(Checker):
         self.cand_capacity = cand_capacity
         self.probe_rounds = probe_rounds
         self.track_paths = track_paths
-        #: the device every wave runs on: the CUDA device unless the
-        #: caller asks for the CPU.
-        self.device = torch.device(device if device is not None else "cuda")
         #: per-run wave metrics, set as the run goes
         self.metrics: dict = {}
         #: property name -> fingerprint of the discovery state.

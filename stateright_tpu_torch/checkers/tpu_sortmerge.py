@@ -38,7 +38,7 @@ One wave, on the ``[W, n]`` lane-major frontier:
    on the card.
 
 Two reductions ride the wave, each armed by the caller and gated by
-soundness.py:
+the soundness analyzer's certificate (analysis/soundness.py):
 
 * symmetry (``CheckerBuilder.symmetry()``): every block is mapped to its
   orbit representatives (ops/canonical.py) just before each fingerprint
@@ -330,10 +330,11 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     ``[W, rows*K]`` int64 successor block of one dense chunk.
 
     ``ample_set=True`` ANDs the encoding's ``ample_mask_host()`` words
-    into the sparse enabled bits (a static partial-order reduction);
-    the run refuses, when it starts, on the dense wave, without a mask,
-    or with a mask the gate does not certify (unless
-    ``CheckerBuilder.unsound_ok()``).
+    into the sparse enabled bits (a static partial-order reduction):
+    a mask the gate does not certify refuses at spawn, as an
+    uncertified symmetry spec does (unless
+    ``CheckerBuilder.unsound_ok()``), and the run refuses, when it
+    starts, on the dense wave or without a mask.
 
     ``tier_hot_rows`` arms the tiered visited set (tier.py): None (the
     default) keeps every visited key on the device; an int ``>= 1`` is
@@ -384,6 +385,8 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 f"needs {' and '.join(missing)}, which "
                 f"{type(self.encoded).__name__} does not have"
             )
+        if self.ample_set:
+            self._gate_ample()
         self._start: Optional[WaveState] = None
         #: the state the last run ended in
         self._final: Optional[WaveState] = None
@@ -395,9 +398,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
 
     def _resolve_symmetry(self):
         """The encoding's ``DeviceRewriteSpec``, through the capability
-        refusal and then the gate (soundness.py)."""
+        refusal and then the certificate gate (analysis/soundness.py):
+        a declared spec runs only once its obligations are discharged,
+        an uncertifiable one refuses here, at spawn, with the failed
+        obligation, unless waived."""
+        from ..analysis.soundness import gate_symmetry
         from ..encoding import device_rewrite_spec
-        from ..soundness import gate_symmetry
 
         enc = self.encoded
         spec = device_rewrite_spec(enc)
@@ -411,7 +417,7 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                     "layout of the interchangeable limb group"
                 ),
             )
-        gate_symmetry(enc, self._engine_name, self.unsound_ok)
+        gate_symmetry(enc, self._engine_name, self.unsound_ok, self.device)
         return spec
 
     def _use_sparse(self) -> bool:
@@ -420,13 +426,28 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
         return (hasattr(self.encoded, "enabled_bits_cols")
                 and hasattr(self.encoded, "step_slot_cols"))
 
+    def _gate_ample(self) -> None:
+        """The certificate gate of a declared mask, at spawn beside the
+        symmetry gate, so that no run's clock holds the analyzer: the
+        mask filters only once enabledness preservation and
+        non-suppression are discharged. A run with no usable mask
+        refuses when it starts (:meth:`_resolve_ample_words`)."""
+        from ..analysis.soundness import gate_ample
+        from ..encoding import ample_mask_host
+
+        aw = ample_mask_host(self.encoded) if self._use_sparse() else None
+        if aw is not None and aw.shape[0] == mask_words(
+                self.encoded.max_actions):
+            gate_ample(self.encoded, self._engine_name, self.unsound_ok,
+                       self.device)
+
     def _resolve_ample_words(self):
         """The validated ample mask as a device ``int64[L]``, or None
-        when the filter is off (JAX ``_resolve_ample_words``)."""
+        when the filter is off (JAX ``_resolve_ample_words``); the spawn
+        ran its certificate gate."""
         if not self.ample_set:
             return None
         from ..encoding import ample_mask_host
-        from ..soundness import gate_ample
 
         enc = self.encoded
         if not self._use_sparse():
@@ -449,7 +470,6 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                 f"max_actions={enc.max_actions} needs "
                 f"{mask_words(enc.max_actions)}"
             )
-        gate_ample(enc, self._engine_name, self.unsound_ok)
         return torch.from_numpy(aw.astype(np.int64)).to(self.device)
 
     def start_from(self, state: WaveState) -> "SortMergeTpuBfsChecker":
@@ -780,7 +800,17 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
     def _lane_config(self) -> dict:
         lane = super()._lane_config()
         lane.update(expansion="sparse" if self._use_sparse() else "dense",
-                    tier_hot_rows=self.tier_hot_rows, visited_exact=True)
+                    tier_hot_rows=self.tier_hot_rows, visited_exact=True,
+                    symmetry=self.sym_spec is not None,
+                    ample_set=self.ample_set)
+        if self.sym_spec is not None or self.ample_set:
+            # certificate provenance rides the lane config, and so every
+            # trace's run_begin: True/False when the analyzer ran,
+            # absent when no reduction is on (JAX _lane_config)
+            from ..analysis.soundness import soundness_status
+
+            lane.update(soundness_certified=soundness_status(
+                self.encoded, self.device))
         return lane
 
     def _visited_bytes_per_row(self) -> int:

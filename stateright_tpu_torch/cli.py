@@ -41,7 +41,10 @@ Three flags arm the reductions, as in the JAX lanes: ``--symmetry`` (the
 ``2pc`` and ``register`` lanes: canonical fingerprints before dedup,
 ops/canonical.py), ``--ample-set`` (any sparse lane whose encoding
 declares an ample mask) and ``--unsound-ok`` (run a spec or mask the
-port's gate, soundness.py, does not certify). ``--tier-hot-rows=N``
+reduction soundness analyzer, analysis/soundness.py, does not certify).
+``analyze soundness [MODEL] [COUNT] [--no-artifact] [--device cpu]``
+runs that analyzer over the registered targets (2pc, register) and
+writes the ``SOUND_r*.json`` certificate. ``--tier-hot-rows=N``
 (or ``=auto``) tiers the visited set of any ``check-gpu`` lane: at most
 N keys stay on the device and the rest spill to sorted runs in host
 memory (tier.py); ``auto`` takes N from ``memplan.decide_hot_rows``
@@ -894,9 +897,16 @@ def _usage() -> None:
           "ops/canonical.py; 2pc rm=5: 8,832 -> 314 states); --ample-set "
           "on a sparse check-gpu lane ANDs the encoding's partial-order "
           "ample mask into the enabled-bits pass (fewer interleavings, "
-          "same verdicts). Both consult the port's certified list "
-          "(soundness.py): a spec or mask not on it refuses at spawn; "
-          "--unsound-ok waives the gate (no soundness guarantee)")
+          "same verdicts). Both consult the reduction soundness "
+          "certificate (analysis/soundness.py): uncertifiable specs "
+          "refuse at spawn with the failed obligation; --unsound-ok "
+          "waives the gate (no soundness guarantee)")
+    print("  python -m stateright_tpu_torch analyze soundness [MODEL] "
+          "[COUNT] [--no-artifact] [--device cuda|cpu]")
+    print("       runs the reduction soundness analyzer over the "
+          "registered targets (2pc, register), its battery on the card "
+          "unless --device cpu, and writes the SOUND_r*.json certificate "
+          "the engine gates consult")
 
 
 def _pop_trace_flags(argv: list[str]):
@@ -979,6 +989,12 @@ def main(argv: list[str] | None = None) -> None:
         from .serve import client_main
 
         raise SystemExit(client_main(connect, argv))
+    # the static-analysis lane: `analyze soundness [MODEL]` runs the
+    # reduction soundness analyzer and writes SOUND_r*.json
+    if argv and argv[0] == "analyze":
+        from .analysis.soundness import analyze_main
+
+        raise SystemExit(analyze_main(argv[1:]))
     level, root, argv = _pop_trace_flags(argv)
     interval, metrics_path, argv = _pop_metrics_flags(argv)
     flags, argv = _pop_flags(argv)

@@ -134,8 +134,8 @@ class SymmetricEncodedModel(Protocol):
     states and paths stay replayable (dfs.rs:300-311).
 
     The spec MUST be constant on orbits: sort on the FULL per-member
-    tuple. A declared spec runs only if the port's gate certifies it
-    (soundness.py), or with ``unsound_ok()``."""
+    tuple. A declared spec runs only if the soundness analyzer
+    certifies it (analysis/soundness.py), or with ``unsound_ok()``."""
 
     def device_rewrite_spec(self):
         """``DeviceRewriteSpec`` for this encoding's interchangeable
@@ -156,8 +156,8 @@ def ample_mask_host(enc):
     ``uint32[ceil(max_actions/32)]`` numpy array in the ops/bitmask.py
     word layout), or None when it declares none. The sparse engine ANDs
     the words into every row's enabled bits — a static
-    partial-order-reduction filter, run only if the port's gate
-    certifies it (soundness.py), or with ``unsound_ok()``."""
+    partial-order-reduction filter, run only if the soundness analyzer
+    certifies it (analysis/soundness.py), or with ``unsound_ok()``."""
     fn = getattr(enc, "ample_mask_host", None)
     if not callable(fn):
         return None

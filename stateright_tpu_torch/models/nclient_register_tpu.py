@@ -65,8 +65,7 @@ class NClientRegEncoded(EncodedModelBase):
         """Client permutation symmetry: one strided 4-bit field on
         lane 1 holding the FULL per-client tuple (pc, won, rv), all
         of it in the sort key — a perfect canonicalizer, certified by
-        the JAX analyzer (``SOUND_r01.json``) and so on the port's list
-        (soundness.py)."""
+        the soundness analyzer (analysis/soundness.py)."""
         if self.n_clients < 2:
             return None
         return DeviceRewriteSpec(

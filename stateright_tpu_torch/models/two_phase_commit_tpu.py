@@ -126,9 +126,10 @@ class TwoPhaseSysEncoded(EncodedModelBase):
         reach, a subset of the full space, so it can produce no false
         violation; a missed violation would need a state whose every
         path uses a choose_abort by rm ≥ 1, and by RM symmetry such a
-        path maps to one using rm 0's. The JAX analyzer certified this
-        mask (``SOUND_r01.json``), which puts it on the port's list
-        (soundness.py)."""
+        path maps to one using rm 0's. The soundness analyzer
+        (analysis/soundness.py) certifies this mask: enabledness
+        preservation and non-suppression over the traced guard, step
+        and property functions."""
         keep = np.ones(self.max_actions, dtype=bool)
         for rm in range(1, self.rm_count):
             keep[4 + 5 * rm] = False

@@ -26,8 +26,8 @@ port: every complement is masked to 32 bits, and no value leaves
 :func:`validate_spec` checks the spec's STRUCTURAL invariants with the
 JAX package's exact bounds (the packed key must fit 32 bits, although
 an int64 would hold more: the port refuses what the reference
-refuses). Whether a declared spec is SOUND is the gate's question
-(soundness.py).
+refuses). Whether a declared spec is SOUND is the soundness
+analyzer's question (analysis/soundness.py).
 """
 
 from __future__ import annotations

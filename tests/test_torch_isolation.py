@@ -206,6 +206,36 @@ def test_host_layer_lanes_load_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
+def test_analyzer_and_gated_runs_load_no_jax():
+    """``analyze soundness`` on both targets and a gated ``--symmetry
+    --ample-set`` run in one process load neither jax nor the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "from stateright_tpu_torch.analysis.soundness import analyze_main\n"
+        "print('RC', analyze_main(['soundness', '--no-artifact',"
+        " '--device', 'cpu']))\n"
+        "from stateright_tpu_torch.cli import main\n"
+        "main(['2pc', 'check-gpu', '3', '--symmetry', '--ample-set',"
+        " '--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
+        " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
+        " 'stateright_tpu.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "2pc (TwoPhaseSysEncoded(4)): certified" in out.stdout
+    assert "register (NClientRegEncoded(4)): certified" in out.stdout
+    assert "RC 0" in out.stdout
+    assert "Done. states=270, unique=76, depth=11" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
 def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "stateright_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -228,7 +258,10 @@ def test_no_jax_imports_in_port_sources():
                    "semantics/sequential_consistency.py",
                    "models/timers.py", "models/interaction.py",
                    "actor/choice.py", "actor/ordered_reliable_link.py",
-                   "actor/write_once_register.py", "actor/spawn.py"):
+                   "actor/write_once_register.py", "actor/spawn.py",
+                   "analysis/__init__.py", "analysis/rules.py",
+                   "analysis/walker.py", "analysis/soundness.py",
+                   "analysis/registry.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -14,14 +14,16 @@ held against the JAX package.
   ``spawn_tpu_sortmerge`` CPU run (four JAX runs, shared through one
   module fixture; the ample runs with ``unsound_ok``, see below);
 * the refusals speak the JAX wording: a missing capability, no ample
-  mask, the dense wave with ``ample_set``, and a spec or mask the port's
-  gate does not list (which runs with ``unsound_ok``);
-* the gate's list is the JAX analyzer's: ``certify_encoding`` certifies
-  the listed symmetry specs, whose fields equal the port's. The JAX
+  mask, the dense wave with ``ample_set``, and a spec or mask the
+  port's soundness analyzer (analysis/soundness.py) refuses, which
+  names the failed obligation and runs with ``unsound_ok``;
+* the port's gate certifies what the JAX analyzer certifies: the 2pc
+  and register symmetry specs, whose fields equal the port's. The JAX
   analyzer does not certify 2pc's ample mask under JAX 0.9 (its walker
-  names only ``pjit``), so the ample entry rests on the
-  committed ``SOUND_r01.json`` and on verdict parity with the JAX
-  engine run with ``unsound_ok``.
+  names only ``pjit``), so the ample verdict is held to the committed
+  ``SOUND_r01.json`` and to verdict parity with the JAX engine run
+  with ``unsound_ok``. tests/test_torch_analysis.py holds the analyzer
+  to JAX's rule by rule.
 """
 
 import json
@@ -69,8 +71,8 @@ def _builder(pkg: str, name: str):
         b = b.symmetry()
     if ample:
         # the JAX analyzer does not certify the 2pc mask under JAX 0.9
-        # (see the module docstring); the port's list does, so its runs
-        # need no waiver
+        # (see the module docstring); the port's analyzer does, so its
+        # runs need no waiver
         b = b.unsound_ok() if pkg == "jax" else b
     return b, ample
 
@@ -265,7 +267,7 @@ def test_refusal_wording_is_jax(jax_runs):
     js = str(jc.soundness_refusal("E", "ample-set", "rule", "why"))
     ps = str(pc.soundness_refusal("E", "ample-set", "rule", "why"))
     assert ps == js.replace("stateright_tpu/analysis/soundness.py",
-                            "stateright_tpu_torch/soundness.py")
+                            "stateright_tpu_torch/analysis/soundness.py")
     # the capability refusal: the same head and missing capability
     with pytest.raises(ValueError) as je:
         _paxos("jax").checker().symmetry().spawn_tpu_sortmerge(
@@ -300,19 +302,50 @@ def test_dense_ample_set_refuses():
 
 
 def test_unlisted_spec_and_mask_refuse_unless_waived():
+    """A subclass declaring 2pc's own spec and mask certifies and runs; a
+    spec or mask the analyzer refuses raises at spawn naming the failed
+    obligation, with the JAX wording, unless ``unsound_ok()`` waives it.
+    The certificate is keyed on the declared spec and mask, so an
+    instance declaring another mask than its type's is analyzed anew."""
+    from stateright_tpu_torch.analysis.soundness import certify_encoding
     from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
     from stateright_tpu_torch.models.two_phase_commit_tpu import (
         TwoPhaseSysEncoded,
     )
-    from stateright_tpu_torch.soundness import certified
+    from stateright_tpu_torch.ops.bitmask import pack_bits_host
+    from stateright_tpu_torch.ops.canonical import (
+        DeviceRewriteSpec,
+        MemberField,
+    )
 
-    class Unlisted(TwoPhaseSysEncoded):
-        """The listed spec and mask, but not the listed type."""
+    class Same(TwoPhaseSysEncoded):
+        """The type's spec and mask on another type."""
 
-    enc = Unlisted(3)
-    assert not certified(enc, "symmetry") and not certified(enc, "ample")
-    for sym, ample, head in ((True, False, "symmetry"),
-                             (False, True, "ample-set")):
+    class Overlap(TwoPhaseSysEncoded):
+        """Two lane-0 member fields that share a bit."""
+
+        def device_rewrite_spec(self):
+            return DeviceRewriteSpec(self.rm_count, (
+                MemberField(0, 0, 2, 2, sort_key=True),
+                MemberField(0, 1, 2, 1, sort_key=True)))
+
+    def drop_every_abort(enc):
+        keep = np.ones(enc.max_actions, dtype=bool)
+        keep[[4 + 5 * rm for rm in range(enc.rm_count)]] = False
+        return pack_bits_host(keep)
+
+    same = Same(3)
+    res = certify_encoding(same, device="cpu")
+    assert res.sym_certified is True and res.ample_certified is True
+    c = TwoPhaseSys(rm_count=3).checker().symmetry().spawn_sortmerge(
+        encoded=same, device="cpu", ample_set=True).join()
+    assert c.unique_state_count() == 76
+
+    bad_mask = TwoPhaseSysEncoded(3)
+    bad_mask.ample_mask_host = lambda: drop_every_abort(bad_mask)
+    for enc, sym, ample, head, rule in (
+            (Overlap(3), True, False, "symmetry", "group-closure"),
+            (bad_mask, False, True, "ample-set", "ample-non-suppression")):
         b = TwoPhaseSys(rm_count=3).checker()
         b = b.symmetry() if sym else b
         with pytest.raises(ValueError) as e:
@@ -321,24 +354,25 @@ def test_unlisted_spec_and_mask_refuse_unless_waived():
         msg = str(e.value)
         assert msg.startswith(
             f"{head} reduction: spawn_sortmerge cannot honor it; "
-            "soundness certificate refused: obligation 'certified-list' "
-            "failed — Unlisted's ")
-        assert "not on the port's certified list" in msg
+            f"soundness certificate refused: obligation {rule!r} "
+            "failed — "), msg
         assert "pass --unsound-ok (CheckerBuilder.unsound_ok())" in msg
+        assert "stateright_tpu_torch/analysis/soundness.py" in msg
     waived = TwoPhaseSys(rm_count=3).checker().symmetry().unsound_ok()
-    c = waived.spawn_sortmerge(encoded=enc, device="cpu",
-                               ample_set=True).join()
-    assert c.unique_state_count() == 76
-    # an instance that declares another spec than its type's is unlisted
-    listed = TwoPhaseSysEncoded(3)
-    assert certified(listed, "symmetry") and certified(listed, "ample")
-    listed.ample_mask_host = lambda: (0xFFFFFFFF,)
-    assert not certified(listed, "ample")
+    c = waived.spawn_sortmerge(encoded=Overlap(3), device="cpu").join()
+    assert c.sym_spec is not None and c.unique_state_count() > 0
+    c = TwoPhaseSys(rm_count=3).checker().unsound_ok().spawn_sortmerge(
+        encoded=bad_mask, device="cpu", ample_set=True).join()
+    assert 0 < c.unique_state_count() < 260
 
 
 def test_compiled_encoding_spec_is_gated():
     """A spec passed to the actor compiler is validated against the
-    compiled width and, not being on the list, runs only waived."""
+    compiled width and analyzed like any other: this one's successor
+    sets do not commute with the RM swap, and its one-slot mask drops
+    enabled slots, so each refuses with its obligation and runs only
+    waived."""
+    from stateright_tpu_torch.analysis.soundness import certify_encoding
     from stateright_tpu_torch.ops.canonical import (
         DeviceRewriteSpec,
         MemberField,
@@ -353,25 +387,37 @@ def test_compiled_encoding_spec_is_gated():
                                          ample_mask=(1,))
     assert enc.device_rewrite_spec() is spec
     assert enc.ample_mask_host() == (1,)
+    res = certify_encoding(enc, device="cpu")
+    assert res.failed("symmetry").rule == "transition-equivariance"
+    assert res.failed("ample").rule == "ample-enabledness"
     model = two_phase_sys_actor_model(2)
-    with pytest.raises(ValueError, match="'certified-list'"):
+    with pytest.raises(ValueError, match="'transition-equivariance'"):
         model.checker().symmetry().spawn_sortmerge(encoded=enc,
                                                    device="cpu")
+    with pytest.raises(ValueError, match="'ample-enabledness'"):
+        model.checker().spawn_sortmerge(encoded=enc, device="cpu",
+                                        ample_set=True).join()
     c = model.checker().symmetry().unsound_ok().spawn_sortmerge(
         encoded=enc, device="cpu")
     assert c.sym_spec is spec
 
 
 def test_certified_list_is_the_jax_analyzers():
+    """The port's analyzer certifies exactly what the JAX analyzer
+    certifies: the 2pc and register symmetry specs (live JAX
+    ``certify_encoding``) and 2pc's ample mask (``SOUND_r01.json``,
+    written by JAX 0.4.37: JAX 0.9's analyzer refuses it)."""
     from stateright_tpu.analysis.soundness import certify_encoding
-    from stateright_tpu_torch.soundness import certified
+    from stateright_tpu_torch.analysis.soundness import (
+        certify_encoding as port_certify,
+    )
 
     for kind, n in (("2pc", 3), ("register", 4)):
         j, p = _specs(kind, n)
         assert certify_encoding(j).sym_certified is True
         assert _fields(p.device_rewrite_spec()) == _fields(
             j.device_rewrite_spec())
-        assert certified(p, "symmetry")
+        assert port_certify(p, device="cpu").sym_certified is True
     sound = json.loads((ROOT / "SOUND_r01.json").read_text())
     assert sound["clean"]
     assert sound["specs"]["TwoPhaseSysEncoded(4)"]["ample"] is True
@@ -381,7 +427,7 @@ def test_certified_list_is_the_jax_analyzers():
         j, p = _specs("2pc", n)
         assert np.array_equal(np.asarray(p.ample_mask_host(), np.uint32),
                               np.asarray(j.ample_mask_host(), np.uint32))
-        assert certified(p, "ample")
+        assert port_certify(p, device="cpu").ample_certified is True
     _, reg = _specs("register", 4)
-    assert not certified(reg, "ample")
+    assert port_certify(reg, device="cpu").ample_certified is None
     assert _specs("register", 1)[1].device_rewrite_spec() is None
