@@ -189,7 +189,7 @@ it exits non-zero and prints no result. Phases, each ending in
 26. traced runs (telemetry.py), each trace validated
    (``validate_events``) and each run launching every kernel exactly as
    often as its untraced twin: ``2pc rm=9`` and ``paxos check 4``
-   untraced, traced (default) and traced (deep), seven times each,
+   untraced, traced (default) and traced (deep), three times each,
    interleaved in a rotating order (phase 4's and phase 6's counts every
    time; the median
    ``sec=`` of each level, the traced overheads in %, the event counts
@@ -206,12 +206,12 @@ it exits non-zero and prints no result. Phases, each ending in
 27. wave batching and the metrics plane (batch.py, metrics.py): the
    main path ``batch 2pc rm=7+8+9``, the ``2pc check-gpu 7/8/9`` lanes'
    checkers in one ``BatchGroup`` of three seats on three threads (one
-   fused hash-engine run, 2^28 slots), three times, each seat giving its
+   fused hash-engine run, 2^28 slots), twice, each seat giving its
    solo count (296,448, 1,745,408, 10,340,352) with no fallback, peeling
    in the order rm=7, rm=8, rm=9, its trace valid and without counter
    divergence from that lane's solo traced run on the card, and the
    insert launched once a fused wave plus once for the init states;
-   printed beside the median of three solo hash runs of each lane, with
+   printed beside the median of two solo hash runs of each lane, with
    each seat's ``batch_peel`` and ``batch_replay`` spans, peak memory
    and the fused engine's wall alone and idle share (``stage_profile
    --batch 7 8 9`` in a process of its own); ``batch paxos 2c/3s x2 + 2pc rm=4 x2``
@@ -288,7 +288,32 @@ it exits non-zero and prints no result. Phases, each ending in
    false``; the compiled ``two_phase_sys_compiled_encoded(2,
    device_rewrite_spec=…, ample_mask=(1,))`` gets the JAX analyzer's
    verdict (``JAX_COMPILED_VERDICT``) and its spawn refuses naming
-   ``transition-equivariance``.
+   ``transition-equivariance``;
+32. the crash matrix (``stateright_tpu_torch.tools.crash_matrix``) on
+   the card at full width, ``2pc`` rm=9 (10,340,352 unique), a snapshot
+   every 4 waves, the seeded kill at wave 11: every cell recovered,
+   refused or continue-degraded at 10,340,352 (the ``kill`` cell in two
+   CLI processes of its own, killed by ``STPU_FAULTS`` and resumed;
+   the mesh cells with both shards on the card; the hang at 25 s under
+   a 1 s watchdog floor); ``--mesh-degrade`` (2pc rm=5, 8 shards on the
+   card) reaching 8,832 on 7 shards with no counter divergence; the
+   ``--trace`` diff of the baseline against the resumed run clean; each
+   cell's wall and the snapshot bytes beside the memory plan's
+   ``resident_bytes``;
+33. the load test (``tools.serve_loadtest``) with ``2pc check-gpu 9``:
+   the A/B at 4 clients (the batched arm the fused hash engine, the FIFO
+   arm the lane's own engine; every session 10,340,352 in both arms,
+   each arm's per-query dispatch+sync and p50/p99 time to verdict);
+   then ``--sustained`` ramp 2 / spike 4 / drain 2 over the HTTP server
+   on an ephemeral port (the families scraped mid-spike, every session
+   10,340,352, per-phase p50/p99 exact and bucketed, the SLO gate at
+   ``SLO_r01.json``'s spec: p99 time to verdict and queue wait at most
+   120 s, no refusal, cache hits at least 0.5); then ``tools.trace_diff``
+   and each reader (``slo_report`` on a ``2pc check-gpu 9
+   --metrics-interval`` rollup, ``serve_report``, ``latency_report``,
+   ``shard_report``, ``mem_report``) on the artifacts of phases 32-33,
+   each exiting 0. The artifacts go to a temporary directory that is
+   deleted.
 
 Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-29) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
@@ -2892,9 +2917,10 @@ def sharded_phases(one_rm9, one_paxos4) -> tuple:
 # -- phase 26: traced runs (telemetry.py) -------------------------------------
 
 #: repetitions of each trace level in the overhead measurement (the
-#: untraced walls of one call spread by a quarter: three runs a level
-#: do not resolve a few per cent)
-TRACE_REPS = 7
+#: untraced walls of one call spread by a quarter, so even seven runs a
+#: level left the overhead unresolved; three keep the script in its
+#: time limit)
+TRACE_REPS = 3
 #: the straggler factor of the traced S = 4 run
 STRAGGLER_FACTOR = 4.0
 
@@ -3311,7 +3337,7 @@ def batch_main():
 
 
 #: repetitions of the solo hash runs and of the fused group in phase 27
-BATCH_REPS = 3
+BATCH_REPS = 2
 
 
 def _batch_main_run() -> dict:
@@ -4052,6 +4078,174 @@ def pinger_phases() -> tuple:
     return runs, hashes
 
 
+# -- phases 32-33: the operator tools (stateright_tpu_torch/tools/) ---------
+
+#: SLO_r01.json's spec, the gate of the sustained load test
+LOADTEST_SLO = dict(max_ttv_p99_sec=120.0, max_refusal_rate=0.0,
+                    max_queue_wait_p99_sec=120.0, min_cache_hit_rate=0.5)
+
+
+def _tool_launches(fn):
+    """``(fn(), launches)``: the kernel launches ``fn`` made in this
+    process, the counts zeroed just before it and read just after."""
+    import torch
+
+    _zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_launches()
+
+
+@phase("crash matrix 2pc rm=9 (tools.crash_matrix)")
+def crash_matrix_phase(tmp: str) -> dict:
+    """Phase 32: every cell of the matrix at 2pc rm=9 on the card,
+    ``--mesh-degrade`` and ``--trace``; returns the path's run and the
+    CKPT document."""
+    from stateright_tpu_torch.tools import crash_matrix
+
+    args = crash_matrix.parse_args(
+        ["--count", "9", "--waves-per-sync", "1", "--checkpoint-every",
+         "4", "--trace", "--mesh-degrade", "--json", "--root", tmp])
+    t0 = time.monotonic()
+    (code, doc), launches = _tool_launches(
+        lambda: crash_matrix.run_matrix(args))
+    wall = time.monotonic() - t0
+    assert code == 0 and doc["clean"], doc.get("cells")
+    cells = doc["cells"]
+    assert set(cells) == set(crash_matrix.CELLS) | {"mesh_degrade"}, cells
+    want = HAND.get("2pc rm=9", (10_340_352,))[0]
+    assert doc["baseline_unique"] == want == 10_340_352, doc
+    for name, c in cells.items():
+        assert c["verdict"] in crash_matrix.GOOD_VERDICTS, (name, c)
+        n = c.get("resumed", c.get("count"))
+        if name == "mesh_degrade":
+            assert (n, c["to_shards"], c["counter_divergences"]) == (
+                8_832, 7, 0), c
+        elif n is not None:
+            assert n == want, (name, c)
+        print(f"  {name}: {c['verdict']} wall {c['wall_sec']:.3f}s",
+              flush=True)
+    assert cells["kill"]["kill_wave"] == 11, cells["kill"]
+    assert cells["kill"]["trace_diff"]["counter_divergences"] == 0
+    print(f"  snapshot bytes {doc['snapshot_bytes']:,} against the memory "
+          f"plan's resident_bytes {doc['memplan_resident_bytes']:,}; the "
+          f"matrix {wall:.3f}s; launches in this process {launches}",
+          flush=True)
+    assert launches["member_sorted"] > 0 and launches["merge_sorted"] > 0
+    return dict(run=dict(launches=launches, sec=wall), doc=doc)
+
+
+@phase("load test A/B 2pc check-gpu 9 (tools.serve_loadtest)")
+def loadtest_ab(tmp: str) -> dict:
+    """Phase 33, the A/B: 4 clients batched (the fused hash engine)
+    against FIFO-serial (the sort-merge engine), every session
+    10,340,352."""
+    from stateright_tpu_torch.tools import serve_loadtest
+
+    t0 = time.monotonic()
+    (code, summary), launches = _tool_launches(
+        lambda: serve_loadtest.run_ab(["2pc", "check-gpu", "9"], 4,
+                                      json_out=True, root=tmp))
+    wall = time.monotonic() - t0
+    assert code == 0, "the A/B failed"
+    for arm in (summary["sessions"], summary["fifo_baseline"]["sessions"]):
+        assert [s["unique"] for s in arm] == [10_340_352] * 4, arm
+    lt = summary["loadtest"]
+    for label, arm in (("batched", serve_loadtest._arm_stats(summary)),
+                       ("fifo", summary["fifo_baseline"])):
+        rows = arm["sessions"]
+        print(f"  {label}: " + ", ".join(
+            f"#{r['session']} ttv {r['time_to_verdict_sec']:.4f}s "
+            f"overhead {r['overhead_sec']:.4f}s" for r in rows), flush=True)
+    print(f"  per-query dispatch+sync: batched "
+          f"{lt['batched_per_query_overhead_sec']} s, fifo "
+          f"{lt['fifo_per_query_overhead_sec']} s; the A/B {wall:.3f}s; "
+          f"launches {launches}", flush=True)
+    assert all(n > 0 for n in launches.values()), launches
+    return dict(launches=launches, sec=wall)
+
+
+@phase("load test --sustained 2pc check-gpu 9 (tools.serve_loadtest)")
+def loadtest_sustained(tmp: str) -> dict:
+    """Phase 33, sustained: ramp 2 / spike 4 / drain 2 over HTTP, every
+    session 10,340,352, the SLO gate at ``SLO_r01.json``'s spec."""
+    from stateright_tpu_torch.tools import serve_loadtest
+
+    t0 = time.monotonic()
+    (code, doc), launches = _tool_launches(
+        lambda: serve_loadtest.run_sustained(
+            ["2pc", "check-gpu", "9"],
+            [("ramp", 2), ("spike", 4), ("drain", 2)], LOADTEST_SLO,
+            json_out=True, root=tmp))
+    wall = time.monotonic() - t0
+    assert code == 0 and doc["evaluation"]["ok"], doc
+    assert doc["solo_unique"] == 10_340_352, doc
+    print(f"  observed {json.dumps(doc['observed'])}; the run {wall:.3f}s; "
+          f"launches {launches}", flush=True)
+    assert launches["member_sorted"] > 0 and launches["merge_sorted"] > 0
+    return dict(run=dict(launches=launches, sec=wall), doc=doc)
+
+
+@phase("the readers and trace_diff on phases 32-33's artifacts")
+def tool_readers(matrix: dict | None, sustained: dict | None,
+                 tmp: str) -> None:
+    """Each reader and ``trace_diff`` on the artifacts of phases 32-33,
+    each exiting 0; ``slo_report`` on a ``2pc check-gpu 9
+    --metrics-interval`` rollup."""
+    import contextlib
+
+    from stateright_tpu_torch.cli import main as cli_main
+    from stateright_tpu_torch.tools import latency_report, mem_report, \
+        serve_report, shard_report, slo_report, trace_diff
+
+    assert matrix and sustained, "phases 32-33 did not pass"
+    kill = matrix["doc"]["cells"]["kill"]["trace_diff"]
+    mesh = matrix["doc"]["mesh_degrade"]
+    serve_trace = next(a for a in sustained["doc"]["artifacts"]
+                       if a.endswith(".jsonl"))
+    rollup = os.path.join(tmp, "m.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_main(["2pc", "check-gpu", "9", "--metrics-interval=60",
+                  f"--metrics-path={rollup}"])
+
+    def at(name):
+        return os.path.join(tmp, name)
+
+    calls = (
+        (trace_diff, [at(kill["baseline"]), at(kill["resumed"])]),
+        (trace_diff, [at(mesh["baseline_trace"]),
+                      at(mesh["degraded_trace"])]),
+        (latency_report, [at(kill["baseline"])]),
+        (mem_report, [at(kill["resumed"])]),
+        (shard_report, [at(mesh["degraded_trace"])]),
+        (serve_report, [serve_trace]),
+        (slo_report, ["--rollup", rollup, "--max-ttv-p99", "120"]),
+    )
+    for tool, argv in calls:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = tool.main(argv)
+        name = tool.__name__.rsplit(".", 1)[-1]
+        lines = out.getvalue().splitlines()
+        print(f"  {name} {' '.join(os.path.basename(a) for a in argv)}: "
+              f"exit {code}; {lines[0] if lines else ''} ... "
+              f"{lines[-1] if lines else ''}", flush=True)
+        assert code == 0, (name, argv, out.getvalue()[-2000:])
+
+
+def tool_phases() -> dict:
+    """Phases 32-33: the paths' runs, keyed for the kernels line."""
+    with tempfile.TemporaryDirectory(prefix="stpu-torch-tools-") as tmp:
+        matrix = crash_matrix_phase(tmp)
+        ab = loadtest_ab(tmp)
+        sustained = loadtest_sustained(tmp)
+        tool_readers(matrix, sustained, tmp)
+    return {"crash matrix 2pc rm=9": matrix and matrix["run"],
+            "load test A/B 2pc check-gpu 9": ab,
+            "load test --sustained 2pc check-gpu 9":
+                sustained and sustained["run"]}
+
+
 def main() -> int:
     import torch
 
@@ -4131,6 +4325,7 @@ def main() -> int:
     pinger_runs, pinger_hashes = pinger_phases()
     runs.update(pinger_runs)
     hashes.update(pinger_hashes)
+    tools = tool_phases()
     # each kernel held to its plain version at every path's own shapes
     # (the lanes' waves are far narrower than these)
     at = {path: run and kernels_at(path, run["metrics"])
@@ -4141,7 +4336,7 @@ def main() -> int:
                 for path, run in {**runs, **lanes, **sims, **hybrids,
                                   **hashes, **ckpts, **meshes,
                                   **traced, **batched,
-                                  **served, **gated}.items()}
+                                  **served, **gated, **tools}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
     if (FAILED or rec is None or hash_rec is None or not all(at.values())

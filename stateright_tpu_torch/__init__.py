@@ -38,6 +38,9 @@ on the device or ``check N`` on the host, ``check-sym`` on ``2pc``,
 ``spawn`` on ``paxos``, ``single-copy-register`` and
 ``linearizable-register``; the ``timers``, ``interaction`` and
 ``panic`` lanes; ``serve`` and ``--connect``; ``analyze soundness``.
+The operator tools (``tools/``: the crash matrix, the service load test,
+``trace_diff`` and the artifact readers) run as ``python -m
+stateright_tpu_torch.tools.<name>``.
 """
 
 from .checker import Checker, CheckerBuilder, DiscoveryClassification

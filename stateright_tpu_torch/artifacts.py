@@ -6,11 +6,13 @@ port's run telemetry needs (telemetry.py): the round numbering of the
 :func:`artifact_path`, :func:`latest_artifact`) and the provenance block
 every artifact embeds (:func:`provenance`). ``TRACE_r*`` pairs share
 one round sequence with the ``BENCH``/``LINT``/``MULTICHIP`` artifacts;
-``MEM_r*``, ``LAT_r*``, ``SLO_r*`` and ``SOUND_r*`` each number in a
-sequence of their own (``next_round(root, stems=("MEM",))``);
+``MEM_r*``, ``LAT_r*``, ``SLO_r*``, ``SOUND_r*`` and ``CKPT_r*`` each
+number in a sequence of their own (``next_round(root, stems=("MEM",))``);
 :func:`latest_slo_summary` cross-references the newest SLO gate,
-:func:`latest_serve_summary` the newest service report (``SERVE_r*``)
-and :func:`latest_soundness_summary` the newest soundness certificate.
+:func:`latest_serve_summary` the newest service report (``SERVE_r*``),
+:func:`latest_soundness_summary` the newest soundness certificate and
+:func:`latest_ckpt_summary` the newest crash matrix
+(tools/crash_matrix.py).
 
 The artifacts' root is :func:`repo_root` unless the caller names one,
 or the ``STPU_TORCH_ARTIFACT_ROOT`` environment variable does.
@@ -308,3 +310,53 @@ def latest_soundness_summary(root: str | None = None) -> dict | None:
         ),
         "specs": dict(sorted(specs.items())),
     }
+
+
+def latest_ckpt_summary(root: str | None = None) -> dict | None:
+    """Cross-reference block of the newest ``CKPT_r*.json`` (the crash
+    matrix, tools/crash_matrix.py): artifact name, clean flag (every
+    cell recovered, refused or continue-degraded), the SHA that produced
+    it, whether that is HEAD of a clean tree, each cell's verdict and,
+    where cells landed on continue-degraded, their shard counts before
+    and after. Best effort: a missing, hand-edited or truncated artifact
+    gives None, never a raise."""
+    path = latest_artifact("CKPT", root)
+    if path is None:
+        return None
+    try:
+        with open(path) as fh:
+            report = json.load(fh)
+        cells = report.get("cells")
+        if not isinstance(cells, dict) or not cells:
+            return None
+        cell_verdicts = {
+            str(name): str(c.get("verdict"))
+            for name, c in cells.items() if isinstance(c, dict)
+        }
+        prov = report.get("provenance")
+        ckpt_sha = prov.get("git_sha") if isinstance(prov, dict) else None
+    except (OSError, ValueError, TypeError, AttributeError, KeyError):
+        return None
+    if not cell_verdicts:
+        return None
+    repo = repo_root() if root is None else root
+    head = _git_sha(repo)
+    dirty = _git_dirty(repo)
+    out = {
+        "artifact": os.path.basename(path),
+        "clean": bool(report.get("clean")),
+        "git_sha": ckpt_sha,
+        "sha_matches_head": (
+            ckpt_sha == head
+            if ckpt_sha is not None and head is not None and dirty is False
+            else None
+        ),
+        "cells": dict(sorted(cell_verdicts.items())),
+    }
+    deg = report.get("degrade_cells")
+    if isinstance(deg, dict) and deg:
+        out["degrade_cells"] = {
+            str(k): v for k, v in sorted(deg.items())
+            if isinstance(v, dict)
+        }
+    return out

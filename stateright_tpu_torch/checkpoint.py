@@ -76,7 +76,8 @@ What the port writes differs from the JAX engine's by design, and JAX's
 
 **Resume** (:func:`resume_from`) validates the snapshot (staleness is
 refused, never guessed around: an encoding fingerprint that differs, or
-a git SHA that differs from HEAD unless ``allow_sha_mismatch``) and
+a git SHA that differs from HEAD, or outside a git checkout from
+the hash of the package's sources, unless ``allow_sha_mismatch``) and
 stages it in host memory; the engine's next attempt uploads it. A
 sort-merge snapshot's visited keys are packed and checked once, shard
 by shard, and re-sharded when the target's layout differs; a JAX tiered
@@ -121,10 +122,13 @@ anything else raises through. Where the port differs from JAX:
 from __future__ import annotations
 
 import copy
+import functools
+import hashlib
 import json
 import math
 import os
 import subprocess
+import threading
 import time
 import warnings
 import zlib
@@ -221,17 +225,39 @@ def _repo_root() -> str:
 
 
 def _git_sha() -> Optional[str]:
-    """HEAD of the checkout this package sits in, or None outside a git
-    checkout (a ``git archive`` copy has no ``.git``)."""
+    """The identity of the code a snapshot is written and resumed with:
+    HEAD of the git checkout this package sits in, or, outside one (a
+    ``git archive`` copy has no ``.git``), :func:`source_tree_sha` of
+    the package, so a snapshot from other code is refused there too
+    (JAX's check is off outside a checkout). None when git cannot
+    answer."""
     root = _repo_root()
     if not os.path.exists(os.path.join(root, ".git")):
-        return None
+        return source_tree_sha(os.path.dirname(os.path.abspath(__file__)))
     try:
         out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=root,
                              capture_output=True, text=True, timeout=10)
     except (OSError, subprocess.SubprocessError):
         return None
     return out.stdout.strip() if out.returncode == 0 else None
+
+
+@functools.lru_cache(maxsize=4)
+def source_tree_sha(package_dir: str) -> str:
+    """``tree-`` and the SHA-1 of every ``.py`` and ``.cu`` file under
+    ``package_dir``, by relative path: the code's identity where git
+    cannot give one. Read once a process (the sources do not move under
+    a run)."""
+    h = hashlib.sha1()
+    for dirpath, dirnames, filenames in os.walk(package_dir):
+        dirnames.sort()
+        for name in sorted(filenames):
+            if name.endswith((".py", ".cu")):
+                path = os.path.join(dirpath, name)
+                h.update(os.path.relpath(path, package_dir).encode())
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+    return "tree-" + h.hexdigest()
 
 
 def _engine_kind(checker) -> str:
@@ -251,8 +277,11 @@ def _manifest_crc(manifest: dict) -> int:
 def _write_file(path: str, manifest: dict, buffers: dict) -> None:
     """Atomic snapshot write: temp file, fsync, rename. The manifest
     rides the same npz as a reserved uint8 entry, so one rename commits
-    both, with its own CRC-32 (``manifest_crc32``)."""
-    tmp = f"{path}.tmp.{os.getpid()}"
+    both, with its own CRC-32 (``manifest_crc32``). The temp file is the
+    writing thread's own: two threads of a process writing one path (the
+    service retaining two concurrent sessions of one model) each commit
+    a whole file, the last rename winning."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     manifest = dict(manifest)
     manifest.pop("manifest_crc32", None)
     manifest["manifest_crc32"] = _manifest_crc(manifest)

@@ -62,8 +62,12 @@ continues from it (``--resume-any-sha`` also from another commit);
 8) times the slowest wave so far; ``--degrade-on-fault`` is accepted as
 the JAX lanes accept it: it lets the supervisor drop a shard that keeps
 failing, which engages only on a sharded engine (the CLI's lanes run one
-device; the sharded engines are a library entry, parallel/). A run
-killed mid-way resumes from its last snapshot:
+device; the sharded engines are a library entry, parallel/).
+``--waves-per-sync=N`` is JAX's chunk of N waves: the port syncs every
+wave, so it only scales an integer ``--checkpoint-every=K`` to a
+snapshot every K·N waves, the waves where JAX's chunks end (the
+manifest's ``waves_per_sync`` stays 1); the host lanes refuse it, as
+JAX's do. A run killed mid-way resumes from its last snapshot:
 
     python -m stateright_tpu_torch 2pc check-gpu 9 --checkpoint-every=4
     python -m stateright_tpu_torch 2pc check-gpu 9 --resume
@@ -153,6 +157,10 @@ class RunFlags:
     #: the straggler detector's factor of the shard median (a traced
     #: sharded run's; a no-op on one device); None: off
     straggler_factor: float | None = None
+    #: JAX ``--waves-per-sync=N``: the port syncs every wave, so N scales
+    #: an integer checkpoint cadence to the waves where JAX's chunks of N
+    #: waves end; None: off
+    waves_per_sync: int | None = None
 
     def durable(self) -> bool:
         return bool(self.checkpoint_every or self.resume or self.watchdog
@@ -172,7 +180,10 @@ class RunFlags:
         if self.straggler_factor:
             checker.straggler_factor = float(self.straggler_factor)
         if self.checkpoint_every:
-            checker.checkpoint_every = self.checkpoint_every
+            every = self.checkpoint_every
+            if every != "auto" and self.waves_per_sync:
+                every *= self.waves_per_sync
+            checker.checkpoint_every = every
             checker.checkpoint_path = path
         if self.resume:
             m = checker.resume_from(path,
@@ -230,6 +241,11 @@ def _pop_flags(argv: list[str]):
             if float(val) <= 0:
                 raise SystemExit(f"--watchdog={val}: the factor must be > 0")
             durable["watchdog"] = float(val)
+        elif arg.startswith("--waves-per-sync="):
+            val = arg.split("=", 1)[1]
+            if int(val) < 1:
+                raise SystemExit(f"--waves-per-sync={val}: must be >= 1")
+            durable["waves_per_sync"] = int(val)
         elif arg == "--degrade-on-fault":
             on.add("degrade_on_fault")
         elif arg.startswith("--straggler-factor="):
@@ -283,6 +299,14 @@ def _report(checker) -> None:
 
 def _host_only(flags: RunFlags, sub: str) -> None:
     """Refuse the device flags on a host subcommand."""
+    if flags.waves_per_sync:
+        # the JAX lanes' refusal of a runtime flag on a host engine
+        raise SystemExit(
+            "--checkpoint-every/--resume/--waves-per-sync/"
+            "--tier-hot-rows/--degrade-on-fault/--watchdog/"
+            "--straggler-factor need a device engine: use a "
+            "check-gpu lane"
+        )
     if (flags.symmetry or flags.ample_set or flags.unsound_ok
             or flags.tier_hot_rows is not None):
         raise SystemExit(
@@ -845,9 +869,11 @@ def _usage() -> None:
           "memory plan (memplan.decide_hot_rows, 2 GiB budget)")
     print("       every check-gpu lane takes [--checkpoint-every=N|auto] "
           "[--checkpoint-path=P] [--resume] [--resume-any-sha] "
-          "[--watchdog[=FACTOR]] [--degrade-on-fault]: a snapshot every "
-          "N waves (checkpoint.py; default path stateright_tpu_torch.ckpt),"
-          " a failed wave retried from it, --resume continues from it")
+          "[--watchdog[=FACTOR]] [--degrade-on-fault] "
+          "[--waves-per-sync=M]: a snapshot every N waves (N*M with "
+          "--waves-per-sync; checkpoint.py; default path "
+          "stateright_tpu_torch.ckpt), a failed wave retried from it, "
+          "--resume continues from it")
     print("       every lane takes [--trace[=deep]] [--trace-root=DIR] "
           "[--metrics-interval=N [--metrics-path=FILE]]: a metrics_rollup "
           "JSONL line every N seconds and at exit (metrics.py; default "

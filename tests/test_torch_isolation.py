@@ -7,8 +7,9 @@ visited set, and checkpointed and resumed, and traced with its artifacts
 written, and metered with its rollup read back), a device simulation, a
 hybrid race, a hash engine run, both sharded engines (parallel/) at two
 shards, a batched pair of sessions (batch.py), a host BFS, a resident
-service's cold and warm session (serve.py) and the Explorer's views
-(explorer/) on the CPU loads neither jax nor anything
+service's cold and warm session (serve.py), the Explorer's views
+(explorer/) and the operator tools (tools/) on the CPU loads neither jax
+nor anything
 of the JAX package; nor do the host layer's lanes (``check-sym``,
 ``interaction``, ``panic``), the compiled pinger and the UDP runtime;
 and no source file of the port (nor chip_smoke.py) imports either."""
@@ -236,6 +237,35 @@ def test_analyzer_and_gated_runs_load_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
+def test_tools_load_no_jax(tmp_path):
+    """The operator tools (stateright_tpu_torch/tools/) in one process:
+    a traced run, then ``tools.trace_diff`` and ``tools.latency_report``
+    over its trace, load neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "from stateright_tpu_torch.cli import main\n"
+        f"main(['2pc', 'check-gpu', '2', '--device', 'cpu', '--trace',"
+        f" '--trace-root={tmp_path}'])\n"
+        "from stateright_tpu_torch.tools import latency_report, trace_diff\n"
+        f"t = '{tmp_path / 'TRACE_r01.jsonl'}'\n"
+        "print('DIFF', trace_diff.main([t, t]))\n"
+        "print('LATENCY', latency_report.main([t]))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib',"
+        " 'stateright_tpu') or m.startswith(('jax.', 'jaxlib.',"
+        " 'stateright_tpu.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "verdict: OK" in out.stdout and "DIFF 0" in out.stdout
+    assert "time to verdict" in out.stdout and "LATENCY 0" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
 def test_no_jax_imports_in_port_sources():
     files = sorted((ROOT / "stateright_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -261,7 +291,11 @@ def test_no_jax_imports_in_port_sources():
                    "actor/write_once_register.py", "actor/spawn.py",
                    "analysis/__init__.py", "analysis/rules.py",
                    "analysis/walker.py", "analysis/soundness.py",
-                   "analysis/registry.py"):
+                   "analysis/registry.py", "tools/__init__.py",
+                   "tools/crash_matrix.py", "tools/serve_loadtest.py",
+                   "tools/trace_diff.py", "tools/slo_report.py",
+                   "tools/serve_report.py", "tools/latency_report.py",
+                   "tools/shard_report.py", "tools/mem_report.py"):
         assert f"stateright_tpu_torch/{module}" in names, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
