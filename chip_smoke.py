@@ -314,6 +314,27 @@ it exits non-zero and prints no result. Phases, each ending in
    ``shard_report``, ``mem_report``) on the artifacts of phases 32-33,
    each exiting 0. The artifacts go to a temporary directory that is
    deleted.
+34. (after phase 2) the kernels called with device counts
+   (``member_cuda(..., na=, nq=)``, ``merge_cuda(..., na=, nb=,
+   out=)``, ``insert_cuda(..., n=, epoch=)``: the counts read from
+   device memory) against their plain versions, exactly, at the main
+   shapes in power-of-two buffers with noise past the counts, and at
+   counts 0 and full; each timed with its bound;
+35. (after phase 7) the device-resident chunk (checkers/chunk.py): ``2pc
+   check-gpu 9``, ``paxos check-gpu 4``, ``abd 2c/3s ordered`` and the
+   hash engine's ``2pc check-gpu 9`` and ``paxos check 4`` at
+   ``waves_per_sync`` 64 and 1, several runs of each interleaved,
+   equal counts, ``states=``, depth and fingerprints; each run's host
+   reads and waits, graph captures and replays, eager waves, class
+   changes, launches and ``sec=``, and each path's median, least and
+   most ``sec=`` at each N; at 64 the captures and replays non-zero, at
+   most one read a chunk and one a class change, one wait a wave run;
+   then the idle share of each under ``torch.profiler``, in a child
+   process.
+
+Every other phase runs the engines' default, one wave a sync. A
+kernel's record in the result line carries, under ``device_counts``,
+phase 34's figures for the same kernel called with device counts.
 
 Every run of a main path (phases 4, 6-9, 11, 12, 14, 18, 20, 22-29) prints
 its ``sec=``, states/s, waves, peak device memory above its start, the
@@ -388,11 +409,31 @@ def phase(name):
                 FAILED.append(name)
                 print(f"[{name}] FAILED", flush=True)
                 traceback.print_exc()
+                _memory_line()
                 return None
             print(f"[{name}] ok in {time.monotonic() - t0:.3f}s", flush=True)
+            _memory_line()
             return out
         return run
     return wrap
+
+
+def _memory_line() -> None:
+    """After a phase: garbage collected (a finished run's objects in a
+    reference cycle would hold their device memory until then), the
+    device memory still allocated and of it what graph pools hold."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()  # a child process of a later phase needs it
+    segs = torch.cuda.memory._snapshot()["segments"]
+    pooled = sum(s["allocated_size"] for s in segs
+                 if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    print(f"  device memory after the phase: "
+          f"{torch.cuda.memory_allocated()} B allocated, {pooled} B of it "
+          f"in graph pools", flush=True)
 
 
 def card_line() -> str:
@@ -686,6 +727,165 @@ def kernels():
     return rec, calls
 
 
+def _garbage_keys(cap, gen, device):
+    """``cap`` packed keys of noise: what a fixed-capacity buffer holds
+    past its live count."""
+    import torch
+
+    return torch.randint(-(1 << 62), 1 << 62, (cap,), generator=gen,
+                         device=device)
+
+
+def _padded(live, cap, gen):
+    """``live`` (sorted keys) in a ``cap``-row buffer, noise after it."""
+    buf = _garbage_keys(cap, gen, live.device)
+    buf[:live.numel()] = live
+    return buf
+
+
+@phase("device-count kernels")
+def dev_kernels():
+    """Each kernel called with device counts (``member_cuda(...,
+    na=, nq=)``, ``merge_cuda(..., na=, nb=, out=)``, ``insert_cuda(...,
+    n=, epoch=)``: the counts read from device memory, the grid sized to
+    the buffers' capacities) against its plain version on the same
+    buffers, exactly: at the main path's shapes in
+    buffers of the power-of-two capacities the chunked waves use, with
+    noise past the counts, and at counts 0 and at the full capacity.
+    Then each timed with its bound (from the live counts), its plain
+    version and the library call, as the ``kernels`` phase times the
+    kernels with host counts. Records by kernel name, which the result
+    line adds to each kernel's record as ``device_counts``."""
+    import torch
+
+    from stateright_tpu_torch.ops import hashset, merge
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    na, nq, nb = 10_000_003, 16_000_001, 1_500_007
+    cap_a, cap_q, cap_b = 1 << 24, 1 << 25, 1 << 21
+    a_live = torch.sort(_rand_keys(na, gen, dev)).values
+    hits = a_live[torch.randint(0, na, (nq // 2,), generator=gen,
+                                device=dev)]
+    q_live = torch.sort(torch.cat([hits, _rand_keys(nq - nq // 2, gen,
+                                                    dev)])).values
+    b_live = torch.sort(_rand_keys(nb, gen, dev)).values
+    A, Q, B = (_padded(a_live, cap_a, gen), _padded(q_live, cap_q, gen),
+               _padded(b_live, cap_b, gen))
+    full = [torch.sort(_rand_keys(n, gen, dev)).values
+            for n in (1 << 16, 1 << 15, 1 << 14)]
+
+    def count(n):
+        return torch.tensor(n, dtype=torch.int64, device=dev)
+
+    cases = [("main", A, na, Q, nq, B, nb),
+             ("counts 0", A, 0, Q, 0, B, 0),
+             ("A 0", A, 0, Q, nq, B, nb),
+             ("Q, B 0", A, na, Q, 0, B, 0),
+             ("full", full[0], 1 << 16, full[1], 1 << 15, full[2], 1 << 14)]
+    err = {"member_sorted": 0, "merge_sorted": 0}
+    out_k = torch.empty(cap_a + cap_b, dtype=torch.int64, device=dev)
+    out_p = torch.empty_like(out_k)
+    for label, a, n_a, q, n_q, b, n_b in cases:
+        ta, tq, tb = count(n_a), count(n_q), count(n_b)
+        m_k = merge.member_cuda(a, q, na=ta, nq=tq)
+        m_p = merge.member_sorted_plain_dev(a, ta, q, tq)
+        merge.merge_cuda(a, b, na=ta, nb=tb, out=out_k)
+        merge.merge_sorted_plain_dev(a, ta, b, tb, out_p)
+        torch.cuda.synchronize()
+        e_m = _err(m_k[:n_q], m_p[:n_q])
+        e_g = _err(out_k[:n_a + n_b], out_p[:n_a + n_b])
+        print(f"  {label}: Na={n_a}/{a.numel()} Nq={n_q}/{q.numel()} "
+              f"Nb={n_b}/{b.numel()} member_err={e_m} merge_err={e_g}",
+              flush=True)
+        err["member_sorted"] = max(err["member_sorted"], e_m)
+        err["merge_sorted"] = max(err["merge_sorted"], e_g)
+    if any(err.values()):
+        raise AssertionError(f"device-count kernel != plain version: {err}")
+    ta, tq, tb = count(na), count(nq), count(nb)
+    m_bound, g_bound = _member_bound(na, nq), _merge_bound(na, nb)
+    cat = torch.cat([a_live, b_live])
+    rec = {
+        "member_sorted": dict(
+            max_abs_err=err["member_sorted"],
+            ms=_time_ms(lambda: merge.member_cuda(A, Q, na=ta, nq=tq)),
+            plain_ms=_time_ms(
+                lambda: merge.member_sorted_plain_dev(A, ta, Q, tq), reps=3),
+            library_ms=_time_ms(lambda: torch.searchsorted(a_live, q_live)),
+            bound_ms=m_bound[0], bound_by=m_bound[1],
+            shapes=dict(Na=na, Nq=nq, cap_a=cap_a, cap_q=cap_q)),
+        "merge_sorted": dict(
+            max_abs_err=err["merge_sorted"],
+            ms=_time_ms(lambda: merge.merge_cuda(A, B, na=ta, nb=tb,
+                                                 out=out_k)),
+            plain_ms=_time_ms(lambda: merge.merge_sorted_plain_dev(
+                A, ta, B, tb, out_p), reps=3),
+            library_ms=_time_ms(lambda: torch.sort(cat, stable=True)),
+            bound_ms=g_bound[0], bound_by=g_bound[1],
+            shapes=dict(Na=na, Nb=nb, cap_a=cap_a, cap_b=cap_b)),
+    }
+    # the insert: 2pc rm=9's widest wave into an empty table, its keys in
+    # a 2^25-row buffer with noise past the count
+    inputs, gen2 = _kernel_inputs(dev)
+    pre, keys, rounds, _ = inputs["empty table"]
+    n = keys.numel()
+    kbuf = _padded(keys, 1 << 25, gen2)
+    tn = count(n)
+
+    tk = hashset.DeviceHashSet.from_keys(pre)
+    new_k, over_k, slot_k = hashset.insert_cuda(tk, kbuf, None, rounds,
+                                                n=tn, epoch=count(0))
+    tp = hashset.DeviceHashSet.from_keys(pre)
+    new_p, over_p, _ = hashset.insert_plain_dev(tp, kbuf, None, tn, rounds)
+    th = hashset.DeviceHashSet.from_keys(pre)
+    new_h, _, _ = hashset.insert_cuda(th, keys, None, rounds)
+    torch.cuda.synchronize()
+    e_i = max(_err(new_k[:n], new_p[:n]), _err(new_k[:n], new_h),
+              _err(over_k[:n], over_p[:n]))
+    same = torch.equal(torch.sort(tk.keys).values, torch.sort(tp.keys).values)
+    assert e_i == 0 and same, ("device-count insert != plain", e_i, same)
+    # count 0 writes nothing; the full buffer is every row
+    t0_ = hashset.DeviceHashSet.from_keys(pre)
+    hashset.insert_cuda(t0_, kbuf, None, rounds, n=count(0), epoch=count(0))
+    assert not bool(t0_.occupied().any()), "a count of 0 inserted"
+    small_pre = torch.full((1 << 16,), hashset.EMPTY, dtype=torch.int64,
+                           device=dev)
+    fk = _draw(_distinct_keys(1 << 13, gen2, dev), 1 << 14, gen2)
+    tf = hashset.DeviceHashSet.from_keys(small_pre)
+    tpf = hashset.DeviceHashSet.from_keys(small_pre)
+    nf_k, _, _ = hashset.insert_cuda(tf, fk, None, 32, n=count(fk.numel()),
+                                     epoch=count(0))
+    nf_p, _, _ = hashset.insert_plain_dev(tpf, fk, None, count(fk.numel()),
+                                          32)
+    e_i = max(e_i, _err(nf_k, nf_p))
+    assert e_i == 0, "device-count insert != plain at the full count"
+    table = hashset.DeviceHashSet.from_keys(pre)
+    ep = count(0)
+    reset = lambda: table.reset(pre)  # noqa: E731
+    ms = _time_reset_ms(lambda: hashset.insert_cuda(
+        table, kbuf, None, rounds, n=tn, epoch=ep), reset)
+    plain_ms = _time_reset_ms(lambda: hashset.insert_plain_dev(
+        table, kbuf, None, tn, rounds), reset, 3)
+    bound = _hash_bound(keys, slot_k[:n], new_k[:n], over_k[:n], None,
+                        pre.numel() - 1, rounds)
+    rec["hash_insert"] = dict(
+        max_abs_err=e_i,
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        shapes=dict(keys=n, cap=kbuf.numel(), slots=pre.numel()))
+    for name, r in rec.items():
+        r["pct_of_bound"] = 100 * r["bound_ms"] / r["ms"]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"  {name} (device counts): kernel {r['ms']:.4f} ms "
+              f"({r['pct_of_bound']:.1f}% "
+              f"of bound), plain {r['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at "
+              f"{r['shapes']}", flush=True)
+    return rec
+
+
 #: kernel-name parts of each wrapper's kernels
 KERNEL_NAMES = {"member_sorted": ("member_tile_kernel",),
                 "merge_sorted": ("merge_tile_kernel",),
@@ -804,6 +1004,8 @@ def _zero_launches():
 
 
 def _read_launches() -> dict:
+    """Each kernel's launches (by host or device counts; a launch in a
+    CUDA graph counts at each replay)."""
     from stateright_tpu_torch.ops import hashset, merge
 
     return {"member_sorted": merge.member_cuda.launches,
@@ -875,6 +1077,216 @@ def run_main(checker, print_lines: int | None = None,
                 capacity=checker.capacity, peak_mem_bytes=peak,
                 plan_resident_bytes=(checker.memory_plan or {}).get(
                     "resident_bytes"))
+
+
+def _chunk_paths() -> dict:
+    """The main paths the chunk phase runs at both chunk lengths: label ->
+    (a function of ``waves_per_sync`` that spawns the checker; unique
+    states)."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.cli import paxos_checker, twopc_sizes
+    from stateright_tpu_torch.models.linearizable_register import (
+        AbdModelCfg,
+        abd_model,
+    )
+    from stateright_tpu_torch.models.paxos import PaxosModelCfg, paxos_model
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    abd = abd_model(AbdModelCfg(client_count=2, server_count=3),
+                    Network.new_ordered())
+    enc = _compiled(abd.to_encoded)
+
+    def paxos(n):
+        c = paxos_checker(4)
+        c.waves_per_sync = n
+        return c
+
+    return {
+        "2pc check-gpu 9": (lambda n: TwoPhaseSys(rm_count=9).checker()
+                            .spawn_sortmerge(waves_per_sync=n,
+                                             **twopc_sizes(9)), 10_340_352),
+        "paxos check-gpu 4": (paxos, 2_372_188),
+        "abd 2c/3s ordered": (lambda n: abd.checker().spawn_sortmerge(
+            encoded=enc, capacity=1 << 21, frontier_capacity=1 << 18,
+            track_paths=False, waves_per_sync=n), 1_212_979),
+        "hash 2pc check-gpu 9": (lambda n: _hash(
+            TwoPhaseSys(rm_count=9), capacity=HASH_SLOTS,
+            waves_per_sync=n), 10_340_352),
+        "hash paxos check 4": (lambda n: _hash(
+            paxos_model(PaxosModelCfg(client_count=4, server_count=3)),
+            capacity=1 << 23, track_paths=False, waves_per_sync=n),
+            2_372_188),
+    }
+
+
+#: the flag of the child process that profiles the chunk phase's runs
+CHUNK_IDLE_FLAG = "--chunk-idle-shares"
+#: host idle time between two of those runs, which splits the one
+#: profiler session's kernels among them
+IDLE_GAP_SEC = 1.0
+
+
+def chunk_idle_shares() -> dict:
+    """In a child process: each chunk-phase path at N = 64 and N = 1,
+    all in ONE ``torch.profiler`` session (device activity only; a
+    second session in a process can come back empty, and the last phase
+    takes the parent's one session), each run followed by
+    ``IDLE_GAP_SEC`` of host sleep. The kernels split into runs at those
+    gaps: ``{"label N": [idle share of the wall, busy ms, wall s]}``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+    TwoPhaseSys(rm_count=5).checker().spawn_sortmerge().join()
+    # the sort-merge paths (the hash engine's paxos run is host-bound
+    # for ~20 s, and its kernel trace does not split cleanly)
+    runs = [(f"{label} N={n}", make, n)
+            for label, (make, _) in _chunk_paths().items()
+            if not label.startswith("hash") for n in (64, 1)]
+    walls = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, make, n in runs:
+            checker = make(n)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            checker.join()
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            time.sleep(IDLE_GAP_SEC)
+    # the raw device events, in ns (``prof.events()`` would build a
+    # Python object tree of every one of them first: minutes for these
+    # runs' hundreds of thousands of kernels)
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    groups, last = [[]], None
+    for t0, t1 in spans:
+        if last is not None and t0 - last > IDLE_GAP_SEC * 0.8e9:
+            groups.append([])
+        groups[-1].append(t1 - t0)
+        last = t1 if last is None else max(last, t1)
+    assert len(groups) == len(runs), (len(groups), len(runs))
+    out = {}
+    for (key, _, _), wall, durs in zip(runs, walls, groups):
+        busy = sum(durs) / 1e6
+        out[key] = [1 - busy / (wall * 1e3), busy, wall]
+    return out
+
+
+def _chunk_idle_child() -> dict:
+    """:func:`chunk_idle_shares` in a process of its own."""
+    proc = subprocess.run([sys.executable, __file__, CHUNK_IDLE_FLAG],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the idle-share child failed: "
+                           f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+#: runs of each chunk-phase path at each N, the two N interleaved in one
+#: process: a single wall on the host's clock spreads too far to say
+#: what the chunk costs, so each is given as its median, least and most
+CHUNK_REPEATS = {"2pc check-gpu 9": 5, "paxos check-gpu 4": 3,
+                 "abd 2c/3s ordered": 3, "hash 2pc check-gpu 9": 1,
+                 "hash paxos check 4": 1}
+
+
+def _chunk_run(label: str, make, n: int) -> dict:
+    """One run of a chunk-phase path at ``waves_per_sync`` ``n``, the
+    launch counts zeroed just before it and read just after."""
+    import torch
+
+    from stateright_tpu_torch.checkers.tpu import READS
+
+    checker = make(n)
+    base = _mem_base()
+    _zero_launches()
+    r0 = READS.calls
+    t0 = time.monotonic()
+    checker.join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    reads = READS.calls - r0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    m = checker.metrics
+    result = (checker.unique_state_count(), checker.state_count(),
+              checker.max_depth(), checker.discovery_fingerprints())
+    print(f"  {label} N={n}: unique={result[0]} states={result[1]} "
+          f"depth={result[2]} sec={sec} waves={m['waves']} "
+          f"host_reads={reads} host_waits={m.get('host_waits', 0)} "
+          f"chunks={m.get('chunks')} resizes={m.get('resizes')} "
+          f"graph_captures={m.get('graph_captures')} "
+          f"graph_replays={m.get('graph_replays')} "
+          f"eager_waves={m.get('eager_waves')} "
+          f"poll_sec={m.get('poll_sec')} classes={m.get('classes')} "
+          f"launches={launches} peak_mem_bytes={peak}", flush=True)
+    return dict(result=result, launches=launches, metrics=m, sec=sec,
+                reads=reads, peak_mem_bytes=peak)
+
+
+@phase("chunk: N = 64 against N = 1 on the main paths")
+def chunk_phase() -> dict:
+    """The device-resident chunk (checkers/chunk.py) on the main paths:
+    each at ``waves_per_sync`` 64 and 1, :data:`CHUNK_REPEATS` times
+    each, interleaved. The counts, ``states=``, depth and discovery
+    fingerprints must be equal at both; at 64 the waves run as CUDA-graph
+    replays (captures > 0, replays > 0; not asked of the hash engine's
+    2pc rm=9, whose classes change too often for a capture), the
+    engine's kernels launch, the
+    blocking host reads are at most one a chunk plus one a resize, and
+    the host waits once a wave run on its polled scalars
+    (``host_waits``); at 1 nothing is captured. For each run: host reads
+    and waits, graph captures and replays, eager waves, resizes, the
+    launches of each kernel and ``sec=``; for each path and N the
+    median, least and most ``sec=``; and, from one more run under
+    ``torch.profiler``, the idle share of the wall
+    (:func:`chunk_idle_shares`, in a child process)."""
+    runs = {}
+    for label, (make, want) in _chunk_paths().items():
+        got, secs = {}, {64: [], 1: []}
+        for rep in range(CHUNK_REPEATS[label]):
+            for n in ((64, 1) if rep % 2 == 0 else (1, 64)):
+                run = _chunk_run(label, make, n)
+                m, reads = run["metrics"], run["reads"]
+                assert run["result"][0] == want, (label, n, run["result"])
+                assert got.setdefault(n, run["result"]) == run["result"]
+                secs[n].append(run["sec"])
+                # the launches of the first run of each N go in the result
+                runs.setdefault(f"chunk N={n} {label}", run)
+                if n == 64:
+                    # a class is captured at its third wave: the hash
+                    # engine's classes at 2pc rm=9 change too often for
+                    # one, so replays are asked of its paxos run
+                    if label != "hash 2pc check-gpu 9":
+                        assert m["graph_replays"] > 0, m
+                        assert m["graph_captures"] > 0, m
+                    for k in (HASH_KERNELS if label.startswith("hash")
+                              else MERGE_KERNELS):
+                        assert run["launches"][k] > 0, (k, run)
+                    assert reads <= math.ceil(m["waves"] / 64) \
+                        + m["resizes"] + 1, (reads, m)
+                    assert m["waves"] <= m["host_waits"] <= m["waves"] \
+                        + m["resizes"], m
+                else:
+                    assert not m.get("graph_captures"), m
+        assert got[64] == got[1], (label, got)
+        for n in (64, 1):
+            xs = sorted(secs[n])
+            print(f"  {label} N={n}: sec median {xs[len(xs) // 2]} least "
+                  f"{xs[0]} most {xs[-1]} over {len(xs)} runs: {secs[n]}",
+                  flush=True)
+            runs[f"chunk N={n} {label}"]["sec_runs"] = secs[n]
+    t0 = time.monotonic()
+    for key, (idle, busy, wall) in _chunk_idle_child().items():
+        print(f"  profiled {key}: wall {wall:.4f}s busy {busy:.3f} ms "
+              f"idle {idle:.4f}", flush=True)
+    print(f"  the profiling child process: {time.monotonic() - t0:.3f}s",
+          flush=True)
+    return runs
 
 
 def paxos_main(clients: int, unique_want: int):
@@ -3927,7 +4339,10 @@ PINGER_BFS_UNIQUE = 5323
 #: the last is the deepest both engines run. Memory bounds it, not time:
 #: a sort-merge wave holds all its candidates at once (~360 B each), and
 #: on an H100 80GB depth 24 peaks near 62 GB in about a second, where
-#: depth 25 would need ~1.5 times that (PERF.md §6)
+#: depth 25 would need ~1.5 times that (PERF.md §6). These run one wave
+#: a sync, the default: a chunk's wave holds its class, up to 1.25
+#: times its candidates (checkers/chunk.py), and at N = 64 depth 23 ran
+#: out of memory
 PINGER_LADDER = {22: 25_726_524, 23: 40_167_523, 24: 61_872_524}
 PINGER_DEPTH = max(PINGER_LADDER)
 #: bounds of the sort-merge runs (the engine sizes each wave exactly;
@@ -4264,6 +4679,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     build()
     rec, calls = (kernels() if not FAILED else None) or (None, None)
+    dev_rec = dev_kernels() if not FAILED else None
     hash_rec, hash_call = (hash_kernel() if not FAILED else None) or (
         None, None)
     rm5()
@@ -4272,6 +4688,7 @@ def main() -> int:
     runs["paxos 4c"] = paxos4()
     runs["paxos 5c"] = paxos5()
     runs["abd 2c/3s ordered"] = abd_main()
+    chunked = chunk_phase() or {}
     runs["2pc-actors rm=9"] = twopc_actors9()
     runs["paxos-compiled 2c"] = paxos_compiled2()
     compiled_card_vs_cpu()
@@ -4336,10 +4753,12 @@ def main() -> int:
                 for path, run in {**runs, **lanes, **sims, **hybrids,
                                   **hashes, **ckpts, **meshes,
                                   **traced, **batched,
-                                  **served, **gated, **tools}.items()}
+                                  **served, **gated, **tools,
+                                  **chunked}.items()}
     per_call = (device_ops({**calls, "hash_insert": hash_call})
                 if calls and hash_call else None)
-    if (FAILED or rec is None or hash_rec is None or not all(at.values())
+    if (FAILED or rec is None or hash_rec is None or dev_rec is None
+            or not chunked or not all(at.values())
             or not all(hash_at_paths.values()) or per_call is None
             or not all(launches.values())):
         print(f"chip_smoke: failed phases: {FAILED}", file=sys.stderr)
@@ -4375,6 +4794,11 @@ def main() -> int:
         "launches_per_call": per_call["hash_insert"],
         "at_path_shapes": hash_at_paths,
     })
+    for r in records:
+        # the same kernel called with device counts, padded buffers
+        r["device_counts"] = dev_rec[r["name"]]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               dev_rec[r["name"]]["max_abs_err"])
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4384,6 +4808,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CHUNK_IDLE_FLAG]:
+        print(json.dumps(chunk_idle_shares()))
+        sys.exit(0)
     if sys.argv[1:2] == [SIM_OPS_FLAG]:
         print(sim_device_ops(int(sys.argv[2])))
         sys.exit(0)

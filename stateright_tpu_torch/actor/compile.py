@@ -125,6 +125,15 @@ def _fn_key(fn):
     return key
 
 
+def _bool_cols(value, n: int, device) -> torch.Tensor:
+    """A spec's verdict as ``bool[n]``: a tensor broadcast, or a Python
+    constant filled on the device (no copy from host memory, which a
+    CUDA graph cannot capture)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=torch.bool, device=device).expand(n)
+    return torch.full((n,), bool(value), dtype=torch.bool, device=device)
+
+
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` with the index clamped into range (a JAX gather
     clamps; an index past the table only comes from a state no run
@@ -2133,9 +2142,8 @@ class CompiledActorEncoding(EncodedModelBase):
         ctx = _SpecCtx(self, states_t)
         n = states_t.shape[1]
         conds = [
-            torch.as_tensor(self.property_specs[p.name](ctx, torch),
-                            dtype=torch.bool,
-                            device=states_t.device).expand(n)
+            _bool_cols(self.property_specs[p.name](ctx, torch), n,
+                       states_t.device)
             for p in self.model.properties()
         ]
         if not conds:
@@ -2149,9 +2157,8 @@ class CompiledActorEncoding(EncodedModelBase):
         if self.boundary_spec is None:
             return torch.ones(n, dtype=torch.bool, device=states_t.device)
         ctx = _SpecCtx(self, states_t)
-        return torch.as_tensor(self.boundary_spec(ctx, torch),
-                               dtype=torch.bool,
-                               device=states_t.device).expand(n)
+        return _bool_cols(self.boundary_spec(ctx, torch), n,
+                          states_t.device)
 
     @property
     def trivial_boundary(self) -> bool:

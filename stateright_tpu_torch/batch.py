@@ -31,8 +31,9 @@ counterexample paths are therefore its solo run's.
   its own tracer while the batch goes on. A group that cannot fuse
   falls back to each member's solo run with a one-line reason.
 
-As in every port engine, one wave is one chunk: ``waves_per_sync`` is
-accepted and recorded, and the peel happens at a wave.
+The fused engine runs one wave a chunk (its chunk of several waves is a
+later slice): ``waves_per_sync`` is accepted and recorded, and the peel
+happens at a wave.
 """
 
 from __future__ import annotations
@@ -319,6 +320,9 @@ class FusedWaveChecker(TpuBfsChecker):
     session's unique, depth and generated counts after it, the fused
     discoveries so far and whether the run ended; ``on_chunk(record)``
     is called with it (the group's peel)."""
+
+    #: one wave a chunk (its chunk is a later slice)
+    _chunks_waves = False
 
     def __init__(self, member_checkers: list,
                  waves_per_sync: Optional[int] = None):

@@ -25,12 +25,18 @@ One wave of the hash engine, on the ``[W, n]`` lane-major frontier:
    the winners, in row order, as the next frontier with their parents'
    eventually-bits.
 
-The frontier is an exact ``[W, n]`` block (the port sizes every wave to
-its live rows), so there is no row-validity mask, and the port syncs
-every wave where the JAX engine syncs every ``waves_per_sync`` waves
-(its counts do not depend on that). What the JAX buffers guaranteed
-stays: crossing the table, frontier or candidate capacity RAISES, with
-the JAX engine's messages.
+With ``waves_per_sync`` N > 1 the waves run in chunks of up to N
+between two host syncs (checkers/chunk.py): each wave of a chunk works
+on capacity-class buffers with its counts on the device, the insert
+takes its key count from device memory (``ops.hashset.insert_dev``),
+the winners are compacted by a rank scatter, and the chunk ends with
+one read of its packed stats; on the card its waves replay as CUDA
+graphs. At ``waves_per_sync=1``, the default (JAX's is 64; on the
+card the chunk is still slower than one wave a sync, PERF.md), and for
+the fused batch (batch.py), each wave is one sync over an exact
+``[W, n]`` block. The counts do not
+depend on N. What the JAX buffers guaranteed stays: crossing the table,
+frontier or candidate capacity RAISES, with the JAX engine's messages.
 """
 
 from __future__ import annotations
@@ -56,9 +62,27 @@ from ..ops.fingerprint import (
     key_to_fp,
     pack_keys,
 )
-from ..ops.hashset import EMPTY, DeviceHashSet, insert
+from ..ops.hashset import EMPTY, DeviceHashSet, insert, insert_dev
+from ..ops.merge import dump_size, dump_slots, rank_compact
 from ..path import Path
 from ..report import ReportData
+from . import chunk
+from .chunk import (
+    FLOOR_F,
+    FLOOR_P,
+    GROW_F,
+    GROW_P,
+    OVER_CAND,
+    OVER_ENC,
+    OVER_FRONTIER,
+    OVER_VISITED,
+    ChunkCarry,
+    ChunkLoop,
+    ChunkSchedule,
+    grow_class,
+    shrink_classes,
+    shrinks,
+)
 from .common import symmetry_refusal
 
 #: waves between two progress reports (the JAX engine's chunk length)
@@ -189,10 +213,12 @@ def frontier_props_t(enc, props, evt_idx, frontier_t, ebits,
     return cond, _props_and_ebits(cond, ebits, evt_idx), f_lo, f_hi
 
 
-def wave_hits(props, cond, evt_cex, ebits, f_lo, f_hi):
+def wave_hits(props, cond, evt_cex, ebits, f_lo, f_hi, live=None):
     """This wave's per-property verdicts over the frontier: ``(hit[P],
     lo[P], hi[P])`` device tensors, the fingerprint of the FIRST hitting
-    row in frontier order (the JAX engines' ``argmax``)."""
+    row in frontier order (the JAX engines' ``argmax``). ``live``
+    (``bool[n]``, or None: every row) masks a fixed-capacity frontier's
+    padding rows."""
     masks = []
     for i, p in enumerate(props):
         if p.expectation == Expectation.ALWAYS:
@@ -201,7 +227,10 @@ def wave_hits(props, cond, evt_cex, ebits, f_lo, f_hi):
             masks.append(cond[:, i])
         else:
             masks.append(evt_cex & ((ebits & (1 << i)) != 0))
-    mask = torch.stack(masks).to(torch.uint8)
+    mask = torch.stack(masks)
+    if live is not None:
+        mask = mask & live
+    mask = mask.to(torch.uint8)
     row = torch.argmax(mask, dim=1)
     return mask.any(dim=1), f_lo[row], f_hi[row]
 
@@ -214,6 +243,80 @@ def discovery_update(props, hits, los, his, found: dict) -> None:
     for i, p in enumerate(props):
         if packed[0][i] and p.name not in found:
             found[p.name] = (packed[2][i] << 32) | packed[1][i]
+
+
+def fold_discoveries(disc, hits, los, his, commit):
+    """The device half of :func:`discovery_update` (JAX's carry update):
+    ``disc`` (``int64[3, P]``: found, lo, hi) with this wave's first
+    hits of properties not found yet, where ``commit``; a new tensor."""
+    fresh = hits.to(torch.bool) & (disc[0] == 0) & commit
+    return torch.stack([disc[0] | fresh.to(torch.int64),
+                        torch.where(fresh, los, disc[1]),
+                        torch.where(fresh, his, disc[2])])
+
+
+def rows_with(per_row, ok):
+    """``bool[F]``: whether each frontier row has an ``ok`` pair, for a
+    pair block in row order where row ``r`` holds ``per_row[r]`` pairs
+    (the block may hold fewer than their sum: it kept its first rows).
+    Two gathers of the pairs' running ``ok`` count at each row's ends —
+    a scatter of the rows would pile every padding pair onto one row."""
+    okc = torch.cat([ok.new_zeros(1, dtype=torch.int64),
+                     torch.cumsum(ok.to(torch.int64), 0)])
+    end = torch.cumsum(per_row, 0)
+    top = okc.numel() - 1
+    return (okc[end.clamp(max=top)] - okc[(end - per_row).clamp(max=top)]
+            ) > 0
+
+
+def dense_pairs_fixed(enc, frontier_t, live_rows, chunk_rows: int,
+                      cap: int, rows_bound: Optional[int] = None):
+    """The dense expansion of a fixed-capacity ``[W, F]`` frontier into a
+    ``cap``-column block, with no host read: ``(succ [W, cap], rows
+    int64[cap], pairs, trunc, per_row)`` — the valid successors of the
+    ``live_rows`` (``bool[F]``) in (row, ascending slot) order, their
+    source rows, their count (0-d; more than ``cap`` means the block
+    kept only the first ``cap``), whether a live row was truncated
+    (0-d bool), and each row's count of them. Columns past the count
+    hold column 0 of the frontier (a valid state) and row 0. Each
+    ``chunk_rows`` row chunk is compacted before the next is stepped.
+    ``rows_bound`` (a host count no live row lies past, or None: all
+    ``F``) skips the row chunks past it: the CPU's eager waves know it,
+    a graph replayed at other counts steps every chunk."""
+    W, F = frontier_t.shape
+    dev = frontier_t.device
+    K = enc.max_actions
+    spare = dump_size(dev)
+    succ_c = frontier_t[:, :1].expand(W, cap + spare).clone()
+    rows_c = torch.zeros(cap + spare, dtype=torch.int64, device=dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    trunc_any = torch.zeros((), dtype=torch.bool, device=dev)
+    per_row = []
+    F_live = F
+    if rows_bound is not None:  # whole row chunks, so the blocks add up
+        F_live = min(F, -(-max(int(rows_bound), 1) // chunk_rows)
+                     * chunk_rows)
+    for r0 in range(0, F_live, chunk_rows):
+        block = frontier_t[:, r0:r0 + chunk_rows]
+        m = block.shape[1]
+        succ, valid, trunc = step_with_trunc(enc, block)
+        live = live_rows[r0:r0 + m]
+        valid = valid & live.unsqueeze(1)
+        trunc_any = trunc_any | (trunc & live).any()
+        per_row.append(valid.sum(dim=1))
+        flat = valid.reshape(-1)
+        rank = torch.cumsum(flat.to(torch.int64), 0) - 1 + off
+        dest = torch.where(flat & (rank < cap), rank,
+                           dump_slots(cap, flat.numel(), dev))
+        succ_c[:, dest] = succ.reshape(W, m * K)
+        rows_c[dest] = torch.arange(m * K, dtype=torch.int64,
+                                    device=dev) // K + r0
+        off = off + flat.sum()
+    if F_live < F:  # the rows never stepped have no pairs
+        per_row.append(torch.zeros(F - F_live, dtype=torch.int64,
+                                   device=dev))
+    return (succ_c[:, :cap], rows_c[:cap], off, trunc_any,
+            torch.cat(per_row))
 
 
 def dense_candidates(enc, frontier_t, trivial_boundary: bool,
@@ -252,6 +355,46 @@ def dense_candidates(enc, frontier_t, trivial_boundary: bool,
             torch.stack(truncs).any(), len(succs))
 
 
+class HashCarry(ChunkCarry):
+    """The chunked hash wave's device state (checkers/chunk.py): the
+    frontier ``fr [2, W, Pc]`` and its eventually-bits ``eb [2, Pc]`` as
+    ping-pong halves, of which a wave steps the first ``Fc`` columns;
+    the table and the parent array are updated in place. Columns past
+    the live ``nf`` hold copies of column 0."""
+
+    def __init__(self, device, n_props: int, n_waves: int, log: bool,
+                 W: int, Fc: int, Pc: int):
+        from ..telemetry import WAVE_LOG_LANES
+
+        super().__init__(device, n_props, n_waves, WAVE_LOG_LANES, False)
+        self.Fc, self.Pc = Fc, Pc
+        self.fr = torch.empty((2, W, Pc), dtype=torch.int64, device=device)
+        self.eb = torch.empty((2, Pc), dtype=torch.int64, device=device)
+        self.ar_f = torch.arange(Fc, dtype=torch.int64, device=device)
+        self.ar_p = torch.arange(Pc, dtype=torch.int64, device=device)
+
+    @property
+    def key(self) -> tuple:
+        return (self.Fc, self.Pc)
+
+    def load(self, front, ebits, nf: int) -> None:
+        if nf:
+            self.fr[0, :, :nf] = front
+            self.fr[0, :, nf:] = front[:, :1]
+            self.eb[0, :nf] = ebits
+            self.eb[0, nf:] = ebits[:1]
+        else:
+            self.fr[0].zero_()
+            self.eb[0].zero_()
+        self.parity = 0
+        self.nf_host = nf
+
+    def view(self, h: dict) -> tuple:
+        """``(frontier, ebits)``: views of the live half at ``h["nf"]``."""
+        p, nf = self.parity, h["nf"]
+        return self.fr[p, :, :nf], self.eb[p, :nf]
+
+
 class TpuBfsChecker(Checker):
     """``CheckerBuilder.spawn_hash()`` — the hash wave engine (the JAX
     ``spawn_tpu``), and the result surface every wave engine of the
@@ -264,14 +407,19 @@ class TpuBfsChecker(Checker):
     successors one wave may generate; ``probe_rounds`` is the probe
     depth past which a key overflows the table. Crossing any of them
     raises. ``device`` defaults to the CUDA device; pass ``"cpu"`` for
-    the plain-PyTorch path. The JAX ``waves_per_sync`` is not taken:
-    the port syncs every wave, and the JAX counts do not depend on it.
-    The expansion is dense (``step_cols``), as the JAX engine's is, and
-    the engine honours neither symmetry nor a visitor.
+    the plain-PyTorch path. ``waves_per_sync`` (default 1; the
+    JAX engine's is 64) is the chunk: the waves run between two host
+    syncs (checkers/chunk.py); 1 syncs every wave. The counts do not depend on
+    it. The expansion is dense (``step_cols``), as the JAX engine's is,
+    and the engine honours neither symmetry nor a visitor.
     """
 
     #: the name refusals give the spawn
     _engine_name = "spawn_hash"
+    #: whether this engine runs chunks of ``waves_per_sync`` waves
+    #: (checkers/chunk.py); the sharded engines, the fused batch and the
+    #: device simulation run one wave a chunk
+    _chunks_waves = True
     #: whether visited keys are clamped off the all-ones sentinel (the
     #: sort-merge engine's sorted arrays pad with it; the table does not)
     _clamps_keys = False
@@ -282,7 +430,8 @@ class TpuBfsChecker(Checker):
                  track_paths: bool = True, device=None, *,
                  cand_capacity: Optional[int] = None,
                  probe_rounds: int = 16, checkpoint_every=None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None,
+                 waves_per_sync: int = 1):
         super().__init__(builder)
         if encoded is None:
             to_encoded = getattr(builder.model, "to_encoded", None)
@@ -315,6 +464,11 @@ class TpuBfsChecker(Checker):
         self.frontier_capacity = frontier_capacity or capacity
         self.cand_capacity = cand_capacity
         self.probe_rounds = probe_rounds
+        if int(waves_per_sync) < 1:
+            raise ValueError(f"waves_per_sync must be >= 1: {waves_per_sync}")
+        #: waves a chunk runs between two host syncs (JAX's default is
+        #: 64); 1, the default, runs the one-wave-a-sync loop
+        self.waves_per_sync = int(waves_per_sync)
         self.track_paths = track_paths
         #: per-run wave metrics, set as the run goes
         self.metrics: dict = {}
@@ -375,6 +529,10 @@ class TpuBfsChecker(Checker):
         #: the next attempt
         self._resume = None
         self._resume_path = None
+        #: a resumed chunked run's classes (the snapshot's), and the
+        #: classes of this chunked run so far, which a snapshot records
+        self._resume_classes = None
+        self._chunk_classes = None
         self._resume_allow_sha = False
         self._last_snapshot = None
         #: the run started from a caller's state (``start_from``), which
@@ -431,6 +589,11 @@ class TpuBfsChecker(Checker):
         override)."""
         return False
 
+    def _sync_waves(self) -> int:
+        """The waves a chunk runs: ``waves_per_sync``, or 1 on an engine
+        that runs one wave a chunk."""
+        return self.waves_per_sync if self._chunks_waves else 1
+
     def _ckpt_cadence(self) -> int:
         if self.checkpoint_every == "auto":
             return self._ckpt_auto_every
@@ -446,6 +609,11 @@ class TpuBfsChecker(Checker):
 
     def _abandoned(self, token) -> bool:
         return self._attempt_token is not token
+
+    def _check_token(self, token) -> None:
+        """Raise in a chunk the watchdog gave up on (before its read)."""
+        if self._abandoned(token):
+            raise RuntimeError("chunk abandoned by the watchdog")
 
     def _publish(self, token, fps: dict, unique: int, total: int,
                  depth: int) -> None:
@@ -513,13 +681,17 @@ class TpuBfsChecker(Checker):
         return box["out"]
 
     def _wave_done(self, w: int, t0: float, done: bool,
-                   buffers_fn) -> float:
-        """After wave ``w`` of this attempt, begun at ``t0`` (its sync
-        done): record it in the trace, feed the watchdog, write the
-        snapshot when the cadence asks (never on the last wave), then
-        fire the ``chunk_boundary`` fault site — JAX's order, so a kill
-        there leaves the snapshot committed. ``buffers_fn()`` gives
-        ``(buffers, tier block)``. Returns the wave's end."""
+                   buffers_fn, boundary=-1) -> float:
+        """After sync ``w`` of this attempt (a wave, or a chunk of
+        several), begun at ``t0``: record it in the trace, feed the
+        watchdog, write the snapshot when the cadence asks (never on the
+        last wave), then fire the ``chunk_boundary`` fault site — JAX's
+        order, so a kill there leaves the snapshot committed.
+        ``boundary`` is the index of the JAX chunk that ends at this sync
+        (-1: ``w``; None: no JAX chunk ends here, a sync a capacity class
+        added, so neither the snapshot nor the fault site is due).
+        ``buffers_fn()`` gives ``(buffers, tier block)``. Returns the
+        sync's end."""
         t1 = time.monotonic()
         wave_sec = t1 - t0
         READS.local().sync_before = None
@@ -528,13 +700,17 @@ class TpuBfsChecker(Checker):
         if self.watchdog_factor and (self._wd_roll_max is None
                                      or wave_sec > self._wd_roll_max):
             self._wd_roll_max = wave_sec
+        if boundary is None:
+            return t1
+        if boundary == -1:
+            boundary = w
         if (self.checkpoint_every and not done
-                and (w + 1) % self._ckpt_cadence() == 0):
+                and (boundary + 1) % self._ckpt_cadence() == 0):
             t0 = time.monotonic()
             buffers, tier_block = buffers_fn()
             capture_sec = time.monotonic() - t0
             manifest = checkpoint.write_snapshot(
-                self, buffers, self.checkpoint_path, chunk=w,
+                self, buffers, self.checkpoint_path, chunk=boundary,
                 tier_block=tier_block)
             snap_sec = time.monotonic() - t0
             stats = self._ckpt_stats
@@ -559,7 +735,8 @@ class TpuBfsChecker(Checker):
                         snapshot_sec=round(snap_sec, 6),
                         chunk_sec=round(wave_sec, 6))
                 self._ckpt_auto_every = new
-        faultinject.fire("chunk_boundary", w, shards=self._fault_shards())
+        faultinject.fire("chunk_boundary", boundary,
+                         shards=self._fault_shards())
         return t1
 
     # -- run telemetry (telemetry.py) ---------------------------------------
@@ -580,11 +757,17 @@ class TpuBfsChecker(Checker):
         build the attempt's kernels inside a ``compile`` span. A compiled
         encoding's host compile (actor/compile.py), which ran before the
         run, is recorded as a ``compile`` span of the first run that
-        traces it. The port runs one wave a sync at every level, so the
-        deep level needs no ``deep_sync_override``: it only adds the
-        device sync before each wave's first read."""
+        traces it. The deep level forces one wave a chunk, as JAX's
+        does, with its ``deep_sync_override`` event (and then adds the
+        device sync before each wave's first read)."""
         tracer = telemetry.current_tracer()
         self._tracer = tracer
+        if (tracer is not None and tracer.level == "deep"
+                and self._chunks_waves and self.waves_per_sync != 1):
+            tracer.event("deep_sync_override",
+                         waves_per_sync_old=self.waves_per_sync,
+                         waves_per_sync=1)
+            self.waves_per_sync = 1
         self._trace_row = None
         self._verdicts_seen: set = set()
         self._mem_peak = self._mem_src = None
@@ -623,12 +806,14 @@ class TpuBfsChecker(Checker):
         return out
 
     def _trace_wave(self, w: int, t0: float, t1: float) -> None:
-        """One wave as one chunk (the port syncs every wave): the wall
-        split into the timed host reads (``fetch_sec``) and the rest
-        (``dispatch_sec``), the deep level's device wait, the wave's row
-        and per-shard rows the wave left in ``_trace_row``, the device
-        bytes in use, the straggler verdicts, and a ``verdict`` event
-        for each property first discovered in this wave."""
+        """One chunk: the wall split into the timed host reads
+        (``fetch_sec``) and the rest (``dispatch_sec``), the deep level's
+        device wait, the wave rows and per-shard rows the chunk left in
+        ``_trace_row`` — ``(first wave, row, shard rows)`` of a one-wave
+        chunk, or ``(first wave, [rows], None, waves)`` of a chunk of
+        several (its row list None on the hash engine, which keeps no
+        wave log) — the device bytes in use, the straggler verdicts, and
+        a ``verdict`` event for each property first discovered in it."""
         from ..memplan import device_bytes_in_use
 
         tracer = self._tracer
@@ -641,15 +826,19 @@ class TpuBfsChecker(Checker):
             self._mem_polls += 1
             self._mem_peak = (mem_now if self._mem_peak is None
                               else max(self._mem_peak, mem_now))
-        wave_no, row, srows = self._trace_row
+        wave_no, row, srows = self._trace_row[:3]
+        if len(self._trace_row) > 3:  # a chunk of several waves
+            n_waves, rows = self._trace_row[3], row
+        else:
+            n_waves, rows = 1, None if row is None else [row]
         self._trace_row = None
         if srows is not None:
             self._note_shard_health(srows, wave_no)
         tracer.record_chunk(
             chunk=w, wave0=wave_no, t0=t0, t1=t1,
             dispatch_sec=max(t1 - t0 - fetch - (dev or 0.0), 0.0),
-            fetch_sec=fetch, device_sec=dev, n_waves=1,
-            wave_rows=None if row is None else [row],
+            fetch_sec=fetch, device_sec=dev, n_waves=n_waves,
+            wave_rows=rows,
             shard_rows=None if srows is None else [[r] for r in srows],
             mem_bytes=mem_now)
         for prop in self.model.properties():
@@ -658,7 +847,7 @@ class TpuBfsChecker(Checker):
                 self._verdicts_seen.add(prop.name)
                 tracer.event("verdict", property=prop.name,
                              expectation=prop.expectation.name.lower(),
-                             kind="discovery", wave=wave_no + 1,
+                             kind="discovery", wave=wave_no + n_waves,
                              depth=self._max_depth, chunk=w)
 
     def _wave_read_walls(self) -> tuple:
@@ -739,7 +928,8 @@ class TpuBfsChecker(Checker):
                     capacity=self.capacity,
                     frontier_capacity=self.frontier_capacity,
                     cand_capacity=self.cand_capacity,
-                    waves_per_sync=1, track_paths=self.track_paths,
+                    waves_per_sync=self._sync_waves(),
+                    track_paths=self.track_paths,
                     device=str(self.device),
                     merge_impl=("cuda" if self.device.type == "cuda"
                                 else "plain"),
@@ -875,10 +1065,10 @@ class TpuBfsChecker(Checker):
 
     def _on_chunk_stats(self, w: int, t0: float, t1: float,
                         done: bool) -> None:
-        """Host observation of wave ``w`` (from ``t0`` to ``t1``; the
-        last when ``done``) after the wave is recorded, every wave: the
-        port runs one wave a chunk. What it does is outside the wave's
-        wall and the watchdog's."""
+        """Host observation of sync ``w`` (from ``t0`` to ``t1``; the
+        last when ``done``) after it is recorded: every wave of the
+        fused batch, which runs one wave a chunk. What it does is
+        outside the sync's wall and the watchdog's."""
 
     # -- the hash wave loop -------------------------------------------------
 
@@ -897,26 +1087,29 @@ class TpuBfsChecker(Checker):
                     next_visited_bytes=int(nxt * self._visited_bytes_per_row()))
 
     def _memory_plan_of(self, resident: dict, staging: dict,
-                        host: Optional[dict] = None) -> dict:
+                        host: Optional[dict] = None,
+                        classes: Optional[list] = None) -> dict:
         """The resident-buffer ledger (memplan.py) of a finished run:
         ``resident`` — the tensors the engine keeps on the device between
         waves, as they are at the end of the run; ``staging`` — the
         widest wave's candidate block and keys, ``(shape, dtype)``
         each; ``host`` — what a tiered run keeps in host memory
-        instead. Priced per device (``n_shards`` 1), with the capacity
-        projection."""
+        instead; ``classes`` — the capacity classes a chunked run used
+        (``memplan.chunk_class_entries``, each priced), or None for a run
+        of one wave a sync, which sizes every wave exactly. Priced per
+        device (``n_shards`` 1), with the capacity projection."""
         from .. import memplan
 
         res = memplan.plan_entries(resident)
         stg = memplan.plan_entries(staging)
         resident_bytes = memplan.plan_total(res)
         staging_bytes = memplan.plan_total(stg)
-        # ``classes``: the port sizes every wave exactly and has no class
-        # ladder; ``compiled``: an eager wave has no compiled program
+        # ``compiled``: an eager wave or a CUDA graph has no compiled
+        # program's memory analysis
         plan = dict(engine=type(self).__name__, device=str(self.device),
                     n_shards=1, resident=res, resident_bytes=resident_bytes,
                     staging=stg, staging_bytes=staging_bytes,
-                    classes=[], compiled=None,
+                    classes=list(classes or []), compiled=None,
                     total_bytes=resident_bytes + staging_bytes,
                     projection=self._memory_projection())
         if host:
@@ -993,6 +1186,8 @@ class TpuBfsChecker(Checker):
                 f"{type(self.encoded).__name__} does not have"
             )
         token = self._begin_attempt()
+        if self._sync_waves() > 1:
+            return self._run_chunked(reporter, token)
         enc = self.encoded
         props = list(self.model.properties())
         evt_idx = self._eventually_indices(props)
@@ -1120,29 +1315,323 @@ class TpuBfsChecker(Checker):
                     max_depth=depth, duration_sec=self.duration_sec(),
                     done=False,
                 ))
-        W = enc.width
+        self._finish_hash(table, parents, front, ebits, depth=depth,
+                          waves=waves, generated=generated, unique=unique,
+                          max_cand=max_cand, insert_shape=insert_shape,
+                          extra=dict(waves_per_sync=1))
+
+    def _finish_hash(self, table, parents, front, ebits, *, depth: int,
+                     waves: int, generated: int, unique: int, max_cand: int,
+                     insert_shape: tuple, extra: dict,
+                     classes=None) -> None:
+        """The end of a hash run, either loop: the final state, the memory
+        plan (with the chunked run's ``classes``, ``(Fc, Pc)`` each),
+        ``metrics`` (with ``extra``) and the paths."""
+        W = self.encoded.width
         #: the tensors the run kept between waves, as it ended
         self._final = dict(table=table, parents=parents, frontier=front,
                            ebits=ebits)
         if self.keep_final_carry:
             self._final_carry = dict(self._final, depth=depth, waves=waves,
                                      generated=generated, unique=unique)
+        from ..memplan import chunk_class_entries
+
         self.memory_plan = self._memory_plan_of(
             dict(table=table.keys if table.entries is None
                  else table.entries, parents=parents, frontier=front,
                  ebits=ebits),
             dict(candidates=((W, max_cand), np.int64),
-                 candidate_keys=((max_cand,), np.int64)))
+                 candidate_keys=((max_cand,), np.int64)), None,
+            [chunk_class_entries("hash", W, Fc, Pc, self.capacity, index=i)
+             for i, (Fc, Pc) in enumerate(classes or [])])
         # the widest wave's insert: (occupied slots, keys, new keys)
         self.metrics = dict(
             waves=waves, frontier_size=front.shape[1],
             occupancy=unique / self.capacity,
             dedup_ratio=1.0 - unique / generated if generated else 0.0,
             max_wave_candidates=max_cand, insert_shape=insert_shape,
-            **self._ckpt_metrics(),
+            **extra, **self._ckpt_metrics(),
         )
         if self.track_paths:
             self._decode_paths(table, parents)
+
+    # -- the chunked hash waves (checkers/chunk.py) --------------------------
+
+    def _hash_classes(self, K: int, h: dict, cur=None) -> tuple:
+        """The ``(Fc, Pc)`` classes for the next hash wave from the polled
+        scalars ``h``: the frontier rows a wave steps and the pairs it
+        keeps (the frontier halves hold ``Pc`` columns, so a wave's
+        winners always fit them: a frontier past ``Fc`` commits, and
+        only the next wave waits for a grown ``Fc``)."""
+        fcap = self.frontier_capacity
+        pcap = max(1, fcap * K)
+        if cur is None:
+            Fc = grow_class(h["nf"], fcap, FLOOR_F)
+            return Fc, max(Fc, grow_class(h["nf"] * K, pcap, FLOOR_P))
+        Fc, Pc = cur
+        if h["grow"] & GROW_P:
+            Pc = grow_class(h["need_p"], pcap, FLOOR_P)
+        if h["grow"] & GROW_F:
+            # room for the frontier's growth rate over the next waves
+            r = min(max(h["need_f"] / max(h["last_nf"], 1), 1.0),
+                    chunk.GROWTH_CAP)
+            ahead = int(h["need_f"] * r)
+            per_row = -(-h["last_p"] // max(h["last_nf"], 1))
+            Fc = grow_class(ahead, fcap, FLOOR_F)
+            Pc = max(Pc, grow_class(ahead * per_row, pcap, FLOOR_P))
+        if shrinks(h, Fc):
+            Fc, Pc = shrink_classes(h, Pc, fcap, pcap)
+        return Fc, max(Pc, Fc)
+
+    def _hash_carry(self, n_props: int, N: int, Fc: int, Pc: int,
+                    traced: bool, front, ebits, nf: int) -> "HashCarry":
+        cx = HashCarry(self.device, n_props, N, traced, self.encoded.width,
+                       Fc, Pc)
+        cx.step_rows = Fc * self.encoded.max_actions  # a dense wave
+        cx.load(front, ebits, nf)
+        return cx
+
+    def _hash_wave(self, cx: "HashCarry", p: int, c, table,
+                   parents_buf) -> None:
+        """One chunked hash wave, reading half ``p`` of ``cx`` and writing
+        half ``1 - p``: the steps of the one-wave loop's wave on
+        class-sized buffers, the insert with its key count on the device
+        (``ops.hashset.insert_dev``), no host read. A wave whose pairs do
+        not fit their class inserts nothing and commits nothing."""
+        enc, props = c.enc, c.props
+        dev = cx.device
+        nf, depth, unique = cx.s("nf"), cx.s("depth"), cx.s("nv")
+        live = cx.s("stop") == 0
+        Fc, Pc = cx.Fc, cx.Pc
+        front, ebits_in = cx.fr[p, :, :Fc], cx.eb[p, :Fc]
+        fmask = cx.ar_f < nf
+        cond, eb, f_lo, f_hi = frontier_props_t(enc, props, c.evt_idx, front,
+                                                ebits_in)
+        at_target = (torch.zeros((), dtype=torch.bool, device=dev)
+                     if c.target_depth is None else depth >= c.target_depth)
+        succ_c, rows, pairs, trunc, per_row = dense_pairs_fixed(
+            enc, front, fmask & ~at_target, c.chunk_rows, Pc,
+            cx.rows_bound())
+        ok = cx.ar_p < pairs
+        if not c.trivial:
+            ok = ok & enc.within_boundary_cols(succ_c)
+        n_cand = ok.sum()
+        ins = ok
+        if self.cand_capacity is not None:  # the JAX buffer keeps the first
+            ins = ok & (torch.cumsum(ok.to(torch.int64), 0)
+                        <= self.cand_capacity)
+        has_succ = rows_with(per_row, ok) | at_target
+        p_over = pairs > Pc
+        fits = live & ~p_over
+        keys = pack_keys(*fingerprint_u32v_t(succ_c))
+        n_ins = torch.where(fits, pairs.clamp(max=Pc), 0)
+        is_new, over, slot = insert_dev(table, keys, ins, n_ins,
+                                        cx.s("epoch"), self.probe_rounds)
+        ins = ins & fits
+        is_new = is_new & ins
+        new = is_new.sum()
+        # the one-wave loop's verdicts, in its order; every one after the
+        # insert, as there
+        v_raise = (over & ins).any()
+        f_raise = fits & ~v_raise & (new > self.frontier_capacity)
+        c_raise = fits & ~v_raise & ~f_raise & (
+            False if self.cand_capacity is None
+            else n_cand > self.cand_capacity)
+        e_raise = fits & ~v_raise & ~f_raise & ~c_raise & trunc
+        raised = v_raise | f_raise | c_raise | e_raise
+        commit = fits & ~raised
+        all_disc = torch.zeros((), dtype=torch.bool, device=dev)
+        if props:
+            hit, lo, hi = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
+                                    f_lo, f_hi, live=fmask)
+            disc = fold_discoveries(cx.disc, hit, lo, hi, fits)
+            cx.disc.copy_(disc)
+            all_disc = disc[0].all()
+        # winners in row order, their parents, the next frontier
+        new_idx = rank_compact(is_new, Pc, cx.ar_p.view(1, -1), 0)[0]
+        par_row = rows[new_idx]
+        if self.track_paths:
+            cap = parents_buf.numel() - dump_size(dev)
+            parents_buf[torch.where(is_new & commit, slot,
+                                    dump_slots(cap, Pc, dev))] = \
+                pack_keys(f_lo, f_hi)[rows]
+        cx.fr[1 - p].copy_(succ_c[:, new_idx])
+        cx.eb[1 - p].copy_(eb[par_row])
+        unique_after = unique + new
+        fin = (new == 0) | all_disc
+        if c.target_states is not None:
+            fin = fin | (unique_after >= c.target_states)
+        done = commit & fin
+        g_f = commit & ~fin & (new > Fc)
+        ci = commit.to(torch.int64)
+        wider = commit & (n_cand > cx.s("max_cand"))
+        grow = ((live & p_over).to(torch.int64) * GROW_P
+                + g_f.to(torch.int64) * GROW_F)
+        over_bits = (v_raise.to(torch.int64) * OVER_VISITED
+                     + f_raise.to(torch.int64) * OVER_FRONTIER
+                     + c_raise.to(torch.int64) * OVER_CAND
+                     + e_raise.to(torch.int64) * OVER_ENC)
+        upd = dict(
+            stop=((cx.s("stop") != 0) | done | (grow != 0)
+                  | raised).to(torch.int64),
+            done=(cx.s("done") != 0).to(torch.int64) | done.to(torch.int64),
+            grow=cx.s("grow") | grow, over=cx.s("over") | over_bits,
+            depth=depth + (commit & ~fin).to(torch.int64),
+            waves=cx.s("waves") + ci, nv=unique + ci * new,
+            nf=torch.where(commit, new, nf), gen=cx.s("gen") + ci * n_cand,
+            wchunk=cx.s("wchunk") + ci,
+            need_p=torch.where(live & ~commit, pairs, cx.s("need_p")),
+            need_f=torch.where(g_f, new, cx.s("need_f")),
+            last_p=torch.where(commit, pairs, cx.s("last_p")),
+            last_nf=torch.where(commit, nf, cx.s("last_nf")),
+            max_cand=torch.where(wider, n_cand, cx.s("max_cand")),
+            ins_occ=torch.where(wider, unique, cx.s("ins_occ")),
+            ins_keys=torch.where(wider, n_cand, cx.s("ins_keys")),
+            ins_new=torch.where(wider, new, cx.s("ins_new")),
+        )
+        cx.write(upd)
+
+    def _run_chunked(self, reporter, token) -> None:
+        """The hash run as chunks of up to ``waves_per_sync`` waves
+        (checkers/chunk.py): one read of the packed stats a chunk."""
+        from types import SimpleNamespace
+
+        from .chunk import WaveRunner
+
+        enc = self.encoded
+        props = list(self.model.properties())
+        K = enc.max_actions
+        c = SimpleNamespace(
+            enc=enc, props=props, evt_idx=self._eventually_indices(props),
+            trivial=enc.trivial_boundary,
+            chunk_rows=max(1, DENSE_CHUNK_BYTES // (8 * enc.width * K)),
+            target_states=self.builder._target_state_count,
+            target_depth=self.builder._target_max_depth)
+        (table, parents, front, ebits, unique, generated, depth,
+         waves) = self._traced_start(self._hash_start)
+        dev = self.device
+        cap = self.capacity
+        parents_buf = torch.full(
+            (cap + dump_size(dev) if self.track_paths else 0,), EMPTY,
+            dtype=torch.int64, device=dev)
+        if self.track_paths:
+            parents_buf[:cap] = parents
+            parents = parents_buf[:cap]
+        self._unique_states, self._total_states = unique, generated
+        self._max_depth = depth
+        fps = dict(self._discovered_fps)
+        N = self._sync_waves()
+        traced = self._tracer is not None
+        nf = front.shape[1]
+        h = dict(nf=nf)
+        fcap = self.frontier_capacity
+        classes = chunk.start_classes(
+            self._hash_classes(K, h), self._resume_classes,
+            lambda k: k[0] <= fcap and nf <= k[1] <= max(1, fcap * K))
+        self._resume_classes = None
+        cx = self._hash_carry(len(props), N, *classes[-1], traced, front,
+                              ebits, nf)
+        cx.set_scalars(depth=depth, waves=waves, nv=unique, nf=nf,
+                       gen=generated, epoch=table.epoch)
+        for i, prop in enumerate(props):
+            fp = fps.get(prop.name)
+            if fp is not None:
+                cx.disc[:, i] = torch.tensor(
+                    [1, fp & 0xFFFFFFFF, fp >> 32], dtype=torch.int64)
+        runner = WaveRunner(dev, "hash")
+        chunk_no = 0
+        warned = False
+        done = nf == 0
+        stats = None
+
+        def resize(cx_, h_, key):
+            f, e = cx_.view(h_)
+            new = self._hash_carry(len(props), N, *key, traced, f, e,
+                                   h_["nf"])
+            new.sc.copy_(cx_.sc)
+            new.disc.copy_(cx_.disc)
+            return new
+
+        loop = ChunkLoop(
+            runner, ChunkSchedule(waves, N),
+            lambda cx_, par: self._hash_wave(cx_, par, c, table,
+                                             parents_buf),
+            lambda h_, key: self._hash_classes(K, h_, key), resize,
+            len(props), classes, check=lambda: self._check_token(token))
+        self._chunk_classes = loop.classes
+
+        def run_chunk() -> dict:
+            nonlocal cx
+            cx, out = loop.chunk(cx)
+            found, lo, hi = out["disc"]
+            for i, prop in enumerate(props):
+                if found[i] and prop.name not in fps:
+                    fps[prop.name] = (hi[i] << 32) | lo[i]
+            return out
+
+        def buffers():
+            f, e = cx.view(stats)
+            return checkpoint.hash_buffers(
+                self, table, parents, f, e, depth=stats["depth"],
+                waves=stats["waves"], generated=stats["gen"],
+                unique=stats["nv"]), None
+
+        try:
+            while not done:
+                t0 = time.monotonic()
+                try:
+                    stats = self._guarded_wave(run_chunk, chunk_no)
+                finally:
+                    if stats is not None:
+                        self._publish(token, fps, stats["nv"], stats["gen"],
+                                      stats["depth"])
+                for bit, kind in ((OVER_VISITED, "visited"),
+                                  (OVER_FRONTIER, "frontier"),
+                                  (OVER_CAND, "candidates"),
+                                  (OVER_ENC, "encoding")):
+                    if stats["over"] & bit:
+                        raise RuntimeError(self._overflow_message(kind, fps))
+                table.epoch = stats["epoch"] if dev.type == "cuda" \
+                    else table.epoch
+                done = bool(stats["done"])
+                boundary = loop.sched.synced(stats["waves"], done)
+                if self._tracer is not None:
+                    # JAX's hash engine keeps no wave log: its chunks land
+                    # without wave rows
+                    self._trace_row = (stats["waves"] - stats["wchunk"],
+                                       None, None, stats["wchunk"])
+                t1 = self._wave_done(chunk_no, t0, done, buffers, boundary)
+                self._on_chunk_stats(chunk_no, t0, t1, done)
+                chunk_no += 1
+                if done:
+                    break
+                if not warned:  # once a run, where JAX warns a sync
+                    warned = self._maybe_warn_occupancy(stats["nv"] / cap)
+                if reporter is not None and boundary is not None:
+                    reporter.report_checking(ReportData(
+                        total_states=stats["gen"], unique_states=stats["nv"],
+                        max_depth=stats["depth"],
+                        duration_sec=self.duration_sec(), done=False))
+        finally:
+            runner.close()
+        if stats is None:  # a settled start: no wave ran
+            stats = dict(depth=depth, waves=waves, gen=generated, nv=unique,
+                         nf=nf, max_cand=0, ins_occ=0, ins_keys=0,
+                         ins_new=0)
+            f, e = front, ebits
+        else:
+            f, e = (t.clone() for t in cx.view(stats))
+        self._finish_hash(
+            table, parents, f, e, depth=stats["depth"],
+            waves=stats["waves"], generated=stats["gen"],
+            unique=stats["nv"], max_cand=stats["max_cand"],
+            insert_shape=(stats["ins_occ"], stats["ins_keys"],
+                          stats["ins_new"]),
+            extra=dict(waves_per_sync=N, chunks=chunk_no,
+                       resizes=loop.resizes,
+                       classes=[list(k) for k in loop.classes],
+                       **runner.counts()),
+            classes=loop.classes)
 
     def _decode_paths(self, table, parents) -> None:
         """Each discovery's path, at the run's end, from the parent log

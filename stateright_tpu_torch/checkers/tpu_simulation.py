@@ -131,6 +131,10 @@ class TpuSimulationChecker(TpuBfsChecker):
     which change no result).
     """
 
+    #: walk steps, not chunked waves (device simulation's chunk is a
+    #: later slice)
+    _chunks_waves = False
+
     _engine_name = "spawn_device_simulation"
 
     def __init__(self, builder: CheckerBuilder, encoded=None,

@@ -67,15 +67,26 @@ there.
 JAX engine: after the wave that brings the visited count to the target,
 or with a wave at the target depth that evaluates properties but
 expands nothing. A set ``cancel_event`` (the hybrid racer's losing
-side, checkers/hybrid.py) stops it at the top of the next wave, with
+side, checkers/hybrid.py) stops it at the top of the next chunk, with
 ``cancelled`` True, the counts of the waves done and no paths.
 
-The JAX engine compiles static shapes, so it carries class ladders,
-``lax.switch`` variants, pair-width and candidate budgets, and a budget
-store. PyTorch runs eagerly, so this engine sizes every wave exactly:
-one host sync per wave reads the winner count. What the ladders
-guaranteed stays: overflow of the configured visited or frontier
-capacity RAISES, and nothing is truncated silently.
+With ``waves_per_sync`` N > 1 (the default is 1; JAX's is 64, which the
+port takes once it is no slower on the card, PERF.md), a resident run
+goes in chunks of up to N waves between two host syncs (checkers/chunk.py,
+:meth:`SortMergeTpuBfsChecker._waves_chunked`): every buffer of a chunk
+has a power-of-two capacity class chosen at the chunk's start, every
+count is a device scalar, the Merge Path kernels read their counts
+from device memory (``ops.merge.member_keys_dev``, ``merge_keys_dev``),
+the pairs and winners are compacted by rank scatters, the visited keys,
+frontier and eventually-bits are ping-pong halves, and a wave that
+would cross a class commits nothing and is run again at grown classes.
+The chunk ends with one read of its packed stats; on the card its waves
+replay as CUDA graphs. A tiered run, ``waves_per_sync=1`` and the deep
+trace level run one wave a sync instead, each wave sized exactly to its
+live rows (:meth:`SortMergeTpuBfsChecker._waves_each`). The counts do
+not depend on the chunk. What the JAX ladders guaranteed stays:
+overflow of the configured visited or frontier capacity RAISES, and
+nothing is truncated silently.
 
 The orders that decide the output match the JAX engine's, so the
 discovery fingerprints and the paths built from them are the same:
@@ -103,18 +114,49 @@ from ..ops.fingerprint import (
     fingerprint_u32v_t,
     pack_keys,
 )
-from ..ops.merge import compact_winners_keys, member_keys, merge_keys
+from ..ops.merge import (
+    compact_winners_keys,
+    compact_winners_keys_dev,
+    dump_size,
+    dump_slots,
+    member_keys,
+    member_keys_dev,
+    merge_keys,
+    merge_keys_dev,
+)
 from ..report import ReportData
+from ..telemetry import WAVE_LOG_LANES
 from ..tier import ColdStore
+from . import chunk
+from .chunk import (
+    FLOOR_F,
+    FLOOR_P,
+    FLOOR_V,
+    GROW_F,
+    GROW_P,
+    GROW_V,
+    OVER_ENC,
+    OVER_FRONTIER,
+    OVER_VISITED,
+    ChunkCarry,
+    ChunkLoop,
+    ChunkSchedule,
+    grow_class,
+    shrink_classes,
+    shrinks,
+)
 from .common import symmetry_refusal
 from .tpu import (
     DENSE_CHUNK_BYTES,
     REPORT_EVERY_WAVES,
     TpuBfsChecker,
     dense_candidates,
+    dense_pairs_fixed,
     discovery_update,
+    fold_discoveries,
     frontier_props_t,
     host_read,
+    rows_with,
     wave_hits,
 )
 
@@ -156,7 +198,7 @@ def frontier_enabled_bits(enc, frontier_t, ample_words=None):
     return bits, popcount_words(bits)
 
 
-def frontier_unexpanded(enc, frontier_t):
+def frontier_unexpanded(enc, frontier_t, live=None):
     """Whether a row of the ``[W, n]`` frontier holds a local state the
     compiled closure kept without expanding (``None`` where the encoding
     has no such state, else a ``bool`` tensor): the pair tables lack
@@ -166,7 +208,9 @@ def frontier_unexpanded(enc, frontier_t):
     pair; the dense step makes it itself."""
     fn = getattr(enc, "unexpanded_rows", None)
     rows = None if fn is None else fn(frontier_t)
-    return None if rows is None else rows.any()
+    if rows is None:
+        return None
+    return (rows if live is None else rows & live).any()
 
 
 def sparse_pair_candidates(bits, k: int):
@@ -176,6 +220,34 @@ def sparse_pair_candidates(bits, k: int):
     prefix-sum compaction (``nonzero``) replace the peel and the tiled
     sorts."""
     return words_to_mask(bits, k).nonzero(as_tuple=True)
+
+
+def sparse_pairs_fixed(bits, k: int, cap: int, chunk_rows: int,
+                       rows_bound: Optional[int] = None):
+    """:func:`sparse_pair_candidates` into a fixed ``cap``-pair block,
+    with no host read: ``(rows, slots, pairs)`` — the enabled pairs in
+    (row, ascending slot) order, then copies of the first pair (a valid
+    step), and the enabled count (0-d; more than ``cap`` means the block
+    kept only the first ``cap``). Rank-scatter compaction, ``chunk_rows``
+    rows of the ``[F, L]`` words at a time; ``rows_bound`` (a host count
+    no live row lies past, or None) skips the chunks past it, as
+    ``checkers.tpu.dense_pairs_fixed`` does."""
+    F = bits.shape[0]
+    dev = bits.device
+    pair = torch.zeros(cap + dump_size(dev), dtype=torch.int64, device=dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    F_live = F if rows_bound is None else min(F, max(int(rows_bound), 1))
+    for r0 in range(0, F_live, chunk_rows):
+        m = words_to_mask(bits[r0:min(r0 + chunk_rows, F_live)],
+                          k).reshape(-1)
+        rank = torch.cumsum(m.to(torch.int64), 0) - 1 + off
+        pair[torch.where(m & (rank < cap), rank,
+                         dump_slots(cap, m.numel(), dev))] = torch.arange(
+            m.numel(), dtype=torch.int64, device=dev) + r0 * k
+        off = off + m.sum()
+    pair = pair[:cap]
+    pair = torch.where(torch.arange(cap, device=dev) < off, pair, pair[0])
+    return pair // k, pair % k, off
 
 
 def successor_keys(succ_t, sym_spec=None, valid=None):
@@ -192,7 +264,7 @@ def successor_keys(succ_t, sym_spec=None, valid=None):
 
 
 def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool,
-               sym_spec=None):
+               sym_spec=None, live=None):
     """Successors ``[W, P]``, their clamped keys (the sentinel where a
     pair is excluded), the surviving-pair mask (``None``: every pair
     survives), the encoding-bound overflow flag (``None`` or a ``bool``
@@ -203,12 +275,14 @@ def eval_pairs(enc, frontier_t, rows, slots, trivial_boundary: bool,
     The encoding's flags apply as in the JAX engine: ``hard`` pairs
     first (excluded, and they raise whatever the boundary says), then
     the boundary, then ``trunc`` on the pairs still in it (excluded,
-    and they raise)."""
+    and they raise). ``live`` (``bool[P]``, or None: every pair) marks
+    the pairs of a fixed-capacity block that exist; the others are
+    excluded and never trip a flag."""
     succ_t, trunc, hard = enc.step_slot_cols(frontier_t[:, rows], slots)
-    ok = eov = None
+    ok, eov = live, None
     if hard is not None:
-        eov = hard.any()
-        ok = ~hard
+        eov = (hard if live is None else hard & live).any()
+        ok = ~hard if ok is None else ok & ~hard
     if not trivial_boundary:
         inb = enc.within_boundary_cols(succ_t)
         ok = inb if ok is None else ok & inb
@@ -315,6 +389,68 @@ class HotColdTier:
                     cold_member_sec=round(self.member_sec, 6))
 
 
+class SortMergeCarry(ChunkCarry):
+    """The chunked sort-merge wave's device state (checkers/chunk.py):
+    the visited keys ``vk [2, Vc]``, the frontier ``fr [2, W, Fc]`` and
+    its eventually-bits ``eb [2, Fc]`` as ping-pong halves (a wave reads
+    half ``p`` and writes half ``1 - p``), and the parent log ``plog [2,
+    Vc + spare]`` (parent keys, child keys; appended in place, the last
+    columns spare slots for the rows a wave does not keep,
+    ``ops.merge.dump_size``). The live lengths
+    are the scalars ``nv``, ``nf``, ``nl``; columns past them hold
+    copies of live ones (the frontier's column 0), never garbage a step
+    could choke on."""
+
+    def __init__(self, device, n_props: int, n_waves: int, log: bool,
+                 W: int, Fc: int, Pc: int, Vc: int, track_paths: bool):
+        super().__init__(device, n_props, n_waves, WAVE_LOG_LANES, log)
+        self.Fc, self.Pc, self.Vc = Fc, Pc, Vc
+        self.vk = torch.empty((2, Vc), dtype=torch.int64, device=device)
+        self.fr = torch.empty((2, W, Fc), dtype=torch.int64, device=device)
+        self.eb = torch.empty((2, Fc), dtype=torch.int64, device=device)
+        self.plog = (torch.empty((2, Vc + dump_size(device)),
+                                 dtype=torch.int64, device=device)
+                     if track_paths else None)
+        self.ar_f = torch.arange(Fc, dtype=torch.int64, device=device)
+        self.ar_p = torch.arange(Pc, dtype=torch.int64, device=device)
+
+    @property
+    def key(self) -> tuple:
+        return (self.Fc, self.Pc, self.Vc)
+
+    def load(self, vkeys, frontier, ebits, plog_par=None, plog_child=None
+             ) -> None:
+        """Half 0 holds the live ``vkeys``, ``frontier`` ``[W, n]`` and
+        ``ebits``, the frontier's padding copies of its column 0; the
+        log holds ``plog_*``. Parity 0."""
+        nv, nf = vkeys.numel(), frontier.shape[1]
+        self.vk[0, :nv] = vkeys
+        if nf:
+            self.fr[0, :, :nf] = frontier
+            self.fr[0, :, nf:] = frontier[:, :1]
+            self.eb[0, :nf] = ebits
+            self.eb[0, nf:] = ebits[:1]
+        else:
+            self.fr[0].zero_()
+            self.eb[0].zero_()
+        if self.plog is not None and plog_par is not None:
+            nl = plog_par.numel()
+            self.plog[0, :nl] = plog_par
+            self.plog[1, :nl] = plog_child
+        self.parity = 0
+        self.nf_host = nf
+
+    def view(self, h: dict) -> tuple:
+        """``(vkeys, frontier, ebits, plog blocks)``: views of the live
+        half at the host counts ``h``."""
+        p = self.parity
+        nv, nf, nl = h["nv"], h["nf"], h["nl"]
+        plog = []
+        if self.plog is not None and nl:
+            plog = [(self.plog[0, :nl], self.plog[1, :nl])]
+        return (self.vk[p, :nv], self.fr[p, :, :nf], self.eb[p, :nf], plog)
+
+
 class SortMergeTpuBfsChecker(TpuBfsChecker):
     """``CheckerBuilder.spawn_sortmerge()``.
 
@@ -359,11 +495,13 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                  tier_budget_bytes: Optional[int] = None,
                  tier_max_runs: int = 8, v_min: int = 1 << 19,
                  v_ladder_step: int = 2, checkpoint_every=None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None,
+                 waves_per_sync: int = 1):
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, device,
                          checkpoint_every=checkpoint_every,
-                         checkpoint_path=checkpoint_path)
+                         checkpoint_path=checkpoint_path,
+                         waves_per_sync=waves_per_sync)
         self.sparse = sparse
         self.ample_set = bool(ample_set)
         self.dense_chunk_bytes = dense_chunk_bytes
@@ -592,6 +730,18 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
 
     def _waves(self, st: WaveState, ceiling, tier, ample_words,
                reporter, token) -> None:
+        """The attempt's waves from ``st``: chunks of ``waves_per_sync``
+        waves (:meth:`_waves_chunked`), or one wave a sync (a tiered
+        run, as JAX's; ``waves_per_sync=1``; the deep trace level)."""
+        if ceiling is None and tier is None and self._sync_waves() > 1:
+            return self._waves_chunked(st, ample_words, reporter, token)
+        return self._waves_each(st, ceiling, tier, ample_words, reporter,
+                                token)
+
+    def _waves_each(self, st: WaveState, ceiling, tier, ample_words,
+                    reporter, token) -> None:
+        """One wave a sync, each wave sized exactly to its live rows
+        (host counts, the kernels called with them)."""
         enc = self.encoded
         props = list(self.model.properties())
         evt_idx = self._eventually_indices(props)
@@ -754,24 +904,46 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                     duration_sec=self.duration_sec(),
                     done=False,
                 ))
+        meters = dict(waves=st.waves, max_cand=max_cand,
+                      widest=-1 if widest_wave is None else widest_wave,
+                      max_new=max_new, mem_na=member_shape[0],
+                      mem_nq=member_shape[1], mrg_na=merge_shape[0],
+                      mrg_nb=merge_shape[1], hits=int(hits_total),
+                      chunks=chunks, max_chunks=max_chunks)
+        self._finish_sortmerge(st, tier, sparse, meters,
+                               dict(waves_per_sync=1), chunk_rows, ceiling)
+
+    def _finish_sortmerge(self, st: WaveState, tier, sparse: bool,
+                          m: Optional[dict], extra: dict, chunk_rows: int,
+                          ceiling=None) -> None:
+        """The end of a run, either loop: ``metrics`` from the meters
+        ``m`` (the chunk's scalar names; None when no wave ran) and
+        ``extra``, the final state, the paths and the memory plan."""
+        m = m or dict(waves=st.waves, max_cand=0, widest=-1, max_new=0,
+                      mem_na=0, mem_nq=0, mrg_na=0, mrg_nb=0, hits=0,
+                      chunks=0, max_chunks=0)
         # the widest calls: the member kernel's query count and the
         # merge kernel's winner count at their largest, each with the
         # (hot) visited-set size it met there: (Na, Nq) and (Na, Nb)
         # widest_wave: the index of the wave with the most candidates
+        max_cand = m["max_cand"]
         self.metrics = dict(waves=st.waves, max_wave_candidates=max_cand,
-                            widest_wave=widest_wave,
-                            max_wave_new=max_new, member_shape=member_shape,
-                            merge_shape=merge_shape,
+                            widest_wave=None if m["widest"] < 0
+                            else m["widest"],
+                            max_wave_new=m["max_new"],
+                            member_shape=(m["mem_na"], m["mem_nq"]),
+                            merge_shape=(m["mrg_na"], m["mrg_nb"]),
                             expansion="sparse" if sparse else "dense",
-                            canonical_hits=int(hits_total))
+                            canonical_hits=int(m["hits"]))
         if not sparse:
-            self.metrics.update(dense_chunks=chunks,
-                                max_wave_chunks=max_chunks,
+            self.metrics.update(dense_chunks=m["chunks"],
+                                max_wave_chunks=m["max_chunks"],
                                 chunk_rows=chunk_rows)
         if ceiling is not None:
             self.metrics["hot_ceiling_rows"] = ceiling
         if tier is not None:
             self.metrics.update(tier.metrics(st.vkeys.numel()))
+        self.metrics.update(extra)
         self.metrics.update(self._ckpt_metrics())
         self._final = st
         if self.keep_final_carry:
@@ -790,7 +962,358 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
             for name, fp in self._discovered_fps.items():
                 self._discoveries[name] = self._reconstruct(fp)
         self.memory_plan = self._sortmerge_memory_plan(
-            st, max_cand, tier is not None)
+            st, max_cand, tier is not None,
+            extra.get("classes") if extra else None)
+
+    # -- the chunked waves (checkers/chunk.py) ------------------------------
+
+    def _chunk_context(self, ample_words):
+        """What every chunked wave of an attempt reads from the host: the
+        encoding, properties, flags and configured capacities."""
+        from types import SimpleNamespace
+
+        enc = self.encoded
+        K = enc.max_actions
+        return SimpleNamespace(
+            enc=enc, props=list(self.model.properties()),
+            evt_idx=self._eventually_indices(list(self.model.properties())),
+            K=K, trivial=enc.trivial_boundary, sym=self.sym_spec,
+            sparse=self._use_sparse(), ample_words=ample_words,
+            chunk_rows=max(1, self.dense_chunk_bytes
+                           // (8 * enc.width * K)),
+            pair_rows=max(1, (1 << 24) // K),
+            target_states=self.builder._target_state_count,
+            target_depth=self.builder._target_max_depth,
+            track=self.track_paths)
+
+    def _sm_carry(self, c, n_waves: int, Fc: int, Pc: int, Vc: int,
+                  traced: bool) -> SortMergeCarry:
+        cx = SortMergeCarry(self.device, len(c.props), n_waves, traced,
+                            self.encoded.width, Fc, Pc, Vc, c.track)
+        if not c.sparse:
+            cx.step_rows = Fc * c.K
+        return cx
+
+    def _sm_classes(self, c, h: dict, cur=None) -> tuple:
+        """The ``(Fc, Pc, Vc)`` classes for the next wave from the
+        polled scalars ``h``: the current classes (``cur``) grown where
+        the last wave asked, shrunk where the frontier shrank
+        (checkers/chunk.py), or, with no ``cur``, fresh ones."""
+        fcap = self.frontier_capacity
+        pcap = max(1, fcap * c.K)
+        if cur is None:
+            Fc = grow_class(h["nf"], fcap, FLOOR_F)
+            Pc = grow_class(h["nf"] * c.K, pcap, FLOOR_P)
+            Vc = grow_class(h["nv"], self.capacity, FLOOR_V)
+            return Fc, Pc, Vc
+        Fc, Pc, Vc = cur
+        if h["grow"] & GROW_P:
+            Pc = grow_class(h["need_p"], pcap, FLOOR_P)
+        if h["grow"] & GROW_F:
+            # room for the frontier's growth rate r over the next waves,
+            # and the pairs and visited keys that scale with it, grown
+            # now rather than one wave later
+            r = min(max(h["need_f"] / max(h["nf"], 1), 1.0),
+                    chunk.GROWTH_CAP)
+            ahead = int(h["need_f"] * r)
+            per_row = -(-h["need_p"] // max(h["nf"], 1))
+            Fc = grow_class(ahead, fcap, FLOOR_F)
+            Pc = max(Pc, grow_class(ahead * per_row, pcap, FLOOR_P))
+            Vc = max(Vc, grow_class(h["nv"] + h["need_f"] + ahead + int(
+                ahead * r), self.capacity, FLOOR_V))
+        if h["grow"] & GROW_V:
+            Vc = grow_class(h["need_v"], self.capacity, FLOOR_V)
+        if shrinks(h, Fc):
+            Fc, Pc = shrink_classes(h, Pc, fcap, pcap)
+        return Fc, Pc, Vc
+
+    def _sm_wave(self, cx: SortMergeCarry, p: int, c) -> None:
+        """One chunked sort-merge wave, reading half ``p`` of ``cx`` and
+        writing half ``1 - p``: the steps of :meth:`_waves`'s wave on
+        class-sized buffers with the counts in ``cx.sc``, no host read.
+        A wave that does not fit its classes, or comes after the chunk's
+        stop, commits nothing (see checkers/chunk.py)."""
+        enc, props, sym, K = c.enc, c.props, c.sym, c.K
+        dev = cx.device
+        nv, nf, nl, depth = cx.s("nv"), cx.s("nf"), cx.s("nl"), cx.s("depth")
+        live = cx.s("stop") == 0
+        Fc, Pc, Vc = cx.Fc, cx.Pc, cx.Vc
+        front, ebits_in = cx.fr[p], cx.eb[p]
+        fmask = cx.ar_f < nf
+        cond, eb, f_lo, f_hi = frontier_props_t(enc, props, c.evt_idx, front,
+                                                ebits_in, sym)
+        at_target = (torch.zeros((), dtype=torch.bool, device=dev)
+                     if c.target_depth is None else depth >= c.target_depth)
+        expand = fmask & ~at_target
+        n_chunks = None
+        if c.sparse:
+            cut = frontier_unexpanded(enc, front, expand)
+            bits, cnt = frontier_enabled_bits(enc, front, c.ample_words)
+            bits = torch.where(expand.unsqueeze(1), bits, 0)
+            per_row = torch.where(expand, cnt, 0)
+            rows, slots, pairs = sparse_pairs_fixed(bits, K, Pc, c.pair_rows,
+                                                    cx.rows_bound())
+            pvalid = cx.ar_p < pairs
+            succ_t, keys, ok, eov, hits = eval_pairs(
+                enc, front, rows, slots, c.trivial, sym, live=pvalid)
+            if cut is not None:
+                eov = cut if eov is None else eov | cut
+            n_cand = ok.sum()
+            kn = pairs  # the keys a wave sorts: every enabled pair
+        else:
+            succ_t, rows, pairs, eov, per_row = dense_pairs_fixed(
+                enc, front, expand, c.chunk_rows, Pc, cx.rows_bound())
+            ok = cx.ar_p < pairs
+            if not c.trivial:
+                ok = ok & enc.within_boundary_cols(succ_t)
+            keys, hits = successor_keys(succ_t, sym, ok)
+            keys = torch.where(ok, keys, SENTINEL_KEY)
+            n_cand = kn = ok.sum()  # JAX's dense convention
+            n_chunks = torch.where(at_target, 0,
+                                   (nf + c.chunk_rows - 1) // c.chunk_rows)
+        has_succ = rows_with(per_row, ok) | at_target
+        p_over = pairs > Pc
+
+        # -- merge stage, on the class-sized candidate block
+        s_key, s_pos = torch.sort(keys, stable=True)
+        prev_same = torch.zeros_like(s_key, dtype=torch.bool)
+        prev_same[1:] = s_key[1:] == s_key[:-1]
+        fresh = (s_key != SENTINEL_KEY) & ~prev_same
+        is_new = fresh & ~member_keys_dev(cx.vk[p], nv, s_key, n_cand)
+        new = is_new.sum()
+        nv_after = nv + new
+
+        # -- the verdicts, in the order the one-wave loop raises them
+        fits_p = live & ~p_over
+        enc_trip = fits_p & (False if eov is None else eov)
+        v_raise = fits_p & ~enc_trip & (nv_after > self.capacity)
+        f_raise = (fits_p & ~enc_trip & ~v_raise
+                   & (new > self.frontier_capacity))
+        raised = enc_trip | v_raise | f_raise
+        g_v = fits_p & ~raised & (nv_after > Vc)
+        g_f = fits_p & ~raised & (new > Fc)
+        commit = fits_p & ~raised & ~g_v & ~g_f
+        grow = ((live & p_over).to(torch.int64) * GROW_P
+                + g_f.to(torch.int64) * GROW_F + g_v.to(torch.int64) * GROW_V)
+        over = (enc_trip.to(torch.int64) * OVER_ENC
+                + v_raise.to(torch.int64) * OVER_VISITED
+                + f_raise.to(torch.int64) * OVER_FRONTIER)
+
+        all_disc = torch.zeros((), dtype=torch.bool, device=dev)
+        if props:
+            hit, lo, hi = wave_hits(props, cond, ~has_succ & (eb != 0), eb,
+                                    f_lo, f_hi, live=fmask)
+            disc = fold_discoveries(cx.disc, hit, lo, hi,
+                                    fits_p & ~g_v & ~g_f)
+            cx.disc.copy_(disc)
+            all_disc = disc[0].all()
+
+        # -- the commit: winners, parent log, visited merge, next frontier
+        nf_pos, w_key = compact_winners_keys_dev(is_new, s_pos, s_key, Fc)
+        par_row = rows[nf_pos]
+        if cx.plog is not None:
+            dest = torch.where(commit & (cx.ar_f < new), nl + cx.ar_f,
+                               dump_slots(Vc, Fc, dev))
+            cx.plog[0][dest] = pack_keys(f_lo, f_hi)[par_row]
+            cx.plog[1][dest] = w_key
+        merge_keys_dev(cx.vk[p], torch.where(commit, nv, 0), w_key,
+                       torch.where(commit, new, 0), cx.vk[1 - p])
+        cx.fr[1 - p].copy_(succ_t[:, nf_pos])
+        cx.eb[1 - p].copy_(eb[par_row])
+
+        # -- the scalars
+        fin = (new == 0) | all_disc
+        if c.target_states is not None:
+            fin = fin | (nv_after >= c.target_states)
+        done = commit & fin
+        ci = commit.to(torch.int64)
+        z = torch.zeros((), dtype=torch.int64, device=dev)
+        hits_n = z if hits is None else hits.to(torch.int64)
+        mem = commit & (nv > 0) & (kn > cx.s("mem_nq"))
+        mrg = commit & (nv > 0) & (new > cx.s("mrg_nb"))
+        wider = commit & (kn > cx.s("max_cand"))
+        upd = dict(
+            stop=((cx.s("stop") != 0) | done | (grow != 0)
+                  | raised).to(torch.int64),
+            done=(cx.s("done") != 0).to(torch.int64) | done.to(torch.int64),
+            grow=cx.s("grow") | grow, over=cx.s("over") | over,
+            depth=depth + (commit & ~fin).to(torch.int64),
+            waves=cx.s("waves") + ci,
+            nv=torch.where(commit, nv_after, nv),
+            nf=torch.where(commit, new, nf),
+            nl=nl + (ci * new if cx.plog is not None else z),
+            gen=cx.s("gen") + ci * n_cand,
+            wchunk=cx.s("wchunk") + ci,
+            need_p=torch.where(live & ~commit, pairs, cx.s("need_p")),
+            need_f=torch.where(g_f, new, cx.s("need_f")),
+            need_v=torch.where(g_v, nv_after, cx.s("need_v")),
+            last_p=torch.where(commit, pairs, cx.s("last_p")),
+            last_nf=torch.where(commit, nf, cx.s("last_nf")),
+            hits=cx.s("hits") + ci * hits_n,
+            max_cand=torch.where(wider, kn, cx.s("max_cand")),
+            widest=torch.where(wider, cx.s("waves"), cx.s("widest")),
+            max_new=torch.where(commit & (new > cx.s("max_new")), new,
+                                cx.s("max_new")),
+            mem_na=torch.where(mem, nv, cx.s("mem_na")),
+            mem_nq=torch.where(mem, kn, cx.s("mem_nq")),
+            mrg_na=torch.where(mrg, nv, cx.s("mrg_na")),
+            mrg_nb=torch.where(mrg, new, cx.s("mrg_nb")),
+        )
+        if n_chunks is not None:
+            upd["chunks"] = cx.s("chunks") + ci * n_chunks
+            upd["max_chunks"] = torch.where(
+                commit & (n_chunks > cx.s("max_chunks")), n_chunks,
+                cx.s("max_chunks"))
+        if cx.log is not None:
+            row = torch.stack([nf, kn, n_cand, new, nv_after, depth,
+                               z - 1, z - 1,
+                               hits_n if hits is not None else z - 1])
+            at = torch.where(commit, cx.s("wchunk"), cx.n_waves)
+            cx.log.index_copy_(0, at.view(1), row.view(1, -1))
+        cx.write(upd)
+
+    def _waves_chunked(self, st: WaveState, ample_words, reporter,
+                       token) -> None:
+        """The resident run as chunks of up to ``waves_per_sync`` waves
+        (checkers/chunk.py): each chunk issues its waves with no host
+        read and ends with one read of the packed stats; a wave that did
+        not fit its classes runs again, in the same chunk, at grown
+        classes. ``st`` is loaded into the carry and, at the end, holds
+        the run's final state as :meth:`_waves` leaves it."""
+        from .chunk import WaveRunner
+
+        c = self._chunk_context(ample_words)
+        N = self._sync_waves()
+        traced = self._tracer is not None
+        nl0 = sum(int(ch.numel()) for _, ch in st.plog)
+        h = dict(nv=st.vkeys.numel(), nf=st.frontier.shape[1], nl=nl0)
+        fps = dict(self._discovered_fps)
+        props = c.props
+        fcap = self.frontier_capacity
+        classes = chunk.start_classes(
+            self._sm_classes(c, h), self._resume_classes,
+            lambda k: (h["nf"] <= k[0] <= fcap
+                       and k[1] <= max(1, fcap * c.K)
+                       and h["nv"] <= k[2] <= self.capacity))
+        self._resume_classes = None
+        cx = self._sm_carry(c, N, *classes[-1], traced)
+        plog = ((torch.cat([p for p, _ in st.plog]),
+                 torch.cat([ch for _, ch in st.plog]))
+                if st.plog and cx.plog is not None else (None, None))
+        cx.load(st.vkeys, st.frontier, st.ebits, *plog)
+        cx.set_scalars(depth=st.depth, waves=st.waves, nv=h["nv"],
+                       nf=h["nf"], nl=nl0 if cx.plog is not None else 0,
+                       gen=st.generated, widest=-1)
+        for i, prop in enumerate(props):
+            fp = fps.get(prop.name)
+            if fp is not None:
+                cx.disc[:, i] = torch.tensor(
+                    [1, fp & 0xFFFFFFFF, fp >> 32], dtype=torch.int64)
+        runner = WaveRunner(self.device, "sort-merge")
+        cancel = self.cancel_event
+        chunk_no = 0
+        done = h["nf"] == 0
+        unique = h["nv"]
+        stats = None
+        loop = ChunkLoop(
+            runner, ChunkSchedule(st.waves, N),
+            lambda cx_, par: self._sm_wave(cx_, par, c),
+            lambda h_, key: self._sm_classes(c, h_, key),
+            lambda cx_, h_, key: self._resized(c, cx_, h_, key, traced),
+            len(props), classes, check=lambda: self._check_token(token))
+        self._chunk_classes = loop.classes
+
+        def run_chunk() -> dict:
+            nonlocal cx
+            cx, out = loop.chunk(cx)
+            found, lo, hi = out["disc"]
+            for i, prop in enumerate(props):
+                if found[i] and prop.name not in fps:
+                    fps[prop.name] = (hi[i] << 32) | lo[i]
+            return out
+
+        def state_view(out):
+            vkeys, front, ebits, plog = cx.view(out)
+            return WaveState(vkeys=vkeys, frontier=front, ebits=ebits,
+                             depth=out["depth"], generated=out["gen"],
+                             plog=plog, waves=out["waves"])
+
+        try:
+            while not done:
+                if cancel is not None and cancel.is_set():
+                    self.cancelled = True
+                    break
+                t0 = time.monotonic()
+                try:
+                    stats = self._guarded_wave(run_chunk, chunk_no)
+                    unique = stats["nv"]
+                finally:
+                    if stats is not None:
+                        self._publish(token, fps, unique, stats["gen"],
+                                      stats["depth"])
+                over = stats["over"]
+                for bit, kind in ((OVER_ENC, "encoding"),
+                                  (OVER_VISITED, "visited"),
+                                  (OVER_FRONTIER, "frontier")):
+                    if over & bit:
+                        raise RuntimeError(self._overflow_message(kind, fps))
+                done = bool(stats["done"])
+                boundary = loop.sched.synced(stats["waves"], done)
+                if self._tracer is not None:
+                    self._trace_row = (stats["waves"] - stats["wchunk"],
+                                       [self._log_row(r, c.sym)
+                                        for r in stats["rows"]], None,
+                                       stats["wchunk"])
+                self._wave_done(chunk_no, t0, done,
+                                lambda: checkpoint.sortmerge_buffers(
+                                    self, state_view(stats), None), boundary)
+                chunk_no += 1
+                if done:
+                    break
+                if reporter is not None and boundary is not None:
+                    reporter.report_checking(ReportData(
+                        total_states=self._total_states,
+                        unique_states=self._unique_states,
+                        max_depth=self._max_depth,
+                        duration_sec=self.duration_sec(), done=False))
+        finally:
+            runner.close()
+        if stats is not None:
+            vkeys, front, ebits, plog = cx.view(stats)
+            st.vkeys, st.frontier, st.ebits = (vkeys.clone(), front.clone(),
+                                               ebits.clone())
+            st.plog = [(a.clone(), b.clone()) for a, b in plog]
+            st.depth, st.generated = stats["depth"], stats["gen"]
+            st.waves = stats["waves"]
+        self._finish_sortmerge(st, None, c.sparse, stats, dict(
+            waves_per_sync=N, chunks=chunk_no, resizes=loop.resizes,
+            classes=[list(k) for k in loop.classes], **runner.counts()),
+            c.chunk_rows)
+
+    def _resized(self, c, cx: SortMergeCarry, h: dict, classes: tuple,
+                 traced: bool) -> SortMergeCarry:
+        """A carry at ``classes`` holding ``cx``'s live state (at the
+        polled counts ``h``), its scalars, discovery lanes and wave log."""
+        new = self._sm_carry(c, cx.n_waves, *classes, traced)
+        vkeys, front, ebits, plog = cx.view(h)
+        par = chi = None
+        if plog:
+            par, chi = plog[0]
+        new.load(vkeys, front, ebits, par, chi)
+        new.sc.copy_(cx.sc)
+        new.disc.copy_(cx.disc)
+        if cx.log is not None:
+            new.log.copy_(cx.log)
+        return new
+
+    @staticmethod
+    def _log_row(row: list, sym) -> list:
+        """A device wave-log row as the trace takes it: no ladder classes
+        (None) and the canonical hits only with symmetry."""
+        out = [None if x < 0 else x for x in row[:6]] + [None, None]
+        if sym is not None:
+            out.append(row[8])
+        return out
 
     def _kernel_sources(self) -> tuple:
         from ..ops import merge
@@ -840,10 +1363,11 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                     next_merge_scratch_bytes=int((nxt + F) * 8))
 
     def _sortmerge_memory_plan(self, st: WaveState, max_cand: int,
-                               tiered: bool) -> dict:
+                               tiered: bool, classes=None) -> dict:
         """The ledger of the tensors kept between waves, at the end of
         the run (the parent log on the device only in a resident run),
-        and the widest wave's candidate staging."""
+        the widest wave's candidate staging and, chunked, each capacity
+        class ``(Fc, Pc, Vc)`` the run used, priced."""
         resident = dict(vkeys=st.vkeys, frontier=st.frontier,
                         ebits=st.ebits)
         host = {}
@@ -857,7 +1381,12 @@ class SortMergeTpuBfsChecker(TpuBfsChecker):
                        candidate_keys=((max_cand,), np.int64),
                        sorted_keys=((max_cand,), np.int64),
                        sorted_pos=((max_cand,), np.int64))
-        return self._memory_plan_of(resident, staging, host)
+        from ..memplan import chunk_class_entries
+
+        priced = [chunk_class_entries("sortmerge", W, *k,
+                                      track_paths=self.track_paths, index=i)
+                  for i, k in enumerate(classes or [])]
+        return self._memory_plan_of(resident, staging, host, priced)
 
     def _expand_sparse(self, front, K: int, trivial: bool, ample_words):
         """The sparse expansion of one wave: ``(succ_t, keys, rows,

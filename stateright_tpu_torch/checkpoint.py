@@ -1,9 +1,10 @@
 """Checkpoints, resume and supervised fault recovery for the wave engines.
 
 The port of the JAX package's ``checkpoint`` module, for the
-single-device and the sharded engines. A snapshot is taken at a wave's one host sync, every
-``checkpoint_every`` waves, and a preempted, OOM-killed or crashed run
-resumes from it instead of from the init states.
+single-device and the sharded engines. A snapshot is taken at a chunk's
+one host sync, every ``checkpoint_every`` chunks, and a preempted,
+OOM-killed or crashed run resumes from it instead of from the init
+states.
 
 **Snapshot format: the JAX package's.** One ``.npz`` file holds every
 leaf of the JAX engine's chunk carry, under the JAX leaf names, plus a
@@ -29,10 +30,16 @@ refused with :class:`SnapshotCorruptError`. Nothing is pickled.
 What the port writes differs from the JAX engine's by design, and JAX's
 ``load_snapshot`` reads either:
 
-* **A chunk is one wave.** Both port engines sync once a wave, so
-  ``waves_per_sync`` is 1 in the manifest, the cadence counts waves, and
-  a fault site's chunk is a wave index. A JAX snapshot taken at more
-  waves a sync resumes from the wave boundary it is.
+* **Chunks.** The single-device engines run chunks of up to
+  ``waves_per_sync`` waves between host syncs (checkers/chunk.py), as
+  JAX's do: a snapshot lands at a chunk's end, the cadence counts
+  chunks, the manifest records the run's ``waves_per_sync``, and a fault
+  site's chunk is a chunk index. A chunk a wave of the host's choice
+  cuts short (a capacity class grown or shrunk) ends where the next
+  starts, so the snapshot is at a wave boundary all the same. The
+  sharded engines, the tiered run and the fused batch run one wave a
+  chunk. A JAX snapshot taken at any ``waves_per_sync`` resumes from the
+  wave boundary it is.
 * **Buffers are sized to fit.** The port sizes its waves exactly, so
   each leaf is written at its live size (``vkeys uint32[2, U]``,
   ``frontier [W, n]``, ``plog [4, pl_n]``), not at JAX's padded
@@ -565,7 +572,7 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
                    tier_block: Optional[dict] = None) -> dict:
     """Write one snapshot of ``buffers`` (:func:`sortmerge_buffers` or
     :func:`hash_buffers`) atomically to ``path`` with JAX's manifest, and
-    return the manifest. ``chunk`` is the wave index in this attempt. A
+    return the manifest. ``chunk`` is the chunk index in this attempt. A
     ``checkpoint`` event records it (its wall: the file write; the
     engine's ``snapshot_write_sec`` adds the download)."""
     t0 = time.monotonic()
@@ -583,7 +590,7 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
         capacity=int(checker.capacity),
         frontier_capacity=int(checker.frontier_capacity),
         track_paths=bool(checker.track_paths),
-        waves_per_sync=1,
+        waves_per_sync=int(checker._sync_waves()),
         chunk=int(chunk),
         wave=int(buffers["waves"]),
         depth=int(buffers["depth"]),
@@ -597,6 +604,11 @@ def write_snapshot(checker, buffers: dict, path: str, *, chunk: int,
                          crc32=_crc(b))
                  for k, b in buffers.items()},
     )
+    classes = getattr(checker, "_chunk_classes", None)
+    if classes:
+        # the capacity classes the chunked run used, the last the one it
+        # goes on in (resume_from)
+        manifest["chunk_classes"] = [list(k) for k in classes]
     if manifest["kind"] == "sharded":
         # the port's mesh leaves hold each shard's live block back to
         # back (per-shard counts u_loc, n_loc, pl_n), not JAX's blocks
@@ -714,6 +726,10 @@ def resume_from(checker, path: str, *,
     else:
         staged = _stage_hash(checker, path, manifest, buffers)
     checker._resume = (manifest, staged)
+    # a chunked run's capacity classes so far (checkers/chunk.py): the
+    # resumed run starts in the last and goes on from them, so it makes
+    # the class changes the killed run made
+    checker._resume_classes = manifest.get("chunk_classes")
     checker._resume_path = path
     # the supervisor's retry re-stages under the same staleness policy
     checker._resume_allow_sha = allow_sha_mismatch

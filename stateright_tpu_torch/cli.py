@@ -54,20 +54,20 @@ against the JAX lane's 2 GiB budget.
 
 Every ``check-gpu`` lane checkpoints and resumes as the JAX lanes do
 (checkpoint.py): ``--checkpoint-every=N`` writes a snapshot every N
-waves (``auto``: the cadence that keeps the snapshot walls under 5% of
-the run's) and retries a failed wave from it; ``--checkpoint-path=P``
+chunks (``auto``: the cadence that keeps the snapshot walls under 5% of
+the run's) and retries a failed chunk from it; ``--checkpoint-path=P``
 names the file (default ``stateright_tpu_torch.ckpt``); ``--resume``
 continues from it (``--resume-any-sha`` also from another commit);
-``--watchdog[=factor]`` bounds each wave's wall at ``factor`` (default
-8) times the slowest wave so far; ``--degrade-on-fault`` is accepted as
+``--watchdog[=factor]`` bounds each chunk's wall at ``factor`` (default
+8) times the slowest chunk so far; ``--degrade-on-fault`` is accepted as
 the JAX lanes accept it: it lets the supervisor drop a shard that keeps
 failing, which engages only on a sharded engine (the CLI's lanes run one
 device; the sharded engines are a library entry, parallel/).
-``--waves-per-sync=N`` is JAX's chunk of N waves: the port syncs every
-wave, so it only scales an integer ``--checkpoint-every=K`` to a
-snapshot every K·N waves, the waves where JAX's chunks end (the
-manifest's ``waves_per_sync`` stays 1); the host lanes refuse it, as
-JAX's do. A run killed mid-way resumes from its last snapshot:
+``--waves-per-sync=N`` sets the chunk: up to N waves between two host
+syncs (default 1; JAX's is 64), each chunk's waves replayed as CUDA graphs
+on the card; ``--checkpoint-every=K`` counts chunks, as JAX's does, and
+the manifest records N. The host lanes refuse it, as JAX's do. A run
+killed mid-way resumes from its last snapshot:
 
     python -m stateright_tpu_torch 2pc check-gpu 9 --checkpoint-every=4
     python -m stateright_tpu_torch 2pc check-gpu 9 --resume
@@ -157,9 +157,8 @@ class RunFlags:
     #: the straggler detector's factor of the shard median (a traced
     #: sharded run's; a no-op on one device); None: off
     straggler_factor: float | None = None
-    #: JAX ``--waves-per-sync=N``: the port syncs every wave, so N scales
-    #: an integer checkpoint cadence to the waves where JAX's chunks of N
-    #: waves end; None: off
+    #: JAX ``--waves-per-sync=N``: the waves of a chunk between two host
+    #: syncs; None: the engine's default (1)
     waves_per_sync: int | None = None
 
     def durable(self) -> bool:
@@ -179,11 +178,10 @@ class RunFlags:
             checker.degrade_on_fault = True
         if self.straggler_factor:
             checker.straggler_factor = float(self.straggler_factor)
+        if self.waves_per_sync:
+            checker.waves_per_sync = int(self.waves_per_sync)
         if self.checkpoint_every:
-            every = self.checkpoint_every
-            if every != "auto" and self.waves_per_sync:
-                every *= self.waves_per_sync
-            checker.checkpoint_every = every
+            checker.checkpoint_every = self.checkpoint_every
             checker.checkpoint_path = path
         if self.resume:
             m = checker.resume_from(path,
@@ -870,10 +868,10 @@ def _usage() -> None:
     print("       every check-gpu lane takes [--checkpoint-every=N|auto] "
           "[--checkpoint-path=P] [--resume] [--resume-any-sha] "
           "[--watchdog[=FACTOR]] [--degrade-on-fault] "
-          "[--waves-per-sync=M]: a snapshot every N waves (N*M with "
-          "--waves-per-sync; checkpoint.py; default path "
-          "stateright_tpu_torch.ckpt), a failed wave retried from it, "
-          "--resume continues from it")
+          "[--waves-per-sync=M]: chunks of up to M waves between host "
+          "syncs (default 1), a snapshot every N chunks (checkpoint.py; "
+          "default path stateright_tpu_torch.ckpt), a failed chunk "
+          "retried from it, --resume continues from it")
     print("       every lane takes [--trace[=deep]] [--trace-root=DIR] "
           "[--metrics-interval=N [--metrics-path=FILE]]: a metrics_rollup "
           "JSONL line every N seconds and at exit (metrics.py; default "

@@ -99,7 +99,12 @@ __global__ void __launch_bounds__(kThreads)
 probe_claim_kernel(const u64* __restrict__ keys,
                    const bool* __restrict__ active, i64 n, Entry* entries,
                    u64 mask, int rounds, int epoch, i64* __restrict__ slot,
-                   bool* __restrict__ is_new, bool* __restrict__ overflow) {
+                   bool* __restrict__ is_new, bool* __restrict__ overflow,
+                   const i64* __restrict__ n_dev,
+                   const i64* __restrict__ epoch_dev) {
+  // with device counts, the key count and the epoch are read from memory
+  if (n_dev != nullptr) n = *n_dev;
+  if (epoch_dev != nullptr) epoch = static_cast<int>(*epoch_dev);
   const i64 i = static_cast<i64>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   i64 at = 0;  // inactive and overflowed rows report slot 0, as JAX
@@ -141,7 +146,11 @@ probe_claim_kernel(const u64* __restrict__ keys,
 
 __global__ void __launch_bounds__(kThreads)
 winner_kernel(i64 n, const Entry* __restrict__ entries, int epoch,
-              const i64* __restrict__ slot, bool* is_new) {
+              const i64* __restrict__ slot, bool* is_new,
+              const i64* __restrict__ n_dev,
+              const i64* __restrict__ epoch_dev) {
+  if (n_dev != nullptr) n = *n_dev;
+  if (epoch_dev != nullptr) epoch = static_cast<int>(*epoch_dev);
   const i64 i = static_cast<i64>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n || !is_new[i]) return;
   is_new[i] = entries[slot[i]].tag ==
@@ -153,23 +162,33 @@ winner_kernel(i64 n, const Entry* __restrict__ entries, int epoch,
 // keys[n] packed keys, active[n] (nullptr: every row), entries[mask + 1]
 // {key, tag} (16-byte aligned); every row of slot[n], is_new[n] and
 // overflow[n] is written (the wrapper allocates them uninitialised).
-// Returns the first CUDA launch error, 0 when both launched.
+// Where n_dev is not null, the key count is the one int64 it points at
+// in device memory, read by the kernels (n is then the keys' capacity,
+// which the grid covers; rows past the count exit and only rows
+// [0, *n_dev) of the outputs are written), and so is the call's epoch
+// where epoch_dev is not null (the caller advances it on the device):
+// no host read, so the launch stays valid in a CUDA graph replayed with
+// other counts. Returns the first CUDA launch error, 0 when both
+// launched.
 extern "C" int stpu_hash_insert(const void* keys, const void* active, i64 n,
                                 void* entries, i64 mask, int rounds,
                                 int epoch, void* slot, void* is_new,
-                                void* overflow, void* stream) {
+                                void* overflow, const void* n_dev,
+                                const void* epoch_dev, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const i64* n_p = static_cast<const i64*>(n_dev);
+  const i64* e_p = static_cast<const i64*>(epoch_dev);
   probe_claim_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const u64*>(keys), static_cast<const bool*>(active), n,
       static_cast<Entry*>(entries), static_cast<u64>(mask), rounds, epoch,
       static_cast<i64*>(slot), static_cast<bool*>(is_new),
-      static_cast<bool*>(overflow));
+      static_cast<bool*>(overflow), n_p, e_p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   winner_kernel<<<grid, kThreads, 0, s>>>(
       n, static_cast<const Entry*>(entries), epoch,
-      static_cast<const i64*>(slot), static_cast<bool*>(is_new));
+      static_cast<const i64*>(slot), static_cast<bool*>(is_new), n_p, e_p);
   return static_cast<int>(cudaGetLastError());
 }

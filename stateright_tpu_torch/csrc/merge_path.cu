@@ -27,7 +27,8 @@
 // 1. One launch per call, a persistent grid. The merged sequence is cut
 //    into tiles of T = THREADS * R rows and each CTA owns one contiguous
 //    run of `tiles_per_cta` tiles (the grid is at most the CTAs the card
-//    holds at once, and never more CTAs than tiles). Warps 0 and 1 find
+//    holds at once, and never more CTAs than tiles of the buffers; with
+//    counts read from device memory the runs are sized on the device). Warps 0 and 1 find
 //    the run's two Merge Path diagonals in device memory with a
 //    warp-cooperative search (32 probes and one ballot a step, about 6
 //    steps over 10M keys), so the CTA merges A[a0, a1) with B[b0, b1) on
@@ -392,29 +393,92 @@ __device__ __forceinline__ void merge_path_tiles(
   if (t == 0) cp_async_wait<0>();
 }
 
+// The kernels. Each count is a value or, where its pointer is not null,
+// one int64 in device memory that the kernel reads (then the value is
+// the buffer's capacity, which the live length never exceeds). The grid
+// is sized on the host to the values: at most the CTAs the card holds
+// at once, never more than tiles. Each CTA takes ceil(tiles / gridDim.x)
+// tiles of the live length, so the tiles spread over the whole grid
+// whatever the live length; CTAs past it exit. A side with no keys is a
+// copy of the other (merge) or all-false flags (member), by a
+// grid-stride loop, so the tiles never meet an empty side.
 template <int THREADS, int R>
 __global__ void __launch_bounds__(THREADS)
-    merge_tile_kernel(const i64* __restrict__ a, i64 na,
-                      const i64* __restrict__ b, i64 nb, i64* out,
-                      i64 tiles_per_cta) {
+    merge_tile_kernel(const i64* __restrict__ a,
+                      const i64* __restrict__ na_p, i64 na,
+                      const i64* __restrict__ b,
+                      const i64* __restrict__ nb_p, i64 nb, i64* out) {
   extern __shared__ __align__(16) i64 smem[];
-  merge_path_tiles<THREADS, R, false>(a, na, b, nb, out, tiles_per_cta,
-                                      smem);
+  if (na_p != nullptr) na = *na_p;
+  if (nb_p != nullptr) nb = *nb_p;
+  if (na == 0 || nb == 0) {
+    const i64* src = na == 0 ? b : a;
+    const i64 n = na + nb;
+    for (i64 i = (i64)blockIdx.x * THREADS + threadIdx.x; i < n;
+         i += (i64)gridDim.x * THREADS) {
+      out[i] = src[i];
+    }
+    return;
+  }
+  constexpr int T = THREADS * R;
+  const i64 tiles = (na + nb + T - 1) / T;
+  const i64 per_cta = (tiles + gridDim.x - 1) / gridDim.x;
+  merge_path_tiles<THREADS, R, false>(a, na, b, nb, out, per_cta, smem);
 }
 
 template <int THREADS, int R>
 __global__ void __launch_bounds__(THREADS)
-    member_tile_kernel(const i64* __restrict__ a, i64 na,
-                       const i64* __restrict__ q, i64 nq,
-                       unsigned char* out, i64 tiles_per_cta) {
+    member_tile_kernel(const i64* __restrict__ a,
+                       const i64* __restrict__ na_p, i64 na,
+                       const i64* __restrict__ q,
+                       const i64* __restrict__ nq_p, i64 nq,
+                       unsigned char* out) {
   extern __shared__ __align__(16) i64 smem[];
-  merge_path_tiles<THREADS, R, true>(a, na, q, nq, out, tiles_per_cta,
-                                     smem);
+  if (na_p != nullptr) na = *na_p;
+  if (nq_p != nullptr) nq = *nq_p;
+  if (na == 0 || nq == 0) {
+    for (i64 i = (i64)blockIdx.x * THREADS + threadIdx.x; i < nq;
+         i += (i64)gridDim.x * THREADS) {
+      out[i] = 0;
+    }
+    return;
+  }
+  constexpr int T = THREADS * R;
+  const i64 tiles = (na + nq + T - 1) / T;
+  const i64 per_cta = (tiles + gridDim.x - 1) / gridDim.x;
+  merge_path_tiles<THREADS, R, true>(a, na, q, nq, out, per_cta, smem);
+}
+
+// How many CTAs of `kernel` (THREADS threads, `smem` bytes) the card
+// holds at once, asked once per device and kernel (0: an error, in err).
+template <int THREADS>
+i64 resident_ctas(const void* kernel, int smem, int* cache,
+                  cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev >= 64) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cache[dev] == 0) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err != cudaSuccess) return 0;
+    int sms = 0, per_sm = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err != cudaSuccess) return 0;
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         THREADS, smem);
+    if (*err != cudaSuccess) return 0;
+    cache[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  return cache[dev];
 }
 
 template <int THREADS, int R, bool MEMBER>
-cudaError_t launch(const i64* a, i64 na, const i64* b, i64 nb, void* out,
-                   cudaStream_t stream) {
+cudaError_t launch(const i64* a, const i64* na_p, i64 na, const i64* b,
+                   const i64* nb_p, i64 nb, void* out, cudaStream_t stream) {
   constexpr int T = THREADS * R;
   constexpr int smem =
       2 * (2 * T + 2) * (int)sizeof(i64) + stage_bytes<T>(MEMBER);
@@ -422,47 +486,35 @@ cudaError_t launch(const i64* a, i64 na, const i64* b, i64 nb, void* out,
                               : (const void*)merge_tile_kernel<THREADS, R>;
   // per device: how many CTAs the card holds at once (0 = not asked yet)
   static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaSuccess;
+  const i64 slots = resident_ctas<THREADS>(kernel, smem, resident, &err);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
-    if (err != cudaSuccess) return err;
-    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
-  }
   const i64 tiles = (na + nb + T - 1) / T;
-  const i64 slots = resident[dev];
-  const i64 per_cta = (tiles + slots - 1) / slots;
-  const i64 grid = (tiles + per_cta - 1) / per_cta;
+  const i64 grid = tiles < slots ? (tiles > 0 ? tiles : 1) : slots;
   if (MEMBER) {
     member_tile_kernel<THREADS, R><<<(unsigned)grid, THREADS, smem, stream>>>(
-        a, na, b, nb, (unsigned char*)out, per_cta);
+        a, na_p, na, b, nb_p, nb, (unsigned char*)out);
   } else {
     merge_tile_kernel<THREADS, R><<<(unsigned)grid, THREADS, smem, stream>>>(
-        a, na, b, nb, (i64*)out, per_cta);
+        a, na_p, na, b, nb_p, nb, (i64*)out);
   }
   return cudaGetLastError();
 }
 
 // Tile shapes (rows = THREADS * R); ops/merge.py TILES lists the same.
 template <bool MEMBER>
-int dispatch(const void* a, i64 na, const void* b, i64 nb, void* out,
-             i64 tile, void* stream) {
+int dispatch(const void* a, const void* na_p, i64 na, const void* b,
+             const void* nb_p, i64 nb, void* out, i64 tile, void* stream) {
   const i64* pa = (const i64*)a;
   const i64* pb = (const i64*)b;
+  const i64* ca = (const i64*)na_p;
+  const i64* cb = (const i64*)nb_p;
   cudaStream_t s = (cudaStream_t)stream;
+  // one line a case: tests/test_torch_merge_tiles.py reads the table
   switch (tile) {
-    case 32: return (int)launch<32, 1, MEMBER>(pa, na, pb, nb, out, s);
-    case 1664: return (int)launch<128, 13, MEMBER>(pa, na, pb, nb, out, s);
-    case 2304: return (int)launch<256, 9, MEMBER>(pa, na, pb, nb, out, s);
+    case 32: return (int)launch<32, 1, MEMBER>(pa, ca, na, pb, cb, nb, out, s);
+    case 1664: return (int)launch<128, 13, MEMBER>(pa, ca, na, pb, cb, nb, out, s);
+    case 2304: return (int)launch<256, 9, MEMBER>(pa, ca, na, pb, cb, nb, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -472,16 +524,24 @@ int dispatch(const void* a, i64 na, const void* b, i64 nb, void* out,
 // C entry points (bound with ctypes). Every pointer is device memory on
 // the caller's stream; keys are 8-byte aligned. One kernel launch each;
 // both return cudaGetLastError() after it (cudaErrorInvalidValue for a
-// tile size not listed in `dispatch`). The caller checks na > 0 and
-// nb > 0.
+// tile size not listed in `dispatch`).
+//
+// na and nb (nq) are the live lengths, or, where na_p and nb_p (nq_p)
+// are not null, the capacities of a and b, with the live lengths in the
+// one int64 each pointer points at, read by the kernel: then no host
+// read is needed, and the launch stays valid in a CUDA graph replayed
+// with other counts. out holds at least na + nb rows (merge) or nb flags
+// (member), of the values; only rows [0, na + nb) of out (flags [0, nq))
+// of the live lengths are written. Either length may be 0.
 
-extern "C" int stpu_merge_sorted(const void* a, i64 na, const void* b,
-                                 i64 nb, void* out, i64 tile, void* stream) {
-  return dispatch<false>(a, na, b, nb, out, tile, stream);
+extern "C" int stpu_merge_sorted(const void* a, const void* na_p, i64 na,
+                                 const void* b, const void* nb_p, i64 nb,
+                                 void* out, i64 tile, void* stream) {
+  return dispatch<false>(a, na_p, na, b, nb_p, nb, out, tile, stream);
 }
 
-extern "C" int stpu_member_sorted(const void* a, i64 na, const void* q,
-                                  i64 nq, void* out, i64 tile,
-                                  void* stream) {
-  return dispatch<true>(a, na, q, nq, out, tile, stream);
+extern "C" int stpu_member_sorted(const void* a, const void* na_p, i64 na,
+                                  const void* q, const void* nq_p, i64 nq,
+                                  void* out, i64 tile, void* stream) {
+  return dispatch<true>(a, na_p, na, q, nq_p, nq, out, tile, stream);
 }

@@ -2,18 +2,22 @@
 checkpoint and resume path (checkpoint.py) recovers.
 
 The port of the JAX package's ``faultinject`` module, standard library
-only. The port's wave engines sync once a wave, so a chunk here is one
-wave: a fault's ``chunk`` is the 0-based index of a wave among the waves
-the current attempt has run (a supervised retry, or a resumed run,
-counts from 0 again, so a fault armed once cannot trip itself twice).
+only. A chunk is what the engine runs between two host syncs: up to
+``waves_per_sync`` waves on the single-device engines
+(checkers/chunk.py), one wave on the sharded engines, the tiered run and
+the fused batch. A fault's ``chunk`` is the 0-based index of a chunk
+among the chunks the current attempt has run (a supervised retry, or a
+resumed run, counts from 0 again, so a fault armed once cannot trip
+itself twice).
 
-* **process kill at a wave boundary**: the engines call :func:`fire` at
-  the two seams a real preemption lands on, the wave boundary (after
-  the wave's snapshot write) and mid-wave (after the wave's expansion
-  is issued, before its host sync); an armed ``kill`` fault
+* **process kill at a chunk boundary**: the engines call :func:`fire`
+  at the two seams a real preemption lands on, JAX's: the chunk
+  boundary (after the chunk's snapshot write) and mid-chunk (after the
+  chunk's waves are issued, before its host sync); an armed ``kill``
+  fault
   ``os._exit``\\ s there, as a preempted machine or an OOM killer does
   (no atexit, nothing flushed);
-* **mid-wave device exception**: an armed ``raise`` fault throws
+* **mid-chunk device exception**: an armed ``raise`` fault throws
   :class:`InjectedFault` at the same seams, the model of a device error
   surfacing at a sync; the supervisor (``checkpoint.supervised_run``)
   retries from the last snapshot;
@@ -23,7 +27,7 @@ counts from 0 again, so a fault armed once cannot trip itself twice).
 * **stale manifest**: :func:`stale_manifest` rewrites the manifest
   (wrong git SHA, wrong encoding fingerprint) with VALID checksums,
   which resume must refuse with ``SnapshotStaleError``;
-* **wave hang**: a ``hang`` sleeps ``hang_sec`` (default 30 s) at its
+* **chunk hang**: a ``hang`` sleeps ``hang_sec`` (default 30 s) at its
   site instead of raising; only the watchdog (the engines'
   ``watchdog_factor``) sees it;
 * **per-shard faults and the collective seam**: the sharded engines

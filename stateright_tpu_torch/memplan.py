@@ -67,6 +67,47 @@ def plan_total(entries) -> int:
     return int(sum(e["bytes"] for e in entries))
 
 
+def chunk_class_entries(kind: str, W: int, Fc: int, Pc: int, Vc: int = 0,
+                        track_paths: bool = True, index: int = 0) -> dict:
+    """One capacity class of a chunked wave (checkers/chunk.py), priced,
+    under the keys of JAX's ladder classes: ``{f_class, v_class, mode,
+    frontier_rows, visited_rows, pair_rows, staging, staging_bytes}``
+    (``f_class`` and ``v_class`` the class's ``index`` in the run). The
+    staging is what the class holds on the device for the chunk: the
+    ping-pong carry halves and the class-sized wave blocks — for the
+    sort-merge engine (``kind="sortmerge"``) the visited keys ``[2,
+    Vc]``, the frontier ``[2, W, Fc]`` and its eventually-bits, the
+    parent log ``[2, Vc + 1]``, the candidates ``[W, Pc]`` with their
+    keys, sorted keys and positions, and the compacted winners; for the
+    hash engine (``kind="hash"``) the frontier halves at ``Pc`` columns
+    (the winners of a wave always fit its candidates), the candidates,
+    their keys and the insert's outputs."""
+    lane = "int64"  # LANE_BYTES a lane
+    if kind == "sortmerge":
+        rows = [buffer_entry("vkeys_pingpong", (2, Vc), lane),
+                buffer_entry("frontier_pingpong", (2, W, Fc), lane),
+                buffer_entry("ebits_pingpong", (2, Fc), lane),
+                buffer_entry("candidates", (W, Pc), lane),
+                buffer_entry("candidate_keys", (Pc,), lane),
+                buffer_entry("sorted_keys", (Pc,), lane),
+                buffer_entry("sorted_pos", (Pc,), lane),
+                buffer_entry("winners", (2, Fc), lane)]
+        if track_paths:
+            rows.append(buffer_entry("plog", (2, Vc + 1), lane))
+    else:
+        rows = [buffer_entry("frontier_pingpong", (2, W, Pc), lane),
+                buffer_entry("ebits_pingpong", (2, Pc), lane),
+                buffer_entry("candidates", (W, Pc), lane),
+                buffer_entry("candidate_keys", (Pc,), lane),
+                buffer_entry("insert_slot", (Pc,), lane),
+                buffer_entry("winners", (Pc,), lane)]
+    rows.sort(key=lambda e: e["name"])
+    return dict(f_class=int(index), v_class=int(index), mode=kind,
+                frontier_rows=int(Fc), visited_rows=int(Vc),
+                pair_rows=int(Pc), staging=rows,
+                staging_bytes=plan_total(rows))
+
+
 def session_resident_bytes(checker) -> dict:
     """The dominant resident bytes of a device checker from its
     configuration alone — a floor for admission, before any device

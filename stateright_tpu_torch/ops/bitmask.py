@@ -55,8 +55,30 @@ def const_words(words, device) -> torch.Tensor:
     """Host word tuple -> device constant ``int64[L]``, which
     broadcasts against ``[N, L]`` rows. (The JAX version turns a
     one-word mask into a scalar to spare the TPU's tile padding; here a
-    one-word mask stays ``[1]``, so results are always ``[N, L]``.)"""
-    return torch.tensor(words, dtype=torch.int64, device=device)
+    one-word mask stays ``[1]``, so results are always ``[N, L]``.)
+    Made once a (words, device) and shared, so a wave that asks for it
+    copies nothing from the host (a CUDA graph cannot capture that
+    copy); callers never write to it."""
+    key = (_frozen(words), torch.device(device))
+    out = _CONST_WORDS.get(key)
+    if out is None:
+        out = _CONST_WORDS[key] = torch.tensor(key[0], dtype=torch.int64,
+                                               device=device)
+    return out
+
+
+#: :func:`const_words`'s tensors, by (words, device)
+_CONST_WORDS: dict = {}
+
+
+def _frozen(words):
+    """Nested word sequences as nested tuples of ints (a cache key)."""
+    if isinstance(words, (list, tuple)) or hasattr(words, "tolist"):
+        seq = words.tolist() if hasattr(words, "tolist") else words
+        if isinstance(seq, (list, tuple)):
+            return tuple(_frozen(w) for w in seq)
+        return int(seq)
+    return int(words)
 
 
 def select_words_host(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

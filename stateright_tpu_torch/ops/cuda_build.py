@@ -58,6 +58,41 @@ BUILD_SECONDS: dict = {}
 _TRACED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+#: the launches recorded into the CUDA graph being captured on this
+#: thread (wrapper -> count), or None when nothing is being captured
+_CAPTURE = threading.local()
+
+
+def note_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: at once when it ran,
+    or, while a CUDA graph is being captured (:func:`capturing`), into
+    the capture's tally, which :func:`replayed` adds at each replay —
+    a captured launch runs only when its graph is replayed."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+class capturing:
+    """``with capturing() as tally:`` — launches noted inside are the
+    graph's (``tally``: wrapper -> launches a replay)."""
+
+    def __enter__(self) -> dict:
+        self.tally = _CAPTURE.tally = {}
+        return self.tally
+
+    def __exit__(self, *exc) -> None:
+        _CAPTURE.tally = None
+
+
+def replayed(tally: dict) -> None:
+    """One replay of a graph whose capture noted ``tally``."""
+    for wrapper, n in tally.items():
+        wrapper.launches += n
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -33,6 +33,16 @@ A tensor on the CPU takes the plain version; a tensor on a CUDA device
 launches the kernel, and the kernel either runs or raises — there is no
 fallback. ``insert_cuda.launches`` counts the kernel's calls.
 
+:func:`insert_dev` is the DEVICE-COUNT entry point the hash engine's
+chunked wave calls: the key count is a 0-d int64 tensor on the device,
+read by the kernels, the key buffer is fixed-capacity with anything
+past the count, and the call's epoch is a device counter the call
+advances itself, so the launch replays in a CUDA graph (where a host
+epoch would be frozen at capture). It launches the same kernels
+through the same wrapper (``insert_cuda(..., n=, epoch=)``), whose
+count takes a replayed launch at each replay
+(``cuda_build.note_launch``).
+
 The table is updated IN PLACE (the JAX op returns a new table): a
 wave's insert into a 2^25-slot table would otherwise copy 268 MB of
 keys (537 MB of entries on the card).
@@ -48,6 +58,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .cuda_build import note_launch
 from .fingerprint import unpack_keys
 
 #: the JAX probe bound (``ops/hashset.py`` ``PROBE_ROUNDS``)
@@ -225,6 +236,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p,  # entries
             ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # mask, rounds, epoch
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # slot, is_new, overflow
+            ctypes.c_void_p, ctypes.c_void_p,  # n, epoch on the device (or None)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -279,36 +291,75 @@ def _check_cuda(table: DeviceHashSet, keys: torch.Tensor,
 
 def insert_cuda(table: DeviceHashSet, keys: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
-                rounds: int = PROBE_ROUNDS
+                rounds: int = PROBE_ROUNDS, *, n: torch.Tensor = None,
+                epoch: torch.Tensor = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA insert (see the module docstring): ``(is_new, overflow,
     slot)``, the table updated in place, two kernels on the current
-    stream and no sync."""
+    stream and no sync.
+
+    With ``n`` and ``epoch`` (0-d int64 tensors on the keys' device; see
+    :func:`insert_dev`) the key count is the first ``n`` rows of
+    ``keys``, read by the kernels over a grid of ``len(keys)`` rows, and
+    the call's epoch is taken from the device counter ``epoch``, which
+    this call advances on the device first (``table.epoch`` is left
+    alone: a table is driven by device epochs or host ones, not both);
+    only rows ``[0, n)`` of the outputs are written."""
     _check_cuda(table, keys, active, rounds)
-    n = keys.numel()
+    if (n is None) != (epoch is None):
+        raise ValueError("pass both n and epoch, or neither")
+    for t in (n, epoch):
+        if t is not None and (t.device != keys.device
+                              or t.dtype != torch.int64 or t.dim()):
+            raise ValueError(
+                "n and epoch must be 0-d int64 tensors on the keys' device")
+    cap = keys.numel()
     dev = keys.device
-    # the kernels write every row of all three
-    is_new = torch.empty(n, dtype=torch.bool, device=dev)
-    overflow = torch.empty(n, dtype=torch.bool, device=dev)
-    slot = torch.empty(n, dtype=torch.int64, device=dev)
-    if n == 0:
+    # the kernels write every (live) row of all three
+    is_new = torch.empty(cap, dtype=torch.bool, device=dev)
+    overflow = torch.empty(cap, dtype=torch.bool, device=dev)
+    slot = torch.empty(cap, dtype=torch.int64, device=dev)
+    if cap == 0:
         return is_new, overflow, slot
-    epoch = _next_epoch(table)
+    if epoch is None:
+        host_epoch = _next_epoch(table)
+    else:
+        host_epoch = 0
+        epoch.add_(1)
     fn = _lib().stpu_hash_insert
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(keys.data_ptr(),
-                 None if active is None else active.data_ptr(), n,
+                 None if active is None else active.data_ptr(), cap,
                  table.entries.data_ptr(), table.capacity - 1, rounds,
-                 epoch, slot.data_ptr(), is_new.data_ptr(),
-                 overflow.data_ptr(), stream)
+                 host_epoch, slot.data_ptr(), is_new.data_ptr(),
+                 overflow.data_ptr(), None if n is None else n.data_ptr(),
+                 None if epoch is None else epoch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"stpu_hash_insert launch failed: CUDA error {err}")
-    insert_cuda.launches += 1
+    note_launch(insert_cuda)
     return is_new, overflow, slot
 
 
 insert_cuda.launches = 0
+
+
+def insert_plain_dev(table: DeviceHashSet, keys: torch.Tensor,
+                     active: Optional[torch.Tensor], n: torch.Tensor,
+                     rounds: int = PROBE_ROUNDS
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the device-count insert: :func:`insert_plain`
+    of the first ``n`` rows where ``active`` (rows past ``n`` report no
+    insert, no overflow, slot 0). Host tensors, where reading ``n``
+    costs no device sync, so it probes the live rows only."""
+    n = int(n)
+    cap = keys.numel()
+    is_new = torch.zeros(cap, dtype=torch.bool, device=keys.device)
+    overflow = torch.zeros_like(is_new)
+    slot = torch.zeros(cap, dtype=torch.int64, device=keys.device)
+    is_new[:n], overflow[:n], slot[:n] = insert_plain(
+        table, keys[:n], None if active is None else active[:n], rounds)
+    return is_new, overflow, slot
 
 
 # -- entry points ------------------------------------------------------------
@@ -335,6 +386,21 @@ def insert(table: DeviceHashSet, keys: torch.Tensor,
     if keys.device.type == "cuda":
         return (table, *insert_cuda(table, keys, active, rounds))
     return (table, *insert_plain(table, keys, active, rounds))
+
+
+def insert_dev(table: DeviceHashSet, keys: torch.Tensor,
+               active: Optional[torch.Tensor], n: torch.Tensor,
+               epoch: torch.Tensor, rounds: int = PROBE_ROUNDS
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Insert the first ``n`` packed ``keys`` where ``active``, with the
+    count ``n`` and the epoch counter ``epoch`` (see
+    :func:`insert_cuda`) as 0-d int64 tensors on the keys' device:
+    ``(is_new, overflow, slot)``, rows past ``n`` unspecified. The
+    kernel for CUDA tensors, the plain version for CPU tensors (which
+    keep no tags, so the epoch is not used)."""
+    if keys.device.type == "cuda":
+        return insert_cuda(table, keys, active, rounds, n=n, epoch=epoch)
+    return insert_plain_dev(table, keys, active, n, rounds)
 
 
 def contains(table: DeviceHashSet, keys: torch.Tensor,

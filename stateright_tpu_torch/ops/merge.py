@@ -33,6 +33,16 @@ launches the kernel, and the kernel either runs or raises — there is
 no fallback. Each CUDA wrapper counts its launches in a plain int
 attribute (``member_cuda.launches``), so a run can show that its main
 path went through the kernels.
+
+Each op also has a DEVICE-COUNT entry point (:func:`member_keys_dev`,
+:func:`merge_keys_dev`): the live lengths are 0-d int64 tensors on the
+keys' device, read by the kernel, and the buffers are fixed-capacity
+with anything past the live lengths. The engines' chunked waves use
+them, so a wave issues no host read and replays as a CUDA graph with
+other counts. Both forms launch the same kernel through the same
+wrapper (``member_cuda(..., na=, nq=)``), which counts its launches
+once; a launch recorded into a CUDA graph is counted at each replay
+(``cuda_build.note_launch``).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import ctypes
 
 import torch
 
+from .cuda_build import note_launch
 from .fingerprint import SENTINEL_KEY, pack_keys, unpack_keys
 
 _SENT = 0xFFFFFFFF
@@ -112,6 +123,34 @@ def merge_sorted_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def member_sorted_plain_dev(a: torch.Tensor, na: torch.Tensor,
+                            q: torch.Tensor, nq: torch.Tensor
+                            ) -> torch.Tensor:
+    """The plain version of the device-count member entry: ``bool[len(q)]``,
+    whether each of the first ``nq`` keys of ``q`` is among the first
+    ``na`` keys of sorted ``a`` (False past ``nq``). Rows past the counts
+    may hold anything. It runs on host tensors (the CPU path), where
+    reading a count costs no device sync, so it searches the live
+    prefixes only."""
+    na, nq = int(na), int(nq)
+    out = torch.zeros(q.numel(), dtype=torch.bool, device=q.device)
+    out[:nq] = member_sorted_plain(a[:na], q[:nq])
+    return out
+
+
+def merge_sorted_plain_dev(a: torch.Tensor, na: torch.Tensor,
+                           b: torch.Tensor, nb: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+    """The plain version of the device-count merge entry: the stable
+    merge of ``a[:na]`` and ``b[:nb]`` into ``out[:na + nb]`` (the rows
+    after it are left), ``out`` returned. Rows past the counts may hold
+    anything; ``out`` must hold ``na + nb`` rows. Host tensors, as
+    :func:`member_sorted_plain_dev`."""
+    na, nb = int(na), int(nb)
+    out[:na + nb] = merge_sorted_plain(a[:na], b[:nb])
+    return out
+
+
 def merge_path_starts(a_lo, a_hi, b_lo, b_hi, block: int) -> torch.Tensor:
     """``int64[G + 1]`` A-side splits of the merged sequence at every
     ``block``-row output boundary (G = ceil((Na+Nb)/block)), A first on
@@ -155,9 +194,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = load(_SOURCE)
     if not getattr(lib, "stpu_bound", False):
-        args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p]
+        # a, its count's pointer (or None) and value; b, the same; out,
+        # tile, stream
+        args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         for fn in (lib.stpu_merge_sorted, lib.stpu_member_sorted):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -184,11 +225,27 @@ def _check_cuda(block: int, *keys: torch.Tensor) -> None:
         )
 
 
-def _launch(fn, a, b, out, block: int) -> None:
-    """One kernel launch on the current stream (no scratch, no sync)."""
+def _check_counts(keys: torch.Tensor, *counts: torch.Tensor) -> None:
+    for n in counts:
+        if (n.device != keys.device or n.dtype != torch.int64
+                or n.dim() != 0):
+            raise ValueError(
+                "device counts must be 0-d int64 tensors on the keys' "
+                f"device, got {n.dtype} shape {tuple(n.shape)} on {n.device}"
+            )
+
+
+def _launch(fn, a, na, b, nb, out, block: int) -> None:
+    """One kernel launch on the current stream (no scratch, no sync):
+    ``na``/``nb`` None for the live lengths ``len(a)``/``len(b)``, or 0-d
+    device counts of the live prefixes."""
+    dev = na is not None
+    if dev:
+        _check_counts(a, na, nb)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), a.numel(), b.data_ptr(), b.numel(),
+        err = fn(a.data_ptr(), na.data_ptr() if dev else None, a.numel(),
+                 b.data_ptr(), nb.data_ptr() if dev else None, b.numel(),
                  out.data_ptr(), block, stream)
     if err != 0:
         raise RuntimeError(
@@ -197,15 +254,20 @@ def _launch(fn, a, b, out, block: int) -> None:
 
 
 def member_cuda(a: torch.Tensor, q: torch.Tensor,
-                block: int = MEMBER_BLOCK) -> torch.Tensor:
-    """The member kernel on packed keys (see :func:`member_sorted`)."""
+                block: int = MEMBER_BLOCK, *, na=None, nq=None
+                ) -> torch.Tensor:
+    """The member kernel on packed keys (see :func:`member_sorted`).
+    With ``na`` and ``nq`` (0-d int64 tensors on the keys' device, see
+    :func:`member_keys_dev`) the live lengths are read from device
+    memory and only flags ``[0, nq)`` are written; the grid is sized to
+    the buffers' capacities."""
     _check_cuda(block, a, q)
-    if a.numel() == 0 or q.numel() == 0:
-        return torch.zeros(q.numel(), dtype=torch.bool, device=q.device)
-    # the kernel writes every query's flag
     out = torch.empty(q.numel(), dtype=torch.bool, device=q.device)
-    _launch(_lib().stpu_member_sorted, a, q, out, block)
-    member_cuda.launches += 1
+    if q.numel() == 0 or (na is None and a.numel() == 0):
+        return out.fill_(False)
+    # the kernel writes every live query's flag
+    _launch(_lib().stpu_member_sorted, a, na, q, nq, out, block)
+    note_launch(member_cuda)
     return out
 
 
@@ -213,17 +275,26 @@ member_cuda.launches = 0
 
 
 def merge_cuda(a: torch.Tensor, b: torch.Tensor,
-               block: int = MERGE_BLOCK) -> torch.Tensor:
-    """The merge kernel on packed keys (see :func:`merge_sorted`)."""
-    _check_cuda(block, a, b)
-    if b.numel() == 0:
-        return a.clone()
-    if a.numel() == 0:
-        return b.clone()
-    out = torch.empty(a.numel() + b.numel(), dtype=torch.int64,
-                      device=a.device)
-    _launch(_lib().stpu_merge_sorted, a, b, out, block)
-    merge_cuda.launches += 1
+               block: int = MERGE_BLOCK, *, na=None, nb=None, out=None
+               ) -> torch.Tensor:
+    """The merge kernel on packed keys (see :func:`merge_sorted`). With
+    ``na`` and ``nb`` (0-d device counts, see :func:`merge_keys_dev`)
+    the live lengths are read from device memory and rows ``[0, na +
+    nb)`` of ``out`` (which must hold them) are written."""
+    if na is None:
+        _check_cuda(block, a, b)
+        if b.numel() == 0:
+            return a.clone()
+        if a.numel() == 0:
+            return b.clone()
+        out = torch.empty(a.numel() + b.numel(), dtype=torch.int64,
+                          device=a.device)
+    else:
+        _check_cuda(block, a, b, out)
+        if a.numel() + b.numel() == 0:
+            return out
+    _launch(_lib().stpu_merge_sorted, a, na, b, nb, out, block)
+    note_launch(merge_cuda)
     return out
 
 
@@ -257,6 +328,33 @@ def merge_keys(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
     if _on_cuda(impl, a):
         return merge_cuda(a, b, block)
     return merge_sorted_plain(a, b)
+
+
+def member_keys_dev(a: torch.Tensor, na: torch.Tensor, q: torch.Tensor,
+                    nq: torch.Tensor, *, impl: str = "auto",
+                    block: int = MEMBER_BLOCK) -> torch.Tensor:
+    """Membership with device counts: ``bool[len(q)]`` whose first ``nq``
+    rows say whether each of the first ``nq`` keys of ``q`` (sorted) is
+    among the first ``na`` keys of sorted ``a``; rows past ``nq`` are
+    unspecified. ``na``, ``nq``: 0-d int64 tensors on the keys' device.
+    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _on_cuda(impl, q):
+        return member_cuda(a, q, block, na=na, nq=nq)
+    return member_sorted_plain_dev(a, na, q, nq)
+
+
+def merge_keys_dev(a: torch.Tensor, na: torch.Tensor, b: torch.Tensor,
+                   nb: torch.Tensor, out: torch.Tensor, *,
+                   impl: str = "auto", block: int = MERGE_BLOCK
+                   ) -> torch.Tensor:
+    """Stable merge with device counts: ``a[:na]`` and ``b[:nb]`` into
+    ``out[:na + nb]`` (the caller sees that ``out`` holds ``na + nb``
+    rows: the kernel cannot check a count it never reads on the host;
+    rows past the live length are unspecified), ``out`` returned. The
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _on_cuda(impl, a):
+        return merge_cuda(a, b, block, na=na, nb=nb, out=out)
+    return merge_sorted_plain_dev(a, na, b, nb, out)
 
 
 def member_sorted(a_lo, a_hi, q_lo, q_hi, *, impl: str = "auto",
@@ -302,6 +400,55 @@ def compact_winners(is_new, pos, lo, hi, nf: int):
     lanes = torch.stack([t.to(torch.int64) for t in (pos, lo, hi)])
     out = _rank_scatter(is_new, nf, lanes, _SENT)
     return out[0], out[1], out[2]
+
+
+#: spare slots a static scatter on the card sends the elements it drops
+#: to, spread over so many that no slot takes many writes (millions of
+#: writes to one address serialize there); one on the CPU
+DUMP = 1 << 16
+
+
+def dump_size(device) -> int:
+    """The spare slots a static scatter's buffer adds on ``device``."""
+    return DUMP if torch.device(device).type == "cuda" else 1
+
+
+def dump_slots(cap: int, n: int, device) -> torch.Tensor:
+    """``int64[n]``: for element ``i`` of a static scatter into a buffer
+    of ``cap`` live slots and :func:`dump_size` spare ones, the spare
+    slot it is sent to when it is dropped."""
+    return cap + (torch.arange(n, dtype=torch.int64, device=device)
+                  & (dump_size(device) - 1))
+
+
+def rank_compact(mask: torch.Tensor, cap: int, lanes: torch.Tensor,
+                 fill) -> torch.Tensor:
+    """Order-preserving compaction of the ``mask`` columns of ``lanes
+    [R, B]`` into a fixed ``[R, cap]`` block, with no host read: column
+    ``i`` goes to its rank among the masked columns, columns past the
+    count hold ``fill`` (an int, or one int a lane), masked columns past
+    ``cap`` drop. The static form of :func:`_rank_scatter` (a CUDA
+    graph replays it at any count)."""
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    dest = torch.where(mask & (rank < cap), rank,
+                       dump_slots(cap, mask.numel(), mask.device))
+    fills = fill if isinstance(fill, (list, tuple)) else [fill] * len(lanes)
+    out = torch.empty((lanes.shape[0], cap + dump_size(lanes.device)),
+                      dtype=lanes.dtype, device=lanes.device)
+    for r, f in enumerate(fills):
+        out[r].fill_(f)
+    out[:, dest] = lanes
+    return out[:, :cap]
+
+
+def compact_winners_keys_dev(is_new, pos, keys, cap: int):
+    """:func:`compact_winners_keys` into a fixed ``cap``-row block, with
+    the winner count left on the device: ``(nf_pos, w_keys)``, rows past
+    the count holding position 0 (a valid gather index) and the sentinel
+    key."""
+    out = rank_compact(is_new, cap, torch.stack([pos, keys]),
+                       [0, SENTINEL_KEY])
+    return out[0], out[1]
 
 
 def compact_winners_keys(is_new, pos, keys, nf: int):

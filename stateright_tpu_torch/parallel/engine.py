@@ -80,13 +80,15 @@ class ShardedTpuBfsChecker(ShardedEngine, TpuBfsChecker):
                  track_paths: bool = True, *,
                  cand_capacity: Optional[int] = None,
                  probe_rounds: int = 16, checkpoint_every=None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None,
+                 waves_per_sync: int = 1):
         devs = resolve_devices(n_shards, devices)
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, devs[0], cand_capacity=cand_capacity,
                          probe_rounds=probe_rounds,
                          checkpoint_every=checkpoint_every,
-                         checkpoint_path=checkpoint_path)
+                         checkpoint_path=checkpoint_path,
+                         waves_per_sync=waves_per_sync)
         self._set_devices(devs)
 
     def _visited_bytes_per_row(self) -> int:

@@ -138,7 +138,8 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
                  tier_budget_bytes: Optional[int] = None,
                  tier_max_runs: int = 8, v_min: int = 1 << 19,
                  v_ladder_step: int = 2, checkpoint_every=None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None,
+                 waves_per_sync: int = 1):
         devs = resolve_devices(n_shards, devices)
         super().__init__(builder, encoded, capacity, frontier_capacity,
                          track_paths, devs[0], sparse=sparse,
@@ -148,7 +149,8 @@ class ShardedSortMergeTpuBfsChecker(ShardedEngine, SortMergeTpuBfsChecker):
                          tier_max_runs=tier_max_runs, v_min=v_min,
                          v_ladder_step=v_ladder_step,
                          checkpoint_every=checkpoint_every,
-                         checkpoint_path=checkpoint_path)
+                         checkpoint_path=checkpoint_path,
+                         waves_per_sync=waves_per_sync)
         self._set_devices(devs)
 
     # -- the start state ----------------------------------------------------

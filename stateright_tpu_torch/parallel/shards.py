@@ -53,6 +53,10 @@ class ShardedEngine:
     shard ids, the degrade hooks the supervisor calls
     (checkpoint.supervised_run) and overflow messages naming a shard."""
 
+    #: one wave a chunk: the sharded engines' chunk (JAX's 16 waves a
+    #: sync) is a later slice
+    _chunks_waves = False
+
     def _set_devices(self, devs: list) -> None:
         #: one device a shard
         self.devices = list(devs)

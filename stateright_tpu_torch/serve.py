@@ -16,10 +16,11 @@ serves many concurrent sessions from it:
   daemon's ``--device``): every session runs on it, and a session's argv
   takes no flag. A service on the card never runs a session on the CPU:
   a session that fails on the card ends ``failed`` with its error.
-* **The FIFO gate** (:class:`FifoLock`): each wave's issue and sync runs
-  inside the service's gate (the engines' ``dispatch_gate``, applied in
-  ``checkers/tpu.py`` ``_guarded_wave``), so concurrent sessions take
-  the device a wave at a time in arrival order. Each session's queue
+* **The FIFO gate** (:class:`FifoLock`): each chunk's issue and sync
+  runs inside the service's gate (the engines' ``dispatch_gate``,
+  applied in ``checkers/tpu.py`` ``_guarded_wave``), so concurrent
+  sessions take the device a chunk at a time (up to ``waves_per_sync``
+  waves, checkers/chunk.py) in arrival order, as JAX's do. Each session's queue
   wait is summed, and the kernel launches made while it held the gate
   are counted as its own (``Session.launches``).
 * **Admission** (``memplan.session_resident_bytes``): a session's

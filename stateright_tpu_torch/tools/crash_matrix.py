@@ -40,11 +40,12 @@ divergence. ``--trace`` traces the baseline and the resumed run of the
 
 Where the port differs from the JAX tool:
 
-* **A chunk is one wave** (checkpoint.py). The matrix keeps JAX's
-  chunks of ``--waves-per-sync`` waves for its seeded pick: a snapshot
-  every ``--checkpoint-every`` chunks, the kill at the end of chunk K
-  (right after its snapshot) and the mid-wave faults in its first wave,
-  the waves where JAX's fire.
+* **Chunks are JAX's** on the single-device engine (checkers/chunk.py):
+  its cells run chunks of ``--waves-per-sync`` waves, a snapshot every
+  ``--checkpoint-every`` chunks, the kill at the end of the chunk right
+  after the seeded snapshot and the mid-chunk faults in the chunk after
+  it, the chunks where JAX's fire. The sharded engines run one wave a
+  chunk, so the mesh cells count the same places in waves.
 * The runs take the sizes of the port's ``check-gpu`` lanes, and run on
   the CUDA device unless ``--device cpu`` (passed to every process);
   the mesh cells put their shards on that device.
@@ -330,10 +331,14 @@ def run_matrix(args: argparse.Namespace, cells=CELLS) -> tuple[int, dict]:
     cadence = wps * every  # waves between snapshots
     kill_chunk = 1 + faultinject.chunk_for_seed(
         args.seed, max(args.chunks_hint - 1, 1))
-    # the kill ends chunk K right after its snapshot; the mid-wave
-    # faults strike chunk K's first wave
-    kill_wave = (kill_chunk + 1) * cadence - 1
-    fault_wave = kill_chunk * cadence
+    # the kill ends the chunk right after the seeded snapshot; the
+    # mid-chunk faults strike the chunk after the one before it: chunk
+    # indices at wps waves a chunk, and the same places in waves (the
+    # mesh engines run one wave a chunk)
+    kill_at = (kill_chunk + 1) * every - 1
+    fault_at = kill_chunk * every
+    kill_wave = (kill_at + 1) * wps - 1
+    fault_wave = fault_at * wps
     tmp = tempfile.mkdtemp(prefix="stpu_torch_crash_matrix_")
     snap = os.path.join(tmp, "matrix.ckpt")
     out_cells: dict = {}
@@ -379,7 +384,7 @@ def run_matrix(args: argparse.Namespace, cells=CELLS) -> tuple[int, dict]:
             path = f"--checkpoint-path={kill_snap}"
             proc, _, _ = _run_cli(
                 lane + [f"--checkpoint-every={every}", path], root,
-                faults=f"kill@chunk_boundary:{kill_wave}")
+                faults=f"kill@chunk_boundary:{kill_at}")
             if proc.returncode != faultinject.KILL_EXIT_CODE:
                 cell("kill", "no_kill", returncode=proc.returncode,
                      note="run completed before the seeded kill chunk — "
@@ -428,9 +433,10 @@ def run_matrix(args: argparse.Namespace, cells=CELLS) -> tuple[int, dict]:
 
         def device_fault():
             nonlocal snapshot_bytes, plan_bytes
-            c = _spawn(args, checkpoint_every=cadence, checkpoint_path=snap)
+            c = _spawn(args, checkpoint_every=every, checkpoint_path=snap,
+                       waves_per_sync=wps)
             c.retry_backoff_sec = 0.01
-            faultinject.arm("raise", "mid_chunk", fault_wave)
+            faultinject.arm("raise", "mid_chunk", fault_at)
             try:
                 n = _join_quiet(c).unique_state_count()
                 plan_bytes = (c.memory_plan or {}).get("resident_bytes")
@@ -507,13 +513,13 @@ def run_matrix(args: argparse.Namespace, cells=CELLS) -> tuple[int, dict]:
                 faultinject.disarm_all()
 
         def hang_watchdog():
-            c = _spawn(args, checkpoint_every=cadence,
+            c = _spawn(args, checkpoint_every=every, waves_per_sync=wps,
                        checkpoint_path=os.path.join(tmp, "hang.ckpt"))
             c.retry_backoff_sec = 0.01
             c.watchdog_factor = 5.0
             c.watchdog_floor_sec = args.watchdog_floor_sec
             c.watchdog_grace_sec = 20.0
-            faultinject.arm("hang", "mid_chunk", fault_wave,
+            faultinject.arm("hang", "mid_chunk", fault_at,
                             hang_sec=args.hang_sec)
             try:
                 n = _join_quiet(c).unique_state_count()

@@ -5,8 +5,10 @@ The kernels run only on the card; this file keeps a plain-Python copy
 of what each CTA of ``merge_path_tiles`` does and runs it on small
 inputs:
 
-* the persistent grid (``launch``): tiles of T = threads * R rows, a
-  run of ``per_cta`` tiles for each CTA, never more CTAs than tiles;
+* the persistent grid (``launch``): tiles of T = threads * R rows, at
+  most the resident CTAs and never more CTAs than tiles of the buffers
+  (a call with device counts sizes the grid to the capacities), a run of
+  ceil(tiles / grid) live tiles for each CTA, the CTAs past them idle;
 * the two diagonals at the ends of a CTA's run, found by the
   warp-cooperative search (32 probes and one ballot a step), held
   against the plain partition ``merge_path_starts_keys``;
@@ -140,7 +142,7 @@ def _cta(a, b, threads, rows_per, member, per_cta, cta, phases, out,
     pa, pb, po = phases
     m = len(a) + len(b)
     d_beg = cta * per_cta * T
-    assert d_beg < m  # the grid launches no idle CTA
+    assert d_beg < m  # an idle CTA exits before this
     d_end = min(d_beg + per_cta * T, m)
     a0, a1 = _warp_split(a, b, d_beg), _warp_split(a, b, d_end)
     b1 = d_end - a1
@@ -238,14 +240,23 @@ def _cta(a, b, threads, rows_per, member, per_cta, cta, phases, out,
     return a0, a1
 
 
-def _emulate(a, b, threads, rows_per, member, resident, phases):
-    """The whole launch: ``launch`` picks the grid, then every CTA runs
-    (in reverse order: CTAs need none)."""
+def _grid(m, T, resident, cap=0):
+    """``launch``'s grid for ``m`` live rows in buffers of ``m + cap``
+    rows, and the kernel's tiles a CTA: ``(grid, per_cta)``."""
+    grid = max(1, min(-(-(m + cap) // T), resident))
+    return grid, -(-(-(-m // T)) // grid)
+
+
+def _emulate(a, b, threads, rows_per, member, resident, phases, cap=0):
+    """The whole launch: ``launch`` picks the grid (for buffers of
+    ``cap`` rows past the live ones), then every CTA with live tiles
+    runs (in reverse order: CTAs need none); the rest exit."""
     T = threads * rows_per
     m = len(a) + len(b)
     tiles = -(-m // T)
-    per_cta = -(-tiles // resident)
-    grid = -(-tiles // per_cta)
+    launched, per_cta = _grid(m, T, resident, cap)
+    grid = -(-tiles // per_cta)  # the CTAs with live tiles
+    assert grid <= launched
     n_out = len(b) if member else m
     out, written = [None] * n_out, [0] * n_out
     reads = ([0] * len(a), [0] * len(b))
@@ -304,16 +315,19 @@ def test_tile_math_equals_numpy(member, shape, delta):
     threads, rows_per = _tiles(member)[shape]
     T = threads * rows_per
     k = 2 if shape == 2 else 5
-    for trial, (split, resident, phases) in enumerate([
-        ("random", 2, (0, 0, 0)),
-        ("random", 1 << 20, (1, 0, 3)),
-        ("a-then-b", 3, (0, 1, 1)),
-        ("one-a", 2, (1, 1, 2)),
+    for trial, (split, resident, phases, cap) in enumerate([
+        ("random", 2, (0, 0, 0), 0),
+        ("random", 1 << 20, (1, 0, 3), 0),
+        ("a-then-b", 3, (0, 1, 1), 0),
+        ("one-a", 2, (1, 1, 2), 0),
+        # device counts: the grid sized to buffers of 7 tiles more
+        ("random", 1 << 20, (0, 1, 2), 7 * T),
+        ("a-then-b", 4, (1, 0, 1), 3 * T),
     ]):
         a, b = _case(100 * shape + 10 * (delta + 1) + trial, T, k, delta,
                      split)
         got, splits = _emulate(a, b, threads, rows_per, member, resident,
-                               phases)
+                               phases, cap)
         if member:
             want = np.isin(np.array(b), np.array(a)).tolist()
         else:
@@ -321,8 +335,7 @@ def test_tile_math_equals_numpy(member, shape, delta):
         assert got == want, (split, resident, phases)
         # the CTA run diagonals are the plain partition's
         m = len(a) + len(b)
-        tiles = -(-m // T)
-        run = -(-tiles // resident) * T
+        run = _grid(m, T, resident, cap)[1] * T
         plain = merge_path_starts_keys(torch.tensor(a, dtype=torch.int64),
                                        torch.tensor(b, dtype=torch.int64),
                                        run).tolist()

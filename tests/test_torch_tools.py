@@ -249,7 +249,7 @@ def test_waves_per_sync_scales_the_checkpoint_cadence(tmp_path):
     waves = [e["wave"] for e in events if e["ev"] == "checkpoint"]
     assert waves == [2, 4, 6, 8, 10]
     manifest, _ = checkpoint.load_snapshot(str(snap))
-    assert manifest["waves_per_sync"] == 1
+    assert manifest["waves_per_sync"] == 2
     # resumed from the wave-10 snapshot: the same counts
     out = _cli(["2pc", "check-gpu", "3", "--device", "cpu", "--resume",
                 "--waves-per-sync=2", f"--checkpoint-path={snap}"])
